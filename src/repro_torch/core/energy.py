@@ -1,0 +1,131 @@
+"""Analytical energy model of the KWS accelerator (paper §VI-B) — the part
+the streaming server's ``stats()`` reports.
+
+Own copy of the serving half of ``repro/core/energy.py`` (constants and
+formulas unchanged): per-event energies fitted to the paper's anchors
+(14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k cycles/decision), the
+streaming per-decision report and the duty-cycled VAD-gated summary.
+These are modelled chip numbers, not measurements of any device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+LEAKAGE_W = 61.8e-6            # static power, whole chip
+CYCLES_PER_DECISION = 160_000  # 160 ms @ 1 MHz
+
+E_IMC_MAC = 1.3e-15            # one ±1 MAC inside the array
+E_DIG_MAC8 = 0.6e-12           # 8-bit digital MAC (L1 sinc PEs, FC)
+E_SRAM_RD_BIT = 0.6e-12        # SRAM buffer read, per bit
+E_SRAM_WR_BIT = 0.7e-12
+E_CTRL_CYCLE = 12.0e-12        # IMC controller + FSM, per cycle
+
+
+@dataclasses.dataclass
+class LayerEnergy:
+    name: str
+    kind: str                   # 'digital' | 'imc' | 'fc'
+    macs: int
+    sram_read_bits: int
+    sram_write_bits: int
+    ctrl_cycles: int
+
+    @property
+    def dynamic_j(self) -> float:
+        e_mac = {"digital": E_DIG_MAC8, "imc": E_IMC_MAC,
+                 "fc": E_DIG_MAC8}[self.kind]
+        return (self.macs * e_mac
+                + self.sram_read_bits * E_SRAM_RD_BIT
+                + self.sram_write_bits * E_SRAM_WR_BIT
+                + self.ctrl_cycles * E_CTRL_CYCLE)
+
+
+@dataclasses.dataclass
+class ChipReport:
+    layers: List[LayerEnergy]
+    freq_hz: float = 1e6
+    # None -> the paper's full-window 160k cycles; the streaming report
+    # passes its per-hop cycle count
+    cycles_per_decision: Optional[int] = None
+
+    @property
+    def dynamic_j_per_decision(self) -> float:
+        return sum(layer.dynamic_j for layer in self.layers)
+
+    @property
+    def latency_s(self) -> float:
+        cycles = (CYCLES_PER_DECISION if self.cycles_per_decision is None
+                  else self.cycles_per_decision)
+        return cycles / self.freq_hz
+
+    @property
+    def energy_j_per_decision(self) -> float:
+        return self.dynamic_j_per_decision + LEAKAGE_W * self.latency_s
+
+
+def kws_chip_report(layer_stats: List[dict],
+                    freq_hz: float = 1e6) -> ChipReport:
+    """Report from per-layer op counts ({name, kind, macs, in_bits,
+    out_bits, cycles} rows, ``models.kws.layer_stats``)."""
+    return ChipReport(layers=[
+        LayerEnergy(name=s["name"], kind=s["kind"], macs=s["macs"],
+                    sram_read_bits=s.get("in_bits", 0),
+                    sram_write_bits=s.get("out_bits", 0),
+                    ctrl_cycles=s.get("cycles", 0))
+        for s in layer_stats], freq_hz=freq_hz)
+
+
+def kws_streaming_report(streaming_stats: List[dict],
+                         freq_hz: float = 1e6) -> ChipReport:
+    """Per-decision report of the frame-incremental path: leakage is
+    charged for the summed per-hop cycles, not the full-window 160k."""
+    rep = kws_chip_report(streaming_stats, freq_hz)
+    rep.cycles_per_decision = max(1, sum(int(s.get("cycles", 0))
+                                         for s in streaming_stats))
+    return rep
+
+
+def vad_stats(hop_samples: int) -> dict:
+    """Op counts of the always-on VAD front end per hop (one 8-bit MAC,
+    one buffered-sample read and one controller cycle per sample)."""
+    return {"name": "vad", "kind": "digital", "macs": int(hop_samples),
+            "in_bits": int(hop_samples * 8), "out_bits": 8,
+            "cycles": int(hop_samples)}
+
+
+def gated_energy_summary(offline_stats: List[dict],
+                         streaming_stats: List[dict], *,
+                         hop_samples: int, duty_cycle: float,
+                         freq_hz: float = 1e6) -> dict:
+    """Duty-cycled energy of the VAD-gated always-on path: every hop runs
+    the VAD; a speech hop also runs the streaming IMC stack; a gated hop
+    is charged the VAD's dynamic energy and leakage only."""
+    if not 0.0 <= duty_cycle <= 1.0:
+        raise ValueError(f"duty_cycle={duty_cycle} must be in [0, 1]")
+    off = kws_chip_report(offline_stats, freq_hz)
+    strm = kws_streaming_report(streaming_stats, freq_hz)
+    v = vad_stats(hop_samples)
+    vad_dynamic_j = LayerEnergy(
+        name=v["name"], kind=v["kind"], macs=v["macs"],
+        sram_read_bits=v["in_bits"], sram_write_bits=v["out_bits"],
+        ctrl_cycles=v["cycles"]).dynamic_j
+    vad_leak_j = LEAKAGE_W * v["cycles"] / freq_hz
+    idle_j = vad_dynamic_j + vad_leak_j
+    active_j = strm.energy_j_per_decision + idle_j
+    gated_j = duty_cycle * active_j + (1.0 - duty_cycle) * idle_j
+    offline_j = off.energy_j_per_decision
+    return {
+        "freq_hz": freq_hz,
+        "duty_cycle": duty_cycle,
+        "hop_samples": hop_samples,
+        "offline_uj_per_decision": offline_j * 1e6,
+        "ungated_uj_per_decision": active_j * 1e6,
+        "idle_uj_per_hop": idle_j * 1e6,
+        "vad_dynamic_uj": vad_dynamic_j * 1e6,
+        "vad_leakage_uj": vad_leak_j * 1e6,
+        "gated_uj_per_decision": gated_j * 1e6,
+        "reduction_vs_ungated": active_j / gated_j,
+        "reduction_vs_offline": offline_j / gated_j,
+    }

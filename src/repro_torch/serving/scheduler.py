@@ -1,0 +1,487 @@
+"""Multi-stream batched scheduler for always-on KWS serving.
+
+Port of the core of ``repro/serving/scheduler.py::StreamServer``: a fixed
+pool of stream slots, each holding one live stream's incremental
+``StreamState``, an admission queue, and per tick:
+
+* **admission** — every slotted stream whose buffer holds a full window
+  initializes; with ``batch_init`` (default) the whole wave runs in ONE
+  masked batched ``stream_init`` (one fused launch per IMC layer), else
+  one B=1 init per stream;
+* **voice-activity gating** (``vad=VADConfig(...)``) — each ready hop is
+  classified speech/silence.  The last ``wake_margin`` silent hops are
+  deferred (buffered host-side, state untouched); a speech onset replays
+  them together with the onset hop in ONE multi-hop launch per IMC layer,
+  so a keyword straddling the silence->speech edge keeps its prefix.
+  Older silent hops are gated: the state advances by the constant silence
+  fill (``stream.gated_step``) with no kernel launch, and emit no
+  decision;
+* **one batched hop** — every speech-ready slot's fresh frame rides ONE
+  ``stream_step`` call, i.e. exactly one fused-kernel launch per IMC
+  layer for the whole fleet; slots that are not ready ride along masked
+  (their state is restored verbatim);
+* **the decision head** (``serving.decision``) — smoothing, hysteresis and
+  refractory triggers, batched and mask-aware.
+
+Streams are evicted when their producer calls ``finish()`` and their
+buffer drains, or at once by ``evict()``.  ``stats()`` reports the tick,
+decision and hop counters, the batched-call counts by cause (each init /
+hop / replay call costs one launch per IMC layer, a gate call none) and
+the modelled gated energy per decision.
+
+Not in this port yet: SA noise, dynamic hop, admission control and
+autoscaling, the recompute fallback, customization, faults and health,
+profiles, compiled ticks, snapshots, the flight recorder and the trace.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import energy
+from repro_torch.kernels import resolve_device
+from repro_torch.models import kws
+from repro_torch.obs.metrics import MetricsRegistry, counter_property
+from repro_torch.serving import decision as dec
+from repro_torch.serving import stream as sv
+from repro_torch.serving import vad as vd
+
+
+@dataclasses.dataclass
+class _Stream:
+    stream_id: str
+    buf: np.ndarray                       # pending samples (host ring tail)
+    slot: Optional[int] = None
+    initialized: bool = False
+    finished: bool = False                # producer called finish()
+    hops: int = 0                         # decisions made (incl. window 0)
+    triggers: List[dict] = dataclasses.field(default_factory=list)
+    wall_s: float = 0.0                   # server time attributed to it
+    pending: List[np.ndarray] = dataclasses.field(   # deferred silent hops
+        default_factory=list)                        # (<= wake_margin)
+    gated_hops: int = 0                   # fill-advanced (no-compute) hops
+
+
+def _tree_map(fn, tree, *rest):
+    """Map ``fn`` over the tensor leaves of (named) tuples."""
+    if isinstance(tree, tuple):
+        items = [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return fn(tree, *rest)
+
+
+def _select_state(mask: torch.Tensor, new, old):
+    """Rows of ``new`` where ``mask`` is set, rows of ``old`` elsewhere."""
+    def sel(n, o):
+        return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
+                           n, o)
+    return _tree_map(sel, new, old)
+
+
+def _scatter_slot(state, one, slot: int):
+    """Write a B=1 state into row ``slot`` of a batched state."""
+    def put(full, o):
+        full = full.clone()
+        full[slot] = o[0]
+        return full
+    return _tree_map(put, state, one)
+
+
+class StreamServer:
+    """Admit / batch / gate / decide / evict over a pool of stream slots."""
+
+    _steps = counter_property("serving.steps")
+    _hop_wall_s = counter_property("serving.hop_wall_s")
+    _decisions = counter_property("serving.decisions")
+    _speech_hops = counter_property("serving.hops", kind="speech")
+    _gated_hops = counter_property("serving.hops", kind="gated")
+    _init_calls = counter_property("serving.batched_calls", cause="init")
+    _hop_calls = counter_property("serving.batched_calls", cause="hop")
+    _replay_calls = counter_property("serving.batched_calls",
+                                     cause="replay")
+    _gate_calls = counter_property("serving.batched_calls", cause="gate")
+
+    def __init__(self, hw, cfg: kws.KWSConfig, *, hop: int, slots: int = 4,
+                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                 sa_noise_std: float = 0.0, use_kernel: bool = True,
+                 decision: dec.DecisionConfig = dec.DecisionConfig(),
+                 vad: Optional[vd.VADConfig] = None,
+                 batch_init: bool = True,
+                 seed: int = 0, device=None):
+        if sa_noise_std > 0.0:
+            raise NotImplementedError(
+                "sa_noise_std > 0: SA noise needs the jax-compatible PRNG "
+                "and the per-column noise field, still to port (ROADMAP.md, "
+                "queue 1, item 1)")
+        self.device = resolve_device(device)
+        self._metrics = MetricsRegistry()
+        self.cfg = cfg
+        self.batch_init = batch_init
+        self.dcfg = decision
+        self.vcfg = vad
+        # ``seed`` will key the per-stream SA-noise fields; noise-free
+        # serving draws nothing
+        self.seed = seed
+        self.slots = slots
+        self.engine = sv.StreamEngine(hw, cfg, hop,
+                                      chip_offsets=chip_offsets,
+                                      use_kernel=use_kernel,
+                                      device=self.device)
+        self.geom = self.engine.geom
+        self._fills = None
+        if vad is not None:
+            self._fills = sv.silence_fills(cfg, kws.silence_columns(
+                hw, cfg, chip_offsets=self.engine.chip_offsets))
+
+        self._state = self.engine.zeros_state(slots)
+        self._dstate = dec.decision_init(slots, cfg.num_classes, decision,
+                                         device=self.device)
+        self._vstate = (vd.vad_init(slots, device=self.device)
+                        if vad is not None else None)
+        self._slots: List[Optional[_Stream]] = [None] * slots
+        self._queue: collections.deque[_Stream] = collections.deque()
+        self._streams: Dict[str, _Stream] = {}
+        self._steps = 0
+        self._hop_wall_s = 0.0
+        self._decisions = 0
+        self._speech_hops = 0
+        self._gated_hops = 0
+        # batched-compute accounting: each init/hop/replay call is one
+        # fused-kernel launch per IMC layer however many slots ride it;
+        # gate calls launch nothing
+        self._init_calls = 0
+        self._hop_calls = 0
+        self._replay_calls = 0
+        self._gate_calls = 0
+
+    @property
+    def hop(self) -> int:
+        return self.geom.hop
+
+    @property
+    def metrics(self) -> MetricsRegistry:
+        """The server's metrics registry (it backs ``stats()``)."""
+        return self._metrics
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- stream lifecycle ---------------------------------------------------
+
+    def submit(self, stream_id: str, chunk: np.ndarray) -> str:
+        """Append audio to a stream (created on first submit).  Returns
+        'slot' (live) or 'queued' (awaiting a slot)."""
+        rec = self._streams.get(stream_id)
+        if rec is None:
+            rec = _Stream(stream_id=stream_id,
+                          buf=np.zeros((0,), np.float32))
+            self._streams[stream_id] = rec
+            self._queue.append(rec)
+            self._try_admit()
+        if rec.finished:
+            raise ValueError(f"stream {stream_id} already finished")
+        rec.buf = np.concatenate([rec.buf, np.asarray(chunk, np.float32)])
+        return "slot" if rec.slot is not None else "queued"
+
+    def finish(self, stream_id: str) -> None:
+        """Producer signals end-of-stream: the slot is freed once the
+        buffered audio drains below one hop."""
+        self._streams[stream_id].finished = True
+
+    def evict(self, stream_id: str) -> None:
+        """Drop a stream immediately, freeing its slot."""
+        rec = self._streams[stream_id]
+        rec.finished = True
+        rec.buf = rec.buf[:0]
+        rec.pending = []
+        if rec.slot is not None:
+            self._free_slot(rec)
+        elif rec in self._queue:
+            self._queue.remove(rec)
+
+    def _free_slot(self, rec: _Stream) -> None:
+        self._slots[rec.slot] = None
+        rec.slot = None
+        self._try_admit()
+
+    def _try_admit(self) -> None:
+        for s in range(self.slots):
+            if self._slots[s] is None and self._queue:
+                rec = self._queue.popleft()
+                rec.slot = s
+                rec.initialized = False
+                self._slots[s] = rec
+
+    # -- the batched tick ---------------------------------------------------
+
+    def _admit_ready(self):
+        """Initialize every slotted stream whose buffer holds a full
+        window.  Returns (init_mask, init_logits) rows for this tick."""
+        window = self.geom.window
+        init_mask = np.zeros((self.slots,), bool)
+        init_logits = np.zeros((self.slots, self.cfg.num_classes),
+                               np.float32)
+        todo = [(s, rec) for s, rec in enumerate(self._slots)
+                if rec is not None and not rec.initialized
+                and len(rec.buf) >= window]
+        if not todo:
+            return init_mask, init_logits
+
+        def _book(rec, s, dt):
+            rec.wall_s += dt
+            rec.initialized = True
+            rec.hops += 1
+            rec.pending = []
+            self._dstate = dec.reset_slot(self._dstate, s)
+            if self._vstate is not None:
+                self._vstate = vd.vad_reset_slot(self._vstate, s)
+            init_mask[s] = True
+
+        if self.batch_init:
+            windows = np.zeros((self.slots, window), np.float32)
+            for s, rec in todo:
+                windows[s] = rec.buf[:window]
+                rec.buf = rec.buf[window:]   # the state carries the overlap
+                init_mask[s] = True
+            t0 = time.perf_counter()
+            logits, new_state = self.engine.init(self._tensor(windows))
+            self._state = _select_state(self._tensor(init_mask), new_state,
+                                        self._state)
+            logits = logits.cpu().numpy()
+            dt = time.perf_counter() - t0
+            self._hop_wall_s += dt
+            self._init_calls += 1
+            for s, rec in todo:
+                _book(rec, s, dt / len(todo))
+                init_logits[s] = logits[s]
+            return init_mask, init_logits
+
+        for s, rec in todo:
+            first = rec.buf[:window]
+            rec.buf = rec.buf[window:]
+            t0 = time.perf_counter()
+            logits, one = self.engine.init(self._tensor(first[None]))
+            self._state = _scatter_slot(self._state, one, s)
+            init_logits[s] = logits[0].cpu().numpy()
+            dt = time.perf_counter() - t0
+            self._hop_wall_s += dt
+            self._init_calls += 1
+            _book(rec, s, dt)
+        return init_mask, init_logits
+
+    def _event(self, rec: _Stream, s: int, out: dec.DecisionOut) -> dict:
+        ev = {"stream": rec.stream_id, "hop": rec.hops - 1,
+              "keyword": int(out.keyword[s]), "score": float(out.score[s]),
+              "trigger": bool(out.trigger[s])}
+        if ev["trigger"]:
+            rec.triggers.append(ev)
+        return ev
+
+    def step(self) -> List[dict]:
+        """One scheduler tick: admissions, VAD classification, wake
+        replays, ONE batched hop over every speech-ready slot, ONE masked
+        no-op fill over every gated slot, then the batched decision
+        update.  Returns this tick's decision events (gated hops emit
+        none)."""
+        hop = self.geom.hop
+        window = self.geom.window
+        init_mask, init_logits = self._admit_ready()
+
+        ready = np.zeros((self.slots,), bool)
+        audio = np.zeros((self.slots, hop), np.float32)
+        for s, rec in enumerate(self._slots):
+            if (rec is not None and rec.initialized and not init_mask[s]
+                    and len(rec.buf) >= hop):
+                ready[s] = True
+                audio[s] = rec.buf[:hop]
+                rec.buf = rec.buf[hop:]
+
+        if self.vcfg is None:
+            speech = ready.copy()
+        else:
+            self._vstate, sp = vd.vad_step(self.vcfg, self._vstate,
+                                           self._tensor(audio),
+                                           self._tensor(ready))
+            speech = sp.cpu().numpy() & ready
+
+        compute_mask = np.zeros((self.slots,), bool)
+        fill_mask = np.zeros((self.slots,), bool)
+        replays: List[tuple] = []
+        for s, rec in enumerate(self._slots):
+            if not ready[s]:
+                continue
+            if speech[s]:
+                if rec.pending:           # wake: replay the deferred hops
+                    replays.append((s, rec.pending + [audio[s]]))
+                    rec.pending = []
+                else:
+                    compute_mask[s] = True
+            else:
+                rec.pending.append(audio[s])
+                if len(rec.pending) > self.vcfg.wake_margin:
+                    rec.pending.pop(0)
+                    fill_mask[s] = True   # advance by the no-op fill
+                    rec.gated_hops += 1
+                    self._gated_hops += 1
+
+        events: List[dict] = []
+
+        # wake replays: the deferred silent hops plus the onset hop in ONE
+        # multi-hop launch per IMC layer for this slot
+        for s, chunks in replays:
+            rec = self._slots[s]
+            n = len(chunks)
+            mask = np.zeros((self.slots,), bool)
+            mask[s] = True
+            mask_t = self._tensor(mask)
+            a = np.zeros((self.slots, n * hop), np.float32)
+            a[s] = np.concatenate(chunks)
+            t0 = time.perf_counter()
+            lg, new_state = self.engine.multi_step(self._state,
+                                                   self._tensor(a), n)
+            self._state = _select_state(mask_t, new_state, self._state)
+            self._replay_calls += 1
+            outs = []
+            for j in range(n):
+                self._dstate, out = dec.decision_step(
+                    self.dcfg, self._dstate, lg[:, j], mask_t)
+                outs.append(out)
+            outs = [dec.DecisionOut(*(t.cpu() for t in out)) for out in outs]
+            dt = time.perf_counter() - t0
+            rec.wall_s += dt
+            self._hop_wall_s += dt
+            for out in outs:
+                self._decisions += 1
+                self._speech_hops += 1
+                rec.hops += 1
+                events.append(self._event(rec, s, out))
+
+        logits = init_logits
+        if compute_mask.any():
+            t0 = time.perf_counter()
+            hop_logits, new_state = self.engine.step(self._state,
+                                                     self._tensor(audio))
+            self._state = _select_state(self._tensor(compute_mask),
+                                        new_state, self._state)
+            hop_logits = hop_logits.cpu().numpy()
+            dt = time.perf_counter() - t0
+            self._hop_wall_s += dt
+            self._hop_calls += 1
+            n_active = int(compute_mask.sum())
+            for s, rec in enumerate(self._slots):
+                if compute_mask[s]:
+                    self._speech_hops += 1
+                    rec.hops += 1
+                    rec.wall_s += dt / n_active
+            logits = np.where(compute_mask[:, None], hop_logits, init_logits)
+
+        if fill_mask.any():
+            t0 = time.perf_counter()
+            new_state = sv.gated_step(self._state, self.cfg, self.geom,
+                                      self._fills)
+            self._state = _select_state(self._tensor(fill_mask), new_state,
+                                        self._state)
+            self._sync()
+            self._hop_wall_s += time.perf_counter() - t0
+            self._gate_calls += 1
+
+        decide_mask = init_mask | compute_mask
+        if decide_mask.any():
+            self._dstate, out = dec.decision_step(
+                self.dcfg, self._dstate, self._tensor(logits),
+                self._tensor(decide_mask))
+            self._decisions += int(decide_mask.sum())
+            out = dec.DecisionOut(*(t.cpu() for t in out))
+            for s, rec in enumerate(self._slots):
+                if rec is not None and decide_mask[s]:
+                    events.append(self._event(rec, s, out))
+
+        # retire drained finished streams
+        for rec in list(self._slots):
+            if (rec is not None and rec.finished
+                    and len(rec.buf) < (hop if rec.initialized
+                                        else window)):
+                self._free_slot(rec)
+        self._steps += 1
+        return events
+
+    def drain(self, max_steps: int = 10_000) -> List[dict]:
+        """Step until no slot can make progress and the queue is empty."""
+        events: List[dict] = []
+        for _ in range(max_steps):
+            before = (len(self._queue),
+                      [None if r is None else len(r.buf)
+                       for r in self._slots])
+            events.extend(self.step())
+            after = (len(self._queue),
+                     [None if r is None else len(r.buf)
+                      for r in self._slots])
+            if after == before:
+                break
+        return events
+
+    # -- accounting ---------------------------------------------------------
+
+    def active_streams(self) -> List[str]:
+        return [r.stream_id for r in self._slots if r is not None]
+
+    def stats(self) -> dict:
+        offline = kws.layer_stats(self.cfg)
+        streaming = sv.streaming_layer_stats(self.cfg, self.geom)
+        macs_off = sum(s["macs"] for s in offline)
+        macs_str = sum(s["macs"] for s in streaming)
+        total_hops = self._speech_hops + self._gated_hops
+        duty = (self._speech_hops / total_hops) if total_hops else None
+        out = {
+            "mode": "streaming",
+            "device": str(self.device),
+            "slots": self.slots,
+            "queue_depth": len(self._queue),
+            "steps": self._steps,
+            "decisions": self._decisions,
+            "hop": self.hop,
+            "speech_hops": self._speech_hops,
+            "gated_hops": self._gated_hops,
+            "batched_calls": {
+                "init": self._init_calls,
+                "hop": self._hop_calls,
+                "replay": self._replay_calls,
+                "gate": self._gate_calls,
+            },
+            "duty_cycle": round(duty, 4) if duty is not None else None,
+            "hop_wall_s": round(self._hop_wall_s, 4),
+            "decisions_per_sec": round(
+                self._decisions / self._hop_wall_s, 2)
+                if self._hop_wall_s > 0 else None,
+            "macs_per_decision": {
+                "offline": macs_off,
+                "streaming": macs_str,
+                "ratio": round(macs_str / macs_off, 4),
+            },
+            "per_stream": {
+                rec.stream_id: {"hops": rec.hops,
+                                "gated_hops": rec.gated_hops,
+                                "triggers": len(rec.triggers),
+                                "wall_s": round(rec.wall_s, 4)}
+                for rec in self._streams.values()
+            },
+        }
+        if self.vcfg is not None:
+            out["gated_energy"] = {
+                k: round(v, 4) if isinstance(v, float) else v
+                for k, v in energy.gated_energy_summary(
+                    offline, streaming, hop_samples=self.hop,
+                    duty_cycle=duty if duty is not None else 1.0).items()
+            }
+        return out

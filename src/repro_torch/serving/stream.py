@@ -1,0 +1,351 @@
+"""Frame-incremental streaming inference over the folded KWS model.
+
+Port of ``repro/serving/stream.py`` without the SA-noise field and the
+customization riders.  The accelerator is always-on: one decision per hop
+of a sliding window.  Every layer's activation columns are indexed by
+absolute time; when the hop is a multiple of ``hop_alignment(cfg)`` (the
+product of all strides and pool windows, 64 samples for the paper net),
+consecutive windows' overlapping columns are identical at every layer, so
+per hop each layer computes only its tail: the hop's fresh columns plus a
+small carry (the k-1 conv overlap and, where a layer's conv length is
+odd, the one column the previous window's OR-maxpool truncated).
+
+N hops of ``stream_step`` equal ``models.kws.hw_forward`` on each full
+window, bit for bit.  A ``stream_step`` over B streams launches the fused
+kernel exactly once per IMC layer (conv1..conv5) whatever B is;
+``stream_multi_step`` advances n consecutive hops in the same single
+launch per layer (the VAD wake replay).  ``gated_step`` advances a silent
+hop without launching anything: each layer's constant silence response
+shifts into the carries and the GAP ring.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import resolve_device
+from repro_torch.models import kws
+
+# ---------------------------------------------------------------------------
+# Geometry: what each layer computes per hop
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGeom:
+    """Static per-layer streaming geometry (one hop).
+
+    t_in/t_conv/t_out: full-window input / conv / post-pool lengths;
+    d_in/d_out: fresh input/output columns per hop; conv_lo: local conv
+    column where the per-hop tail starts (pool-aligned); tail_in: input
+    columns consumed per hop; carry = tail_in - d_in: columns cached
+    across hops."""
+
+    t_in: int
+    t_conv: int
+    t_out: int
+    d_in: int
+    d_out: int
+    conv_lo: int
+    tail_in: int
+    carry: int
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamGeometry:
+    window: int
+    hop: int
+    layers: Tuple[LayerGeom, ...]          # one per conv layer (0..5)
+
+    @property
+    def t_feat(self) -> int:
+        """Final layer's pooled length — the GAP ring extent."""
+        return self.layers[-1].t_out
+
+    @property
+    def d_feat(self) -> int:
+        """Fresh final-layer columns per hop (GAP ring shift)."""
+        return self.layers[-1].d_out
+
+
+def hop_alignment(cfg: kws.KWSConfig) -> int:
+    """Smallest hop (in samples) with full column reuse: the product of
+    all strides and pool windows (64 for the paper net)."""
+    a = 1
+    for i in range(cfg.num_conv_layers):
+        a *= cfg.strides[i] * cfg.pools[i]
+    return a
+
+
+def make_stream_geometry(cfg: kws.KWSConfig, hop: int) -> StreamGeometry:
+    """Per-layer tail/carry geometry for a hop size.  Raises if ``hop`` is
+    not a positive multiple of ``hop_alignment(cfg)`` or is too large or
+    small to give every layer at least one fresh column."""
+    align = hop_alignment(cfg)
+    if hop % align or hop <= 0:
+        raise ValueError(
+            f"hop={hop} must be a positive multiple of {align} "
+            f"(prod of strides*pools) for bit-exact column reuse")
+    if hop >= cfg.sample_len:
+        raise ValueError(f"hop={hop} must be smaller than the "
+                         f"window ({cfg.sample_len})")
+    layers = []
+    t_in, d_in = cfg.sample_len, hop
+    for i in range(cfg.num_conv_layers):
+        k, s, p = cfg.kernels[i], cfg.strides[i], cfg.pools[i]
+        t_conv = (t_in - k) // s + 1
+        t_out = t_conv // p
+        d_out = d_in // s // p             # fresh pooled columns per hop
+        if d_out < 1 or d_out > t_out:
+            raise ValueError(
+                f"layer {i}: hop yields {d_out} fresh columns of {t_out} — "
+                f"hop/window ratio unusable at this depth")
+        conv_lo = p * (t_out - d_out)      # pool-aligned tail start
+        tail_in = t_in - s * conv_lo
+        layers.append(LayerGeom(t_in=t_in, t_conv=t_conv, t_out=t_out,
+                                d_in=d_in, d_out=d_out, conv_lo=conv_lo,
+                                tail_in=tail_in, carry=tail_in - d_in))
+        t_in, d_in = t_out, d_out
+    return StreamGeometry(window=cfg.sample_len, hop=hop,
+                          layers=tuple(layers))
+
+
+# ---------------------------------------------------------------------------
+# Stream state + init/step
+# ---------------------------------------------------------------------------
+
+
+class StreamState(NamedTuple):
+    """Per-stream incremental state (leading axis = batch of streams).
+
+    ``audio_carry``/``carries`` are the layers' ring tails (the only
+    activation columns that survive a hop); ``ring`` is the final layer's
+    pooled window, feeding GAP; ``hop`` counts decided windows."""
+
+    audio_carry: torch.Tensor               # (B, carry_0) raw samples
+    carries: Tuple[torch.Tensor, ...]       # (B, carry_i, C_{i-1}), i=1..
+    ring: torch.Tensor                      # (B, t_feat, C_last)
+    hop: torch.Tensor                       # (B,) int32
+
+
+def zeros_state(cfg: kws.KWSConfig, geom: StreamGeometry, n: int,
+                device) -> StreamState:
+    carries = tuple(
+        torch.zeros((n, geom.layers[i].carry, cfg.channels[i - 1]),
+                    device=device)
+        for i in range(1, cfg.num_conv_layers))
+    return StreamState(
+        audio_carry=torch.zeros((n, geom.layers[0].carry), device=device),
+        carries=carries,
+        ring=torch.zeros((n, geom.t_feat, cfg.channels[-1]), device=device),
+        hop=torch.zeros((n,), dtype=torch.int32, device=device))
+
+
+def _tail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Last ``n`` columns of axis 1 (empty when ``n`` is 0)."""
+    return x[:, x.shape[1] - n:]
+
+
+def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
+                geom: StreamGeometry, *,
+                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                use_kernel: bool = True):
+    """Process the streams' first full windows (B, window) and build their
+    incremental state.  Equivalent to ``hw_forward`` on the window, plus
+    capturing each layer's ring tail.  Returns (logits (B, C), state)."""
+    hwp, packed = kws.as_hw_params(hw)
+    b = window.shape[0]
+    h = window[..., None]
+    carries = []
+    for i in range(cfg.num_conv_layers):
+        off = packed_i = None
+        if i > 0:
+            carries.append(_tail(h, geom.layers[i].carry))
+            if chip_offsets is not None:
+                off = chip_offsets[f"conv{i}"]
+            packed_i = packed[f"conv{i}"] if packed else None
+        h = kws.hw_conv_layer(hwp, i, h, cfg, packed=packed_i,
+                              chip_offset=off, use_kernel=use_kernel)
+    logits, _ = kws.gap_fc(hwp, h)
+    state = StreamState(
+        audio_carry=_tail(window, geom.layers[0].carry),
+        carries=tuple(carries), ring=h,
+        hop=torch.ones((b,), dtype=torch.int32, device=window.device))
+    return logits, state
+
+
+def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
+                    cfg: kws.KWSConfig, geom: StreamGeometry, n_hops: int, *,
+                    chip_offsets, use_kernel) -> Tuple[List[torch.Tensor],
+                                                       StreamState]:
+    """Advance a batch of streams by ``n_hops`` consecutive hops with ONE
+    fused-kernel launch per IMC layer: each layer's tail extends by the
+    extra hops' fresh columns.  Returns ([(B, C)] * n_hops logits, state)."""
+    hwp, packed = kws.as_hw_params(hw)
+    x = torch.cat([state.audio_carry, audio], dim=1)
+    new_audio_carry = _tail(x, geom.layers[0].carry)
+    h = kws.hw_conv_layer(hwp, 0, x[..., None], cfg)
+    new_carries = []
+    for i in range(1, cfg.num_conv_layers):
+        name = f"conv{i}"
+        inp = torch.cat([state.carries[i - 1], h], dim=1)
+        new_carries.append(_tail(inp, geom.layers[i].carry))
+        off = chip_offsets[name] if chip_offsets is not None else None
+        h = kws.hw_conv_layer(hwp, i, inp, cfg,
+                              packed=packed[name] if packed else None,
+                              chip_offset=off, use_kernel=use_kernel)
+    logits_hops = []
+    for j in range(1, n_hops + 1):
+        ring = torch.cat([state.ring, h[:, :j * geom.d_feat]],
+                         dim=1)[:, -geom.t_feat:]
+        logits_hops.append(kws.gap_fc(hwp, ring)[0])
+    new_state = StreamState(audio_carry=new_audio_carry,
+                            carries=tuple(new_carries), ring=ring,
+                            hop=state.hop + n_hops)
+    return logits_hops, new_state
+
+
+def stream_step(hw, state: StreamState, audio: torch.Tensor,
+                cfg: kws.KWSConfig, geom: StreamGeometry, *,
+                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                use_kernel: bool = True):
+    """Advance a batch of streams by one hop: audio (B, hop) -> (logits
+    (B, C), new state).  Bit-identical to ``hw_forward`` on the matching
+    full window."""
+    logits_hops, new_state = _stream_advance(
+        hw, state, audio, cfg, geom, 1, chip_offsets=chip_offsets,
+        use_kernel=use_kernel)
+    return logits_hops[0], new_state
+
+
+def stream_multi_step(hw, state: StreamState, audio: torch.Tensor,
+                      cfg: kws.KWSConfig, geom: StreamGeometry,
+                      n_hops: int, *,
+                      chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                      use_kernel: bool = True):
+    """Advance by ``n_hops`` consecutive hops in ONE launch per IMC layer:
+    audio (B, n_hops*hop) -> (logits (B, n_hops, C), new state).
+    Bit-identical to ``n_hops`` sequential ``stream_step`` calls."""
+    logits_hops, new_state = _stream_advance(
+        hw, state, audio, cfg, geom, n_hops, chip_offsets=chip_offsets,
+        use_kernel=use_kernel)
+    return torch.stack(logits_hops, dim=1), new_state
+
+
+# ---------------------------------------------------------------------------
+# Voice-activity-gated no-op advance (no IMC launch)
+# ---------------------------------------------------------------------------
+
+
+def silence_fills(cfg: kws.KWSConfig, sil: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Order the per-layer silence columns (``kws.silence_columns``) into
+    the tuple ``gated_step`` consumes: fills[i] is conv layer i's constant
+    (C_i,) output column on silent audio."""
+    return tuple(sil[f"conv{i}"] for i in range(cfg.num_conv_layers))
+
+
+def gated_step(state: StreamState, cfg: kws.KWSConfig, geom: StreamGeometry,
+               fills: Tuple[torch.Tensor, ...]) -> StreamState:
+    """Advance a batch of streams by one silent hop without computing:
+    every carry and the GAP ring shift by their per-hop column counts,
+    the shifted-in columns being each layer's silence response; the audio
+    carry shifts in zeros."""
+    b = state.hop.shape[0]
+
+    def _fill(f, d):
+        return f.expand(b, d, f.shape[-1])
+
+    audio_carry = _tail(
+        torch.cat([state.audio_carry,
+                   state.audio_carry.new_zeros((b, geom.hop))], dim=1),
+        geom.layers[0].carry)
+    new_carries = []
+    for i in range(1, cfg.num_conv_layers):
+        lg = geom.layers[i]
+        new_carries.append(_tail(
+            torch.cat([state.carries[i - 1], _fill(fills[i - 1], lg.d_in)],
+                      dim=1),
+            lg.carry))
+    ring = torch.cat([state.ring[:, geom.d_feat:],
+                      _fill(fills[-1], geom.d_feat)], dim=1)
+    return StreamState(audio_carry=audio_carry, carries=tuple(new_carries),
+                       ring=ring, hop=state.hop + 1)
+
+
+# ---------------------------------------------------------------------------
+# Engine over a fixed batch of streams
+# ---------------------------------------------------------------------------
+
+
+class StreamEngine:
+    """Init/step over a batch of streams on one device.  The scheduler
+    (``serving.scheduler``) owns slots, masking and admission; this class
+    owns the compute.  ``hw`` must already live on ``device``;
+    ``chip_offsets`` are moved there."""
+
+    def __init__(self, hw, cfg: kws.KWSConfig, hop: int, *,
+                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                 use_kernel: bool = True, device=None):
+        self.device = resolve_device(device)
+        if kws.hw_device(hw) != self.device:
+            raise ValueError(f"StreamEngine: parameters are on "
+                             f"{kws.hw_device(hw)}, not on {self.device}")
+        self.cfg = cfg
+        self.geom = make_stream_geometry(cfg, hop)
+        self.hw = hw
+        self.chip_offsets = None if chip_offsets is None else {
+            k: kws.as_tensor(v, self.device) for k, v in chip_offsets.items()}
+        self.use_kernel = use_kernel
+
+    def zeros_state(self, n: int) -> StreamState:
+        return zeros_state(self.cfg, self.geom, n, self.device)
+
+    def init(self, window: torch.Tensor):
+        """First full windows (B, window) -> (logits, state)."""
+        return stream_init(self.hw, window, self.cfg, self.geom,
+                           chip_offsets=self.chip_offsets,
+                           use_kernel=self.use_kernel)
+
+    def step(self, state: StreamState, audio: torch.Tensor):
+        """One hop (B, hop) -> (logits, state)."""
+        return stream_step(self.hw, state, audio, self.cfg, self.geom,
+                           chip_offsets=self.chip_offsets,
+                           use_kernel=self.use_kernel)
+
+    def multi_step(self, state: StreamState, audio: torch.Tensor,
+                   n_hops: int):
+        """``n_hops`` hops (B, n_hops*hop) in one launch per IMC layer ->
+        (logits (B, n_hops, C), state)."""
+        return stream_multi_step(self.hw, state, audio, self.cfg, self.geom,
+                                 n_hops, chip_offsets=self.chip_offsets,
+                                 use_kernel=self.use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Work accounting (feeds core.energy's streaming report)
+# ---------------------------------------------------------------------------
+
+
+def streaming_layer_stats(cfg: kws.KWSConfig, geom: StreamGeometry):
+    """Per-decision op counts of the streaming path, in the schema of
+    ``kws.layer_stats``: each conv layer touches only its tail columns."""
+    out = []
+    for i, s in enumerate(kws.layer_stats(cfg)):
+        if i >= cfg.num_conv_layers:        # gap+fc row
+            out.append(dict(s))
+            continue
+        lg = geom.layers[i]
+        frac = (lg.t_conv - lg.conv_lo) / lg.t_conv
+        cin = 1 if i == 0 else cfg.channels[i - 1]
+        out.append({
+            **s,
+            "macs": int(round(s["macs"] * frac)),
+            "in_bits": int(lg.tail_in * cin * (8 if i == 0 else 1)),
+            "out_bits": int(lg.d_out * cfg.channels[i]),
+            "cycles": int(round(s["cycles"] * frac)),
+        })
+    return out
