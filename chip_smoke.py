@@ -8,9 +8,10 @@ Run from the root of a checkout, with one CUDA card:
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-1. build the Hopper kernel ``imc_fused`` from ``src/repro_torch/kernels/
-   imc_mav/csrc/imc_fused.cu`` (nvcc, sm_90a) and print the card's name and
-   power limit;
+1. build the Hopper kernels ``imc_fused`` (``src/repro_torch/kernels/
+   imc_mav/csrc/imc_fused.cu``) and ``sga_update`` (``src/repro_torch/
+   kernels/sga_update/csrc/sga_update.cu``), one nvcc (sm_90a) for each,
+   started together, and print the card's name and power limit;
 2. per IMC layer of the paper net at full width (B = 8 streams, a full
    16 000-sample window, and the per-hop tail shapes of hop 1024): the
    kernel against its plain PyTorch version on the card, on random ±1
@@ -26,7 +27,23 @@ result line):
    every state leaf must be identical, and the kernel must have launched
    exactly 5 x (init + hop + replay batched calls) times.  Full-window
    logits of the kernel path must equal the plain path's on the card and
-   the port's CPU path (which the tests hold bitwise to the JAX package).
+   the port's CPU path (which the tests hold bitwise to the JAX package);
+4. on-chip customization at full width: the same net, chip and VAD at hop
+   1024 and 8 slots serve two live keyword streams while two enrollment
+   sessions (``StreamServer.customize``, 10 labelled one-window utterances
+   each, ``epochs_per_tick`` 10 and 7 so their learning rates differ) run
+   bias compensation (noise-free test mode) and 200 epochs of the
+   quantized head fine-tune, then hot-swap and serve their users; once
+   with the kernels and once with the plain versions.  Results (biases,
+   head, history) and every stream's events must be identical; each
+   result must equal the offline loop (``calibrate_and_compensate`` ->
+   ``hw_features`` -> ``quantized_head_finetune``) on the card and on the
+   CPU; ``sga_update_rows`` must launch exactly once per training round
+   and ``imc_fused`` 5 x (init + hop + replay batched calls).  Then the
+   SGA kernels against their plain version at B = 1, 2 and 8 rows of the
+   head's 5770 elements, with tie cases, bitwise, with their times; and
+   the error-scaling exponent on the card against the exact one for all
+   257 values the quantized loop can meet.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -58,8 +75,14 @@ HOP, SLOTS, HOPS, B = 1024, 8, 24, 8
 # layer's products could run at the TF32 rate.
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_OPS_PER_S = 495e12
+H100_FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_fused.cu"
 REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:141"
+SGA_SOURCE = "src/repro_torch/kernels/sga_update/csrc/sga_update.cu"
+SGA_REPLACES = {"sga_update_rows":
+                "src/repro/kernels/sga_update/sga_update.py:57",
+                "sga_update": "src/repro/kernels/sga_update/sga_update.py:89"}
+N_UTTS, EPOCHS, PER_TICK = 10, 200, (10, 7)
 
 
 def log(*args):
@@ -87,9 +110,10 @@ def cuda_ms(torch, fn, reps=7, iters=20):
 def device_ms(torch, fn, reps=7, iters=20):
     """Median device time per call of ``fn``: in each of ``reps`` profiled
     runs of ``iters`` calls, the summed own time of the device activities
-    (kernels, copies) that ``torch.profiler`` records, over ``iters``.
-    None when the profiler records no device activity (then only the
-    CUDA-event times stand)."""
+    (kernels, copies) that ``torch.profiler`` records, over ``iters``; a
+    run in which the profiler recorded no device activity is left out.
+    None when no run recorded any (then only the CUDA-event times
+    stand)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -101,8 +125,9 @@ def device_ms(torch, fn, reps=7, iters=20):
                 fn()
             torch.cuda.synchronize()
         total_us, _ = device_time(torch, prof)
-        per_call.append(total_us / iters / 1e3)
-    return statistics.median(per_call) if min(per_call) > 0 else None
+        if total_us > 0:
+            per_call.append(total_us / iters / 1e3)
+    return statistics.median(per_call) if per_call else None
 
 
 def device_time(torch, prof):
@@ -146,17 +171,26 @@ def bound_ms(nbytes, ops):
 
 
 def phase_build(torch):
-    from repro_torch.kernels.imc_mav import ops
-    t0 = time.perf_counter()
-    ops.library()
-    log(f"[build] imc_fused built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch import kernels
-    logfile = kernels.library_path("imc_fused", [ops.SOURCE])
-    logfile = logfile.with_name(logfile.name + ".log")
-    for line in logfile.read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    libs = {"imc_fused": ops, "sga_update": sga_ops}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+        for fut in [pool.submit(kernels.build_library, name, [mod.SOURCE])
+                    for name, mod in libs.items()]:
+            fut.result()
+    for mod in libs.values():
+        mod.library()
+    log(f"[build] {', '.join(libs)} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, mod in libs.items():
+        logfile = kernels.library_path(name, [mod.SOURCE])
+        logfile = logfile.with_name(logfile.name + ".log")
+        for line in logfile.read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -393,6 +427,355 @@ def phase_served(torch, dev):
     return served
 
 
+def sga_cases(torch, gen, dev, lrs, n):
+    """B = len(lrs) rows of n: Q1.7 weights and gradients, Q1.15 banks
+    from a seeded generator, with tie cases placed in every row."""
+    lsb_w, lsb_a = 2.0 ** -7, 2.0 ** -15
+    b = len(lrs)
+    lr = torch.tensor(lrs, dtype=torch.float32, device=dev)
+    g_th = (lsb_w / 2) / lr
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float()
+
+    w = ints(-128, 128, (b, n)) * lsb_w
+    g = (torch.round(torch.randn((b, n), generator=gen, device=dev) * 10)
+         * lsb_w).clamp(-1.0, 127 * lsb_w)
+    a = ints(-3000, 3001, (b, n)) * lsb_a
+    for r in range(b):
+        idx = torch.randperm(n, generator=gen, device=dev)[:320].reshape(
+            8, 40)
+        sign = ints(0, 2, (40,)) * 2 - 1
+        th = g_th[r]
+        g[r, idx[0]] = th * sign                 # |g| == g_th
+        g[r, idx[1]] = th / 2                    # bank lands on g_th
+        a[r, idx[1]] = th - th / 2
+        a[r, idx[2]] = ints(-200, 200, (40,)) * lsb_a
+        g[r, idx[2]] = (lsb_a / 2) * sign        # half a bank LSB
+        g[r, idx[3]] = (-lsb_w / 2) / lr[r]      # half a weight LSB
+        a[r, idx[3]] = 0.0
+        w[r, idx[4]], g[r, idx[4]] = 127 * lsb_w, -0.5   # upper rail
+        w[r, idx[5]], g[r, idx[5]] = -1.0, 0.5           # lower rail
+        g[r, idx[6]] = 0.0
+        a[r, idx[7]] = 0.0
+    return w, g, a, lr, g_th
+
+
+def exact_exponent(k, mode):
+    """ceil / floor of log2(1 / (k / 256)) on the float32 value of the
+    division, from its binary exponent."""
+    import math
+    import numpy as np
+    if k == 0:
+        return 0
+    inv = float(np.float32(1.0) / np.float32(k / 256.0))
+    mant, ex = math.frexp(inv)                 # inv = mant * 2**ex
+    floor = ex - 1
+    return floor if (mode == "floor" or mant == 0.5) else ex
+
+
+def phase_sga_kernels(torch, dev):
+    """K2 / K3 against the plain version on the card, bitwise, at B = 1,
+    2, 8 rows of the head's width; times at the path's B = 2."""
+    from repro_torch.core import quantize
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.kernels.sga_update.ref import sga_update_ref
+
+    n = 576 * 10 + 10
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    max_err = {"sga_update_rows": 0.0, "sga_update": 0.0}
+    all_lrs = [1 / 16, 0.05, 1 / 32, 1 / 128, 0.03, 1 / 64, 0.1, 1 / 8]
+    for b in (1, 2, 8):
+        w, g, a, lr, g_th = sga_cases(torch, gen, dev, all_lrs[:b], n)
+        got = sga_ops.sga_update_batch(w, g, a, lr, g_th)
+        want = sga_update_ref(w, g, a, lr[:, None], g_th[:, None])
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            max_err["sga_update_rows"] = max(max_err["sga_update_rows"],
+                                              float((x - y).abs().max()))
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"sga_update_rows B={b}: kernel differs from the plain "
+                    f"version on {(x != y).sum().item()} elements")
+        for r in range(b):
+            lr_r, th_r = float(lr[r]), float(g_th[r])
+            fw, fa = sga_ops.sga_update_flat(w[r], g[r], a[r], lr_r, th_r)
+            pw, pa = sga_update_ref(w[r], g[r], a[r], lr[r], g_th[r])
+            torch.cuda.synchronize()
+            for x, y in ((fw, pw), (fa, pa)):
+                max_err["sga_update"] = max(max_err["sga_update"],
+                                            float((x - y).abs().max()))
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"sga_update row {r} of B={b}: kernel differs from "
+                        f"the plain version")
+    log(f"[sga] sga_update_rows and sga_update bitwise equal to the plain "
+        f"version at B = 1, 2, 8 x {n} (tie cases included)")
+
+    w, g, a, lr, g_th = sga_cases(torch, gen, dev, [1 / 16, 0.05], n)
+    rows = {}
+    kernel2 = lambda: sga_ops.sga_update_rows(w, g, a, lr, g_th)
+    plain2 = lambda: sga_update_ref(w, g, a, lr[:, None], g_th[:, None])
+    lr0, th0 = float(lr[0]), float(g_th[0])
+    kernel3 = lambda: sga_ops.sga_update_flat(w[0], g[0], a[0], lr0, th0)
+    plain3 = lambda: sga_update_ref(w[0], g[0], a[0], lr[0], g_th[0])
+    for name, kern, plain, b in (("sga_update_rows", kernel2, plain2, 2),
+                                 ("sga_update", kernel3, plain3, 1)):
+        k_call, p_call = cuda_ms(torch, kern), cuda_ms(torch, plain)
+        k_dev, p_dev = device_ms(torch, kern), device_ms(torch, plain)
+        nbytes = 20 * b * n + (8 * b if b > 1 else 0)   # w,g,a in; w,a out
+        nops = 12 * b * n
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = nops / H100_FP32_OPS_PER_S * 1e3
+        rows[name] = dict(
+            ms=k_dev if k_dev is not None else k_call,
+            plain_ms=p_dev if p_dev is not None else p_call,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            call_ms=k_call, plain_call_ms=p_call, B=b, N=n,
+            max_abs_err=max_err[name])
+        log(f"[sga] {name} B={b} N={n}: device time kernel {k_dev} ms, "
+            f"plain {p_dev} ms; per call (CUDA events) kernel "
+            f"{k_call:.4f} ms, plain {p_call:.4f} ms; bound "
+            f"{rows[name]['bound_ms']:.6f} ms ({rows[name]['bound_by']})")
+
+    bad = []
+    for mode in ("ceil", "floor"):
+        for k in range(257):
+            err = torch.zeros((3, 10), device=dev)
+            err[1, 4] = -k / 256.0
+            got = int(quantize.error_scale_exponent(err, mode))
+            if got != exact_exponent(k, mode):
+                bad.append((mode, k, got))
+    if bad:
+        raise AssertionError(f"error-scale exponent differs from the exact "
+                             f"one on the card: {bad[:8]}")
+    log("[sga] error-scale exponent on the card equals the exact one on "
+        "all 257 values k/256, ceil and floor")
+    return rows
+
+
+def _session_audio(cfg):
+    """Live keyword traffic (utterance, 6 silent hops, utterance, ...),
+    enrollment utterances with labels, and post-swap user audio."""
+    import numpy as np
+    from repro_torch.data import audio
+    utts, _ = audio.make_dataset(seed=0, n_per_class=1, n_speakers=4,
+                                 augment=False, length=cfg.sample_len)
+    enroll, labels = audio.make_dataset(seed=7, n_per_class=2, n_speakers=2,
+                                        accent_shift=0.3, augment=False,
+                                        length=cfg.sample_len)
+    gap = np.random.default_rng(2).uniform(-1e-4, 1e-4, 6 * HOP)
+    live = []
+    for s in range(2):
+        parts = []
+        for j in range(14):
+            parts += [utts[(s + 3 * j) % 10], gap]
+        live.append(np.concatenate(parts).astype(np.float32))
+    after = [np.concatenate([utts[(4 + s) % 10], gap, utts[(7 + s) % 10]])
+             .astype(np.float32) for s in range(2)]
+    return live, list(enroll[:2 * N_UTTS]), [int(v) for v in
+                                            labels[:2 * N_UTTS]], after
+
+
+def phase_customize(torch, dev):
+    """Two enrollment sessions against a live server at full width, with
+    the kernels and with the plain versions; the offline loop on the card
+    and on the CPU."""
+    import numpy as np
+    from repro_torch.core.onchip_training import (OnChipTrainConfig,
+                                                  quantized_head_finetune)
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    from repro_torch.serving import CustomizeConfig, StreamServer, VADConfig
+    from repro_torch.training import kws as tr
+
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
+            for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    live, enroll, labels, after = _session_audio(cfg)
+    tcfg = OnChipTrainConfig(epochs=EPOCHS, fixed_error_scale=1.375)
+
+    def run(use_kernel, profiled=False):
+        from torch.profiler import ProfilerActivity, profile
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            with prof:
+                out = run(use_kernel)
+            out["prof"] = prof
+            return out
+        srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, chip_offsets=chip,
+                           use_kernel=use_kernel, vad=VADConfig(),
+                           device=dev)
+        for s in range(2):
+            srv.submit(f"live{s}", live[s][:cfg.sample_len])
+        torch.cuda.synchronize()
+        ops.COUNTS.reset()                  # the path's run starts
+        sga_ops.COUNTS_ROWS.reset()
+        sga_ops.COUNTS_FLAT.reset()
+        t0 = time.perf_counter()
+        sessions, opened = [], []
+        for k, per_tick in enumerate(PER_TICK):
+            opened.append(time.perf_counter())
+            sess = srv.customize(f"user{k}", CustomizeConfig(
+                train=tcfg, epochs_per_tick=per_tick, compensate=True,
+                calib_sa_noise_std=0.0, use_kernel=use_kernel))
+            for j in range(N_UTTS):
+                sess.enroll(labels[k * N_UTTS + j], enroll[k * N_UTTS + j])
+            sess.finish_enrollment()
+            sessions.append(sess)
+        events, pos, rounds, ticks = [], cfg.sample_len, 0, 0
+        swapped, train_wall = [None, None], 0.0
+        while not all(s.phase == "swapped" for s in sessions):
+            if ticks > 2000:
+                raise AssertionError(f"sessions stuck: "
+                                     f"{[s.phase for s in sessions]}")
+            for s in range(2):
+                if pos < len(live[s]):
+                    srv.submit(f"live{s}", live[s][pos:pos + HOP])
+            pos += HOP
+            before = [s._epoch for s in sessions]
+            t_tick = time.perf_counter()
+            events.extend(srv.step())
+            torch.cuda.synchronize()
+            ticks += 1
+            # a round is one epoch of every session training this tick
+            n_rounds = max(s._epoch - e for s, e in zip(sessions, before))
+            rounds += n_rounds
+            if n_rounds:
+                train_wall += time.perf_counter() - t_tick
+            for k, s in enumerate(sessions):
+                if s.phase == "swapped" and swapped[k] is None:
+                    torch.cuda.synchronize()
+                    swapped[k] = (time.perf_counter() - opened[k], ticks)
+        n_swap = len(events)
+        for s in range(2):
+            srv.submit(f"live{s}", live[s][pos:])
+            srv.submit(f"user{s}", after[s])
+            srv.finish(f"live{s}")
+            srv.finish(f"user{s}")
+        events.extend(srv.drain())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(imc=ops.COUNTS.launches,       # ... and ends
+                      rows=sga_ops.COUNTS_ROWS.launches,
+                      flat=sga_ops.COUNTS_FLAT.launches)
+        return dict(srv=srv, sessions=sessions, events=events,
+                    rounds=rounds, ticks=ticks, swapped=swapped, wall=wall,
+                    train_wall=train_wall,
+                    counts=counts, stats=srv.stats(),
+                    after_swap={e["stream"] for e in events[n_swap:]})
+
+    kern = run(True)
+    plain = run(False)
+    st = kern["stats"]
+    calls = st["batched_calls"]
+    n_calls = calls["init"] + calls["hop"] + calls["replay"]
+    if kern["counts"]["rows"] != kern["rounds"] or kern["rounds"] < EPOCHS:
+        raise AssertionError(f"sga_update_rows launched "
+                             f"{kern['counts']['rows']} times in "
+                             f"{kern['rounds']} training rounds")
+    if kern["counts"]["imc"] != 5 * n_calls:
+        raise AssertionError(f"imc_fused launched {kern['counts']['imc']} "
+                             f"times for {n_calls} batched calls")
+    if plain["counts"] != dict(imc=0, rows=0, flat=0) or \
+            plain["rounds"] != kern["rounds"]:
+        raise AssertionError(f"plain run: counts {plain['counts']}, rounds "
+                             f"{plain['rounds']} (kernel {kern['rounds']})")
+    if kern["events"] != plain["events"]:
+        raise AssertionError("served events differ between the kernel and "
+                             "the plain run")
+    if not {"user0", "user1"} <= kern["after_swap"] or \
+            st["learn_hops"] == 0 or st["gated_hops"] == 0:
+        raise AssertionError(f"the path was not exercised: {st}")
+
+    def same(r1, r2):
+        return (np.array_equal(r1.fc_w, r2.fc_w)
+                and np.array_equal(r1.fc_b, r2.fc_b)
+                and all(np.array_equal(r1.bias[n], r2.bias[n])
+                        for n in cfg.imc_layer_names()))
+
+    hw_cpu = _to(hw, "cpu")
+    chip_dev = {k: v.to(dev) for k, v in chip.items()}
+    for k, (sk, sp) in enumerate(zip(kern["sessions"], plain["sessions"])):
+        rk = sk.result
+        if not same(rk, sp.result) or rk.history != sp.result.history:
+            raise AssertionError(f"session {k}: kernel and plain results "
+                                 f"differ")
+        x = np.stack(sk.windows)
+        for d, hw_d, offs in ((dev, hw, chip_dev), ("cpu", hw_cpu, chip)):
+            hw_c = tr.calibrate_and_compensate(hw_d, x, offs, cfg,
+                                               sa_noise_std=0.0, device=d)
+            feats = tr.hw_features(hw_c, x, cfg, chip_offsets=offs,
+                                   device=d)
+            w, b = quantized_head_finetune(
+                feats, sk.labels, hw_c.hw.fc_w, hw_c.hw.fc_b, tcfg,
+                device=d)
+            off = type(rk)(bias={n: v.cpu().numpy()
+                                 for n, v in hw_c.hw.bias.items()},
+                           fc_w=w.cpu().numpy(), fc_b=b.cpu().numpy(),
+                           epochs=0, n_utterances=0, history=[], energy={})
+            if not same(rk, off):
+                raise AssertionError(f"session {k}: result differs from the "
+                                     f"offline loop on {d}")
+        moved = sum(int((rk.bias[n] != hw.hw.bias[n].cpu().numpy()).sum())
+                    for n in cfg.imc_layer_names())
+        wall_s, ticks = kern["swapped"][k]
+        log(f"[customize] session user{k} (epochs_per_tick "
+            f"{PER_TICK[k]}): customize() to swapped {wall_s:.3f} s over "
+            f"{ticks} ticks (plain run {plain['swapped'][k][0]:.3f} s); "
+            f"{rk.epochs} epochs in {rk.epochs} rounds; train accuracy "
+            f"{rk.history[-1]['train_accuracy']}; {moved} biases "
+            f"compensated; equal to the offline loop on the card and the "
+            f"CPU and to the plain run")
+    log(f"[customize] kernel run: {kern['ticks']} ticks to both swaps, "
+        f"{kern['rounds']} training rounds, sga_update_rows launches "
+        f"{kern['counts']['rows']}, sga_update launches "
+        f"{kern['counts']['flat']}, imc_fused launches "
+        f"{kern['counts']['imc']} (= 5 x {n_calls} batched calls {calls}); "
+        f"learn hops {st['learn_hops']}; {len(kern['events'])} events "
+        f"equal to the plain run's")
+    per_round = {name: r["train_wall"] / r["rounds"] * 1e3
+                 for name, r in (("kernel", kern), ("plain", plain))}
+    log(f"[customize] wall of the whole run: kernel {kern['wall']:.3f} s, "
+        f"plain {plain['wall']:.3f} s; wall of the ticks that trained, per "
+        f"training round: kernel {per_round['kernel']:.4f} ms, plain "
+        f"{per_round['plain']:.4f} ms (tick included: its hops, its "
+        f"decisions and the sessions' other work)")
+    prof_run = run(True, profiled=True)
+    busy_us, prof_rows = device_time(torch, prof_run["prof"])
+    sga_us = sum(us for name, (us, _) in prof_rows.items()
+                 if "sga_update" in name)
+    imc_us = sum(us for name, (us, _) in prof_rows.items()
+                 if "imc_fused" in name)
+    busy = busy_us / 1e6 / prof_run["wall"]
+    log(f"[customize] profiled kernel run: wall {prof_run['wall']:.3f} s, "
+        f"device busy {busy_us / 1e3:.3f} ms (share {busy:.4f}, idle "
+        f"{1 - busy:.4f}); sga_update_rows {sga_us / 1e3:.3f} ms in "
+        f"{prof_run['counts']['rows']} launches, imc_fused "
+        f"{imc_us / 1e3:.3f} ms in {prof_run['counts']['imc']} launches")
+    for name, (us, n) in sorted(prof_rows.items(),
+                                key=lambda kv: -kv[1][0])[:6]:
+        log(f"[customize]   {us / 1e3:8.3f} ms  n={n:6d}  {name[:80]}")
+    return dict(rounds=kern["rounds"], ticks=kern["ticks"],
+                launches_rows=kern["counts"]["rows"],
+                launches_flat=kern["counts"]["flat"],
+                imc_launches=kern["counts"]["imc"],
+                session_wall_s=[sw[0] for sw in kern["swapped"]],
+                ms_per_round=per_round["kernel"],
+                ms_per_round_plain=per_round["plain"],
+                device_busy_share=busy, sga_device_ms=sga_us / 1e3,
+                session_wall_s_plain=[sw[0] for sw in plain["swapped"]],
+                wall_s=kern["wall"], wall_s_plain=plain["wall"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -411,19 +794,37 @@ def main() -> int:
     rows, totals, max_err = phase_layers(torch, dev)
     served = phase_served(torch, dev)
     launches = served["launches"]
+    custom = phase_customize(torch, dev)
+    sga = phase_sga_kernels(torch, dev)
 
     k_ms, p_ms, nbytes, nops = totals["hop"]
     b_ms, b_by = bound_ms(nbytes, nops)
-    print(json.dumps({"card": smi, "layers": rows, "served": served}),
-          flush=True)
+    print(json.dumps({"card": smi, "layers": rows, "served": served,
+                      "customize": custom, "sga": sga}), flush=True)
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"(device time); {launches} launches on the served path")
-    print(json.dumps({"kernels": [{
+    r2 = sga["sga_update_rows"]
+    log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
+        f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
+        f"{r2['bound_ms']:.6f} ms (device time); "
+        f"{custom['launches_rows']} launches on the customization path "
+        f"({custom['rounds']} rounds)")
+    kernels = [{
         "name": "imc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    for name, n in (("sga_update_rows", custom["launches_rows"]),
+                    ("sga_update", custom["launches_flat"])):
+        row = sga[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SGA_SOURCE,
+            "replaces": SGA_REPLACES[name], "launches": n,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
-"""Analytical energy model of the KWS accelerator (paper §VI-B) — the part
-the streaming server's ``stats()`` reports.
+"""Analytical energy model of the KWS accelerator (paper §VI-B) — the parts
+the streaming server's ``stats()`` and the customization sessions report.
 
-Own copy of the serving half of ``repro/core/energy.py`` (constants and
-formulas unchanged): per-event energies fitted to the paper's anchors
-(14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k cycles/decision), the
-streaming per-decision report and the duty-cycled VAD-gated summary.
-These are modelled chip numbers, not measurements of any device.
+Own copy of the serving and customization half of ``repro/core/energy.py``
+(constants and formulas unchanged): per-event energies fitted to the
+paper's anchors (14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k
+cycles/decision, 765k cycles per training epoch), the streaming
+per-decision report, the duty-cycled VAD-gated summary and the on-chip
+fine-tuning energy.  These are modelled chip numbers, not measurements of
+any device.
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ from typing import List, Optional
 
 LEAKAGE_W = 61.8e-6            # static power, whole chip
 CYCLES_PER_DECISION = 160_000  # 160 ms @ 1 MHz
+CYCLES_PER_TRAIN_EPOCH = 765_000  # 765 ms @ 1 MHz
 
 E_IMC_MAC = 1.3e-15            # one ±1 MAC inside the array
 E_DIG_MAC8 = 0.6e-12           # 8-bit digital MAC (L1 sinc PEs, FC)
 E_SRAM_RD_BIT = 0.6e-12        # SRAM buffer read, per bit
 E_SRAM_WR_BIT = 0.7e-12
 E_CTRL_CYCLE = 12.0e-12        # IMC controller + FSM, per cycle
+E_LUT_LOOKUP = 0.8e-12         # exp LUT access (training)
+E_DIV8 = 1.6e-12               # 8-bit divider op (training)
 
 
 @dataclasses.dataclass
@@ -128,4 +133,43 @@ def gated_energy_summary(offline_stats: List[dict],
         "gated_uj_per_decision": gated_j * 1e6,
         "reduction_vs_ungated": active_j / gated_j,
         "reduction_vs_offline": offline_j / gated_j,
+    }
+
+
+def training_energy_j(num_epochs: int, freq_hz: float = 1e6,
+                      macs_per_epoch: int = 0, lut_ops: int = 0,
+                      div_ops: int = 0, sram_bits: int = 0) -> float:
+    """Energy of an on-chip customization run (training power ~105uW @1MHz)."""
+    t = num_epochs * CYCLES_PER_TRAIN_EPOCH / freq_hz
+    dyn = (macs_per_epoch * E_DIG_MAC8 + lut_ops * E_LUT_LOOKUP
+           + div_ops * E_DIV8 + sram_bits * (E_SRAM_RD_BIT + E_SRAM_WR_BIT)
+           ) * num_epochs
+    return dyn + LEAKAGE_W * t
+
+
+def customization_energy_summary(n_utts: int, feat_dim: int,
+                                 num_classes: int, epochs: int,
+                                 freq_hz: float = 1e6) -> dict:
+    """Analytical energy of one on-chip customization run (§V-C).  One
+    fine-tune step is one full-batch epoch over the SRAM feature buffer:
+    the 8-bit FC forward, the LUT softmax and 8-bit division, the error and
+    gradient passes (~2x the forward MACs), the feature-buffer reads and
+    the weight / SGA-bank read-modify-write."""
+    macs = n_utts * (feat_dim * num_classes + num_classes) * 3
+    lut = n_utts * num_classes
+    div = n_utts * num_classes
+    sram = (n_utts * feat_dim * 8                      # feature buffer read
+            + feat_dim * num_classes * 8 * 2           # weight r/w
+            + feat_dim * num_classes * 16)             # SGA bank (16-bit)
+    per_step = training_energy_j(1, freq_hz, macs_per_epoch=macs,
+                                 lut_ops=lut, div_ops=div, sram_bits=sram)
+    total = training_energy_j(epochs, freq_hz, macs_per_epoch=macs,
+                              lut_ops=lut, div_ops=div, sram_bits=sram)
+    return {
+        "freq_hz": freq_hz,
+        "n_utterances": n_utts,
+        "epochs": epochs,
+        "uj_per_finetune_step": per_step * 1e6,
+        "total_uj": total * 1e6,
+        "seconds_per_step": CYCLES_PER_TRAIN_EPOCH / freq_hz,
     }

@@ -1,13 +1,18 @@
 """Fixed-point formats of the accelerator's digital datapath (paper §VI-A3).
 
-Port of the forward half of ``repro/core/quantize.py``: the formats and
-their round-to-nearest-even quantizer.  ``torch.round`` rounds half to
-even like ``jnp.round``, so the quantized values are bit-identical.
+Port of the forward half of ``repro/core/quantize.py``: the formats, their
+round-to-nearest-even quantizer and the error-scaling exponent of Eq (2).
+``torch.round`` rounds half to even like ``jnp.round``, so the quantized
+values are bit-identical.
+
+    weight     : Q1.7    activation : Q1.3.4    gradient, error : Q1.7
+    SGA accum  : 16-bit fixed point (Q1.15)
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -20,6 +25,11 @@ class QFormat:
 
     int_bits: int
     frac_bits: int
+    name: str = ""
+
+    @property
+    def total_bits(self) -> int:
+        return 1 + self.int_bits + self.frac_bits
 
     @property
     def scale(self) -> float:
@@ -34,6 +44,14 @@ class QFormat:
     def qmin(self) -> int:
         return -(2 ** (self.int_bits + self.frac_bits))
 
+    @property
+    def max_value(self) -> float:
+        return self.qmax * self.scale
+
+    @property
+    def min_value(self) -> float:
+        return self.qmin * self.scale
+
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """Round-to-nearest-even onto the grid, saturating. Returns real
         values."""
@@ -41,5 +59,32 @@ class QFormat:
         return q * self.scale
 
 
-WEIGHT_Q = QFormat(int_bits=0, frac_bits=7)   # Q1.7 weights
-ACT_Q = QFormat(int_bits=3, frac_bits=4)      # Q1.3.4 activations
+WEIGHT_Q = QFormat(int_bits=0, frac_bits=7, name="weight:Q1.7")
+ACT_Q = QFormat(int_bits=3, frac_bits=4, name="act:Q1.3.4")
+GRAD_Q = QFormat(int_bits=0, frac_bits=7, name="grad:Q1.7")
+ERROR_Q = QFormat(int_bits=0, frac_bits=7, name="error:Q1.7")
+ACCUM_Q = QFormat(int_bits=0, frac_bits=15, name="accum:Q1.15")
+
+
+def error_scale_exponent(error: torch.Tensor, mode: str = "ceil",
+                         max_exponent: Optional[int] = None
+                         ) -> torch.Tensor:
+    """Eq (2): s = ceil(log2(1 / max|error|)), or its floored variant
+    (``mode="floor"``: one bit of headroom), clamped from above by
+    ``max_exponent``.  Returns an int32 scalar on the error's device; a
+    zero error tensor gives s = 0.
+
+    The expression is the reference's (``1 / max`` as one IEEE division,
+    then ``log2``), so it is exact wherever ``log2`` rounds to the exact
+    integer at powers of two, as it does on the CPU for every ``k / 256``
+    the quantized loop can produce (tests hold all 257)."""
+    if mode not in ("ceil", "floor"):
+        raise ValueError(f"mode={mode!r} must be 'ceil' or 'floor'")
+    m = torch.max(torch.abs(error))
+    safe = torch.clamp(m, min=torch.finfo(torch.float32).tiny)
+    log = torch.log2(1.0 / safe)
+    s = (torch.ceil(log) if mode == "ceil"
+         else torch.floor(log)).to(torch.int32)
+    if max_exponent is not None:
+        s = torch.clamp(s, max=int(max_exponent))
+    return torch.where(m > 0, s, torch.zeros_like(s))

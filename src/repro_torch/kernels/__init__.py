@@ -107,6 +107,17 @@ def load_library(name: str, sources: Sequence[pathlib.Path],
         return lib
 
 
+class LaunchCount:
+    """Launches of one kernel since the last ``reset``.  A wrapper adds
+    one where it launches its kernel, and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+
+
 def check_launch(lib: ctypes.CDLL, name: str, status: int) -> None:
     """Raise if a kernel's C entry returned a CUDA error code.  Every
     kernel library exports ``cuda_error_string`` for the message."""

@@ -27,17 +27,7 @@ from repro_torch.kernels.imc_mav.ref import fused_conv_mav_ref
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "imc_fused.cu"
 
 
-class LaunchCount:
-    """Launches of one kernel since the last ``reset``."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self) -> None:
-        self.launches = 0
-
-
-COUNTS = LaunchCount()
+COUNTS = kernels.LaunchCount()
 
 
 def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:

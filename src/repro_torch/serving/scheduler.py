@@ -21,17 +21,27 @@ pool of stream slots, each holding one live stream's incremental
   layer for the whole fleet; slots that are not ready ride along masked
   (their state is restored verbatim);
 * **the decision head** (``serving.decision``) — smoothing, hysteresis and
-  refractory triggers, batched and mask-aware.
+  refractory triggers, batched and mask-aware;
+* **customization** (``customize(stream_id)`` / ``install_custom``) — an
+  enrollment and fine-tuning session (``serving.customize``) rides the
+  same batched calls: enrollment hops are the stream's own hops (forced
+  past the VAD gate), feature re-extraction replays the recorded windows
+  as internal streams in the same batch, and each slot's compensated
+  biases and fine-tuned head ride per-slot rider rows (a bias delta in the
+  fused kernel's pre-sign operand, a per-slot FC head), so a mixed
+  serving + learning tick still launches the fused kernel once per IMC
+  layer and call.  The session's background work runs at the end of each
+  tick.
 
 Streams are evicted when their producer calls ``finish()`` and their
 buffer drains, or at once by ``evict()``.  ``stats()`` reports the tick,
 decision and hop counters, the batched-call counts by cause (each init /
-hop / replay call costs one launch per IMC layer, a gate call none) and
-the modelled gated energy per decision.
+hop / replay call costs one launch per IMC layer, a gate call none), the
+learning hops and sessions, and the modelled gated energy per decision.
 
 Not in this port yet: SA noise, dynamic hop, admission control and
-autoscaling, the recompute fallback, customization, faults and health,
-profiles, compiled ticks, snapshots, the flight recorder and the trace.
+autoscaling, the recompute fallback, faults and health, profiles, compiled
+ticks, snapshots, the flight recorder and the trace.
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from repro_torch.serving import vad as vd
 @dataclasses.dataclass
 class _Stream:
     stream_id: str
+    uid: int                              # submission order; a capture's
+    #                                       origin names it
     buf: np.ndarray                       # pending samples (host ring tail)
     slot: Optional[int] = None
     initialized: bool = False
@@ -66,6 +78,19 @@ class _Stream:
     pending: List[np.ndarray] = dataclasses.field(   # deferred silent hops
         default_factory=list)                        # (<= wake_margin)
     gated_hops: int = 0                   # fill-advanced (no-compute) hops
+    recent: np.ndarray = dataclasses.field(     # last consumed window
+        default_factory=lambda: np.zeros((0,), np.float32))
+    # -- customization (serving.customize) ---------------------------------
+    internal: bool = False                # session-owned replay stream: no
+    #                                       decision events, not in stats
+    force_compute: bool = False           # bypass VAD gating (enrollment /
+    #                                       replay hops must run the IMC
+    #                                       path so captures stay exact)
+    consumed: int = 0                     # samples advanced through the
+    #                                       stream state (capture targets)
+    custom: Optional[dict] = None         # per-stream riders: {"delta":
+    #                                       {conv_i: (C_i,)}, "head":
+    #                                       (fc_w, fc_b), "fills": tuple}
 
 
 def _tree_map(fn, tree, *rest):
@@ -107,6 +132,7 @@ class StreamServer:
     _replay_calls = counter_property("serving.batched_calls",
                                      cause="replay")
     _gate_calls = counter_property("serving.batched_calls", cause="gate")
+    _learn_hops = counter_property("serving.hops", kind="learn")
 
     def __init__(self, hw, cfg: kws.KWSConfig, *, hop: int, slots: int = 4,
                  chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
@@ -145,14 +171,27 @@ class StreamServer:
                                          device=self.device)
         self._vstate = (vd.vad_init(slots, device=self.device)
                         if vad is not None else None)
+        # customization (serving.customize): once enabled, batched calls
+        # route through the per-slot (bias delta, FC head) variant so
+        # hot-swapped and learning slots share the one-launch-per-layer
+        # batch with everyone else
+        self._cust = None                 # CustomizationManager
+        self._cust_on = False
+        self._slot_delta = None           # {conv_i: (slots, C_i)}
+        self._slot_head_w = None          # (slots, D, num_classes)
+        self._slot_head_b = None          # (slots, num_classes)
+        self._slot_fills = None           # per-layer (slots, C_i) if VAD
+
         self._slots: List[Optional[_Stream]] = [None] * slots
         self._queue: collections.deque[_Stream] = collections.deque()
         self._streams: Dict[str, _Stream] = {}
+        self._uid = 0
         self._steps = 0
         self._hop_wall_s = 0.0
         self._decisions = 0
         self._speech_hops = 0
         self._gated_hops = 0
+        self._learn_hops = 0
         # batched-compute accounting: each init/hop/replay call is one
         # fused-kernel launch per IMC layer however many slots ride it;
         # gate calls launch nothing
@@ -177,6 +216,129 @@ class StreamServer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- customization: per-slot riders + session manager -------------------
+
+    def _base_head(self):
+        hwp, _ = kws.as_hw_params(self.engine.hw)
+        return hwp.fc_w, hwp.fc_b
+
+    def _enable_customization(self) -> None:
+        """Materialize the per-slot rider rows (zero bias deltas, the base
+        FC head in every row) and route batched calls through the per-slot
+        variant from now on.  Rows with base values are bit-exact no-ops,
+        so uncustomized slots are unaffected."""
+        if self._cust_on:
+            return
+        self._cust_on = True
+        n, cfg, dev = self.slots, self.cfg, self.device
+        fw, fb = self._base_head()
+        self._slot_delta = {
+            f"conv{i}": torch.zeros((n, cfg.channels[i]), device=dev)
+            for i in range(1, cfg.num_conv_layers)}
+        self._slot_head_w = fw.expand((n,) + fw.shape).clone()
+        self._slot_head_b = fb.expand((n,) + fb.shape).clone()
+        if self._fills is not None:
+            self._slot_fills = tuple(f.expand((n,) + f.shape).clone()
+                                     for f in self._fills)
+        for s, rec in enumerate(self._slots):
+            if rec is not None and rec.custom is not None:
+                self._write_slot_custom(s, rec.custom)
+
+    def _write_slot_custom(self, s: int, custom: Optional[dict]) -> None:
+        """Sync slot ``s``'s rider rows with a stream's customization
+        (``None`` resets to base).  Called on admission, eviction and
+        hot-swap; only row ``s`` changes."""
+        if not self._cust_on:
+            return
+        if custom is None:
+            fw, fb = self._base_head()
+            for name in self._slot_delta:
+                self._slot_delta[name][s] = 0.0
+            self._slot_head_w[s] = fw
+            self._slot_head_b[s] = fb
+            if self._slot_fills is not None:
+                for t, f in zip(self._slot_fills, self._fills):
+                    t[s] = f
+            return
+        dev = self.device
+        for name in self._slot_delta:
+            self._slot_delta[name][s] = kws.as_tensor(custom["delta"][name],
+                                                      dev)
+        self._slot_head_w[s] = kws.as_tensor(custom["head"][0], dev)
+        self._slot_head_b[s] = kws.as_tensor(custom["head"][1], dev)
+        if self._slot_fills is not None and custom.get("fills") is not None:
+            for t, f in zip(self._slot_fills, custom["fills"]):
+                t[s] = kws.as_tensor(f, dev)
+
+    def _riders(self) -> tuple:
+        """The per-slot riders of a batched call, (bias deltas, head_w,
+        head_b), once customization is on; () for the base path."""
+        if not self._cust_on:
+            return ()
+        return (self._slot_delta, self._slot_head_w, self._slot_head_b)
+
+    def _row_custom(self, rec: "_Stream") -> tuple:
+        """Rider args for a B=1 init (``batch_init`` off): the stream's own
+        customization, or () for the base init path."""
+        if not self._cust_on or rec.custom is None:
+            return ()
+        dev = self.device
+        delta = {name: kws.as_tensor(rec.custom["delta"][name], dev)[None]
+                 for name in self.cfg.imc_layer_names()}
+        return (delta, kws.as_tensor(rec.custom["head"][0], dev)[None],
+                kws.as_tensor(rec.custom["head"][1], dev)[None])
+
+    def customize(self, stream_id: str, ccfg=None):
+        """Open an enrollment / fine-tuning session attached to a live
+        stream (created empty if absent): labeled utterances submitted via
+        ``session.enroll`` ride the stream's normal batched hops, then the
+        paper's on-chip loop (bias compensation -> error-scaled + SGA
+        fine-tune) runs as bounded background jobs inside ``step()``.  See
+        ``serving.customize``.  Returns the CustomizationSession."""
+        from repro_torch.serving import customize as cz
+        if self._cust is None:
+            self._cust = cz.CustomizationManager(self)
+        self._enable_customization()
+        return self._cust.start(stream_id, ccfg)
+
+    def install_custom(self, stream_id: str, result) -> None:
+        """Hot-swap a finished customization (a CustomizationResult) into
+        a stream: its slot's bias-delta / FC-head / silence-fill rows are
+        reprogrammed in place; every other slot's rows and states are
+        untouched.  The stream is created (empty) if it does not exist."""
+        from repro_torch.serving import customize as cz
+        self._enable_customization()
+        rec = self._streams.get(stream_id)
+        if rec is None:
+            rec = self._new_stream(stream_id, np.zeros((0,), np.float32))
+        rec.custom = cz.result_riders(result, self.engine.hw, self.cfg,
+                                      chip_offsets=self.engine.chip_offsets,
+                                      with_fills=self._fills is not None)
+        if rec.slot is not None:
+            self._write_slot_custom(rec.slot, rec.custom)
+
+    def _submit_internal(self, stream_id: str, wav: np.ndarray,
+                         custom: Optional[dict] = None) -> "_Stream":
+        """Enqueue a session-owned replay stream: it rides the normal slot
+        machinery and the same batched launches but emits no decision
+        events and never gates.  Finished on arrival: it retires once its
+        audio drains (the session captures its features first)."""
+        return self._new_stream(stream_id, np.asarray(wav, np.float32),
+                                internal=True, force_compute=True,
+                                custom=custom, finished=True)
+
+    def _drop_internal(self, stream_id: str) -> None:
+        rec = self._streams.pop(stream_id, None)
+        if rec is None:
+            return
+        rec.finished = True
+        rec.buf = rec.buf[:0]
+        rec.pending = []
+        if rec.slot is not None:
+            self._free_slot(rec)
+        elif rec in self._queue:
+            self._queue.remove(rec)
+
     # -- stream lifecycle ---------------------------------------------------
 
     def submit(self, stream_id: str, chunk: np.ndarray) -> str:
@@ -184,15 +346,22 @@ class StreamServer:
         'slot' (live) or 'queued' (awaiting a slot)."""
         rec = self._streams.get(stream_id)
         if rec is None:
-            rec = _Stream(stream_id=stream_id,
-                          buf=np.zeros((0,), np.float32))
-            self._streams[stream_id] = rec
-            self._queue.append(rec)
-            self._try_admit()
+            rec = self._new_stream(stream_id, np.zeros((0,), np.float32))
         if rec.finished:
             raise ValueError(f"stream {stream_id} already finished")
         rec.buf = np.concatenate([rec.buf, np.asarray(chunk, np.float32)])
         return "slot" if rec.slot is not None else "queued"
+
+    def _new_stream(self, stream_id: str, buf: np.ndarray,
+                    **kw) -> _Stream:
+        """Register a stream (next uid), queue it and admit it if a slot
+        is free."""
+        rec = _Stream(stream_id=stream_id, uid=self._uid, buf=buf, **kw)
+        self._uid += 1
+        self._streams[stream_id] = rec
+        self._queue.append(rec)
+        self._try_admit()
+        return rec
 
     def finish(self, stream_id: str) -> None:
         """Producer signals end-of-stream: the slot is freed once the
@@ -211,8 +380,10 @@ class StreamServer:
             self._queue.remove(rec)
 
     def _free_slot(self, rec: _Stream) -> None:
-        self._slots[rec.slot] = None
+        s = rec.slot
+        self._slots[s] = None
         rec.slot = None
+        self._write_slot_custom(s, None)
         self._try_admit()
 
     def _try_admit(self) -> None:
@@ -222,6 +393,7 @@ class StreamServer:
                 rec.slot = s
                 rec.initialized = False
                 self._slots[s] = rec
+                self._write_slot_custom(s, rec.custom)
 
     # -- the batched tick ---------------------------------------------------
 
@@ -238,10 +410,12 @@ class StreamServer:
         if not todo:
             return init_mask, init_logits
 
-        def _book(rec, s, dt):
+        def _book(rec, s, first, dt):
             rec.wall_s += dt
             rec.initialized = True
             rec.hops += 1
+            rec.consumed += window
+            rec.recent = first.copy()
             rec.pending = []
             self._dstate = dec.reset_slot(self._dstate, s)
             if self._vstate is not None:
@@ -255,7 +429,8 @@ class StreamServer:
                 rec.buf = rec.buf[window:]   # the state carries the overlap
                 init_mask[s] = True
             t0 = time.perf_counter()
-            logits, new_state = self.engine.init(self._tensor(windows))
+            logits, new_state = self.engine.init(self._tensor(windows),
+                                                 *self._riders())
             self._state = _select_state(self._tensor(init_mask), new_state,
                                         self._state)
             logits = logits.cpu().numpy()
@@ -263,7 +438,7 @@ class StreamServer:
             self._hop_wall_s += dt
             self._init_calls += 1
             for s, rec in todo:
-                _book(rec, s, dt / len(todo))
+                _book(rec, s, windows[s], dt / len(todo))
                 init_logits[s] = logits[s]
             return init_mask, init_logits
 
@@ -271,13 +446,14 @@ class StreamServer:
             first = rec.buf[:window]
             rec.buf = rec.buf[window:]
             t0 = time.perf_counter()
-            logits, one = self.engine.init(self._tensor(first[None]))
+            logits, one = self.engine.init(self._tensor(first[None]),
+                                           *self._row_custom(rec))
             self._state = _scatter_slot(self._state, one, s)
             init_logits[s] = logits[0].cpu().numpy()
             dt = time.perf_counter() - t0
             self._hop_wall_s += dt
             self._init_calls += 1
-            _book(rec, s, dt)
+            _book(rec, s, first, dt)
         return init_mask, init_logits
 
     def _event(self, rec: _Stream, s: int, out: dec.DecisionOut) -> dict:
@@ -314,6 +490,11 @@ class StreamServer:
                                            self._tensor(audio),
                                            self._tensor(ready))
             speech = sp.cpu().numpy() & ready
+            for s, rec in enumerate(self._slots):
+                # enrollment and replay hops must run the real IMC path:
+                # a gated hop would corrupt the captured feature buffer
+                if ready[s] and rec is not None and rec.force_compute:
+                    speech[s] = True
 
         compute_mask = np.zeros((self.slots,), bool)
         fill_mask = np.zeros((self.slots,), bool)
@@ -330,8 +511,11 @@ class StreamServer:
             else:
                 rec.pending.append(audio[s])
                 if len(rec.pending) > self.vcfg.wake_margin:
-                    rec.pending.pop(0)
+                    aged = rec.pending.pop(0)
                     fill_mask[s] = True   # advance by the no-op fill
+                    rec.recent = np.concatenate([rec.recent,
+                                                 aged])[-window:]
+                    rec.consumed += hop
                     rec.gated_hops += 1
                     self._gated_hops += 1
 
@@ -349,7 +533,8 @@ class StreamServer:
             a[s] = np.concatenate(chunks)
             t0 = time.perf_counter()
             lg, new_state = self.engine.multi_step(self._state,
-                                                   self._tensor(a), n)
+                                                   self._tensor(a), n,
+                                                   *self._riders())
             self._state = _select_state(mask_t, new_state, self._state)
             self._replay_calls += 1
             outs = []
@@ -361,17 +546,19 @@ class StreamServer:
             dt = time.perf_counter() - t0
             rec.wall_s += dt
             self._hop_wall_s += dt
-            for out in outs:
+            for ch, out in zip(chunks, outs):
                 self._decisions += 1
                 self._speech_hops += 1
+                rec.recent = np.concatenate([rec.recent, ch])[-window:]
+                rec.consumed += hop
                 rec.hops += 1
                 events.append(self._event(rec, s, out))
 
         logits = init_logits
         if compute_mask.any():
             t0 = time.perf_counter()
-            hop_logits, new_state = self.engine.step(self._state,
-                                                     self._tensor(audio))
+            hop_logits, new_state = self.engine.step(
+                self._state, self._tensor(audio), *self._riders())
             self._state = _select_state(self._tensor(compute_mask),
                                         new_state, self._state)
             hop_logits = hop_logits.cpu().numpy()
@@ -381,22 +568,32 @@ class StreamServer:
             n_active = int(compute_mask.sum())
             for s, rec in enumerate(self._slots):
                 if compute_mask[s]:
-                    self._speech_hops += 1
+                    if rec.internal:
+                        self._learn_hops += 1
+                    else:
+                        self._speech_hops += 1
                     rec.hops += 1
                     rec.wall_s += dt / n_active
+                    rec.consumed += hop
+                    rec.recent = np.concatenate([rec.recent,
+                                                 audio[s]])[-window:]
             logits = np.where(compute_mask[:, None], hop_logits, init_logits)
 
         if fill_mask.any():
             t0 = time.perf_counter()
+            fills = (self._slot_fills if self._slot_fills is not None
+                     else self._fills)
             new_state = sv.gated_step(self._state, self.cfg, self.geom,
-                                      self._fills)
+                                      fills)
             self._state = _select_state(self._tensor(fill_mask), new_state,
                                         self._state)
             self._sync()
             self._hop_wall_s += time.perf_counter() - t0
             self._gate_calls += 1
 
-        decide_mask = init_mask | compute_mask
+        internal = np.asarray([rec is not None and rec.internal
+                               for rec in self._slots])
+        decide_mask = (init_mask | compute_mask) & ~internal
         if decide_mask.any():
             self._dstate, out = dec.decision_step(
                 self.dcfg, self._dstate, self._tensor(logits),
@@ -407,6 +604,10 @@ class StreamServer:
                 if rec is not None and decide_mask[s]:
                     events.append(self._event(rec, s, out))
 
+        # feature captures must see the post-hop states before slots retire
+        if self._cust is not None:
+            self._cust.on_step(self)
+
         # retire drained finished streams
         for rec in list(self._slots):
             if (rec is not None and rec.finished
@@ -414,6 +615,10 @@ class StreamServer:
                                         else window)):
                 self._free_slot(rec)
         self._steps += 1
+        # background learning jobs: calibration layers, feature-replay
+        # spawns, bounded fine-tune rounds, hot swaps
+        if self._cust is not None:
+            self._cust.tick(self)
         return events
 
     def drain(self, max_steps: int = 10_000) -> List[dict]:
@@ -453,6 +658,7 @@ class StreamServer:
             "hop": self.hop,
             "speech_hops": self._speech_hops,
             "gated_hops": self._gated_hops,
+            "learn_hops": self._learn_hops,
             "batched_calls": {
                 "init": self._init_calls,
                 "hop": self._hop_calls,
@@ -474,9 +680,11 @@ class StreamServer:
                                 "gated_hops": rec.gated_hops,
                                 "triggers": len(rec.triggers),
                                 "wall_s": round(rec.wall_s, 4)}
-                for rec in self._streams.values()
+                for rec in self._streams.values() if not rec.internal
             },
         }
+        if self._cust is not None:
+            out["customization"] = self._cust.stats()
         if self.vcfg is not None:
             out["gated_energy"] = {
                 k: round(v, 4) if isinstance(v, float) else v

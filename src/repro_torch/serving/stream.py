@@ -1,7 +1,7 @@
 """Frame-incremental streaming inference over the folded KWS model.
 
-Port of ``repro/serving/stream.py`` without the SA-noise field and the
-customization riders.  The accelerator is always-on: one decision per hop
+Port of ``repro/serving/stream.py`` without the SA-noise field.  The
+accelerator is always-on: one decision per hop
 of a sliding window.  Every layer's activation columns are indexed by
 absolute time; when the hop is a multiple of ``hop_alignment(cfg)`` (the
 product of all strides and pool windows, 64 samples for the paper net),
@@ -17,6 +17,15 @@ kernel exactly once per IMC layer (conv1..conv5) whatever B is;
 launch per layer (the VAD wake replay).  ``gated_step`` advances a silent
 hop without launching anything: each layer's constant silence response
 shifts into the carries and the GAP ring.
+
+The customization riders (``serving.customize``) ride the same launches:
+``bias_delta`` ({conv_i: (B, C_i)}) holds each stream's integer bias
+change from bias compensation and enters the kernel's pre-sign operand,
+exactly where the word-line bias lands, so a customized stream's IMC
+layers run in the same batched launch as every other stream;
+``head_w``/``head_b`` ((B, D, C), (B, C)) replace the shared FC per
+stream.  Both are exact on the fixed-point grids, so a row holding the
+base values gives the base logits bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.quantize import ACT_Q
 from repro_torch.kernels import resolve_device
 from repro_torch.models import kws
 
@@ -149,27 +159,56 @@ def _tail(x: torch.Tensor, n: int) -> torch.Tensor:
     return x[:, x.shape[1] - n:]
 
 
+def _ring_logits(hwp: kws.HWParams, ring: torch.Tensor,
+                 head_w: Optional[torch.Tensor],
+                 head_b: Optional[torch.Tensor]) -> torch.Tensor:
+    """GAP + FC, with an optional per-stream head: ``head_w`` (B, D, C) /
+    ``head_b`` (B, C) replace the shared FC row by row.  Every product
+    lies on a 2**-11 grid, so the batched product equals the shared one
+    on rows that hold the base head."""
+    if head_w is None:
+        return kws.gap_fc(hwp, ring)[0]
+    feats = ACT_Q.quantize(ring.sum(dim=1) / ring.shape[1])
+    return torch.bmm(feats[:, None, :], head_w)[:, 0] + head_b
+
+
+def _delta_operand(delta: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """A per-stream bias delta (B, C) as the per-column pre-sign operand
+    (B, n_cols, C) that the fused kernel adds where the word-line bias
+    lands (integers: bit-exact against refolding the bias)."""
+    return delta[:, None, :].expand(delta.shape[0], n_cols, delta.shape[1])
+
+
 def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
                 geom: StreamGeometry, *,
                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                use_kernel: bool = True):
+                use_kernel: bool = True,
+                bias_delta: Optional[Dict[str, torch.Tensor]] = None,
+                head_w: Optional[torch.Tensor] = None,
+                head_b: Optional[torch.Tensor] = None):
     """Process the streams' first full windows (B, window) and build their
     incremental state.  Equivalent to ``hw_forward`` on the window, plus
-    capturing each layer's ring tail.  Returns (logits (B, C), state)."""
+    capturing each layer's ring tail.  ``bias_delta``/``head_w``/
+    ``head_b`` are the per-stream customization riders.  Returns (logits
+    (B, C), state)."""
     hwp, packed = kws.as_hw_params(hw)
     b = window.shape[0]
     h = window[..., None]
     carries = []
     for i in range(cfg.num_conv_layers):
-        off = packed_i = None
+        off = packed_i = noise = None
         if i > 0:
-            carries.append(_tail(h, geom.layers[i].carry))
+            lg = geom.layers[i]
+            carries.append(_tail(h, lg.carry))
+            if bias_delta is not None:
+                noise = _delta_operand(bias_delta[f"conv{i}"], lg.t_conv)
             if chip_offsets is not None:
                 off = chip_offsets[f"conv{i}"]
             packed_i = packed[f"conv{i}"] if packed else None
         h = kws.hw_conv_layer(hwp, i, h, cfg, packed=packed_i,
-                              chip_offset=off, use_kernel=use_kernel)
-    logits, _ = kws.gap_fc(hwp, h)
+                              chip_offset=off, sa_noise=noise,
+                              use_kernel=use_kernel)
+    logits = _ring_logits(hwp, h, head_w, head_b)
     state = StreamState(
         audio_carry=_tail(window, geom.layers[0].carry),
         carries=tuple(carries), ring=h,
@@ -179,8 +218,9 @@ def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
 
 def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
                     cfg: kws.KWSConfig, geom: StreamGeometry, n_hops: int, *,
-                    chip_offsets, use_kernel) -> Tuple[List[torch.Tensor],
-                                                       StreamState]:
+                    chip_offsets, use_kernel, bias_delta=None,
+                    head_w=None, head_b=None
+                    ) -> Tuple[List[torch.Tensor], StreamState]:
     """Advance a batch of streams by ``n_hops`` consecutive hops with ONE
     fused-kernel launch per IMC layer: each layer's tail extends by the
     extra hops' fresh columns.  Returns ([(B, C)] * n_hops logits, state)."""
@@ -194,14 +234,19 @@ def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
         inp = torch.cat([state.carries[i - 1], h], dim=1)
         new_carries.append(_tail(inp, geom.layers[i].carry))
         off = chip_offsets[name] if chip_offsets is not None else None
+        noise = None
+        if bias_delta is not None:
+            t_conv_tail = (inp.shape[1] - cfg.kernels[i]) // cfg.strides[i] + 1
+            noise = _delta_operand(bias_delta[name], t_conv_tail)
         h = kws.hw_conv_layer(hwp, i, inp, cfg,
                               packed=packed[name] if packed else None,
-                              chip_offset=off, use_kernel=use_kernel)
+                              chip_offset=off, sa_noise=noise,
+                              use_kernel=use_kernel)
     logits_hops = []
     for j in range(1, n_hops + 1):
         ring = torch.cat([state.ring, h[:, :j * geom.d_feat]],
                          dim=1)[:, -geom.t_feat:]
-        logits_hops.append(kws.gap_fc(hwp, ring)[0])
+        logits_hops.append(_ring_logits(hwp, ring, head_w, head_b))
     new_state = StreamState(audio_carry=new_audio_carry,
                             carries=tuple(new_carries), ring=ring,
                             hop=state.hop + n_hops)
@@ -211,13 +256,18 @@ def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
 def stream_step(hw, state: StreamState, audio: torch.Tensor,
                 cfg: kws.KWSConfig, geom: StreamGeometry, *,
                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                use_kernel: bool = True):
+                use_kernel: bool = True,
+                bias_delta: Optional[Dict[str, torch.Tensor]] = None,
+                head_w: Optional[torch.Tensor] = None,
+                head_b: Optional[torch.Tensor] = None):
     """Advance a batch of streams by one hop: audio (B, hop) -> (logits
     (B, C), new state).  Bit-identical to ``hw_forward`` on the matching
-    full window."""
+    full window.  ``bias_delta``/``head_w``/``head_b`` are the per-stream
+    customization riders (see ``stream_init``)."""
     logits_hops, new_state = _stream_advance(
         hw, state, audio, cfg, geom, 1, chip_offsets=chip_offsets,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, bias_delta=bias_delta, head_w=head_w,
+        head_b=head_b)
     return logits_hops[0], new_state
 
 
@@ -225,13 +275,17 @@ def stream_multi_step(hw, state: StreamState, audio: torch.Tensor,
                       cfg: kws.KWSConfig, geom: StreamGeometry,
                       n_hops: int, *,
                       chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                      use_kernel: bool = True):
+                      use_kernel: bool = True,
+                      bias_delta: Optional[Dict[str, torch.Tensor]] = None,
+                      head_w: Optional[torch.Tensor] = None,
+                      head_b: Optional[torch.Tensor] = None):
     """Advance by ``n_hops`` consecutive hops in ONE launch per IMC layer:
     audio (B, n_hops*hop) -> (logits (B, n_hops, C), new state).
     Bit-identical to ``n_hops`` sequential ``stream_step`` calls."""
     logits_hops, new_state = _stream_advance(
         hw, state, audio, cfg, geom, n_hops, chip_offsets=chip_offsets,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, bias_delta=bias_delta, head_w=head_w,
+        head_b=head_b)
     return torch.stack(logits_hops, dim=1), new_state
 
 
@@ -253,11 +307,15 @@ def gated_step(state: StreamState, cfg: kws.KWSConfig, geom: StreamGeometry,
     """Advance a batch of streams by one silent hop without computing:
     every carry and the GAP ring shift by their per-hop column counts,
     the shifted-in columns being each layer's silence response; the audio
-    carry shifts in zeros."""
+    carry shifts in zeros.  Each ``fills`` entry is a shared (C_i,)
+    column or a per-stream (B, C_i) one (customized streams carry
+    compensated biases, so their silence response differs)."""
     b = state.hop.shape[0]
 
     def _fill(f, d):
-        return f.expand(b, d, f.shape[-1])
+        if f.dim() == 1:
+            return f.expand(b, d, f.shape[-1])
+        return f[:, None, :].expand(b, d, f.shape[-1])
 
     audio_carry = _tail(
         torch.cat([state.audio_carry,
@@ -304,25 +362,33 @@ class StreamEngine:
     def zeros_state(self, n: int) -> StreamState:
         return zeros_state(self.cfg, self.geom, n, self.device)
 
-    def init(self, window: torch.Tensor):
-        """First full windows (B, window) -> (logits, state)."""
+    def init(self, window: torch.Tensor, bias_delta=None, head_w=None,
+             head_b=None):
+        """First full windows (B, window) -> (logits, state), with the
+        optional per-stream customization riders."""
         return stream_init(self.hw, window, self.cfg, self.geom,
                            chip_offsets=self.chip_offsets,
-                           use_kernel=self.use_kernel)
+                           use_kernel=self.use_kernel, bias_delta=bias_delta,
+                           head_w=head_w, head_b=head_b)
 
-    def step(self, state: StreamState, audio: torch.Tensor):
-        """One hop (B, hop) -> (logits, state)."""
+    def step(self, state: StreamState, audio: torch.Tensor,
+             bias_delta=None, head_w=None, head_b=None):
+        """One hop (B, hop) -> (logits, state), with the optional riders:
+        still one fused-kernel launch per IMC layer for the whole batch."""
         return stream_step(self.hw, state, audio, self.cfg, self.geom,
                            chip_offsets=self.chip_offsets,
-                           use_kernel=self.use_kernel)
+                           use_kernel=self.use_kernel, bias_delta=bias_delta,
+                           head_w=head_w, head_b=head_b)
 
     def multi_step(self, state: StreamState, audio: torch.Tensor,
-                   n_hops: int):
+                   n_hops: int, bias_delta=None, head_w=None, head_b=None):
         """``n_hops`` hops (B, n_hops*hop) in one launch per IMC layer ->
-        (logits (B, n_hops, C), state)."""
+        (logits (B, n_hops, C), state), with optional riders."""
         return stream_multi_step(self.hw, state, audio, self.cfg, self.geom,
                                  n_hops, chip_offsets=self.chip_offsets,
-                                 use_kernel=self.use_kernel)
+                                 use_kernel=self.use_kernel,
+                                 bias_delta=bias_delta, head_w=head_w,
+                                 head_b=head_b)
 
 
 # ---------------------------------------------------------------------------

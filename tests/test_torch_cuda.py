@@ -1,6 +1,8 @@
-"""The port's Hopper kernel on a card: ``imc_fused`` against its plain
-PyTorch version, bit for bit, and one launch per IMC layer on the served
-paths.
+"""The port's Hopper kernels on a card: ``imc_fused`` and the fused SGA
+update (``sga_update_rows``, ``sga_update``) against their plain PyTorch
+versions, bit for bit; one ``imc_fused`` launch per IMC layer on the
+served paths, and one ``sga_update_rows`` launch per training round of
+the customization sessions.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -13,11 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.onchip_training import OnChipTrainConfig
 from repro_torch.kernels.imc_mav import ops, ref
+from repro_torch.kernels.sga_update import ops as sga_ops
+from repro_torch.kernels.sga_update.ref import sga_update_ref
 from repro_torch.models import kws
+from repro_torch.serving import CustomizeConfig
+from repro_torch.serving import customize as cz
 from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
+
+from _sga_cases import sga_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +159,132 @@ def test_server_kernel_equals_plain_version(dev):
     assert st_k["gated_hops"] > 0
     assert n_k == 5 * (calls["init"] + calls["hop"] + calls["replay"])
     assert n_p == 0
+
+
+@pytest.mark.parametrize("lrs", [[1 / 16], [1 / 16, 1 / 128],
+                                 [1 / 16, 0.05, 1 / 32, 1 / 128, 0.03,
+                                  1 / 64, 0.1, 1 / 8]],
+                         ids=["B1", "B2", "B8"])
+def test_sga_rows_kernel_matches_plain_version(dev, lrs):
+    w, g, a, lr, g_th = (torch.tensor(v, device=dev)
+                         for v in sga_rows(len(lrs), lrs))
+    sga_ops.COUNTS_ROWS.reset()
+    got = sga_ops.sga_update_batch(w, g, a, lr, g_th)
+    want = sga_update_ref(w, g, a, lr[:, None], g_th[:, None])
+    torch.cuda.synchronize()
+    assert sga_ops.COUNTS_ROWS.launches == 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("lr", [1 / 16, 0.05, 1 / 128])
+def test_sga_flat_kernel_matches_plain_version(dev, lr):
+    w, g, a, _, g_th = sga_rows(9, [lr], n=5003)
+    tree = lambda v: {"w": torch.tensor(v[0, :4000], device=dev),
+                      "b": torch.tensor(v[0, 4000:], device=dev)}
+    sga_ops.COUNTS_FLAT.reset()
+    got = sga_ops.sga_update_tree(tree(w), tree(g), tree(a), lr,
+                                  float(g_th[0]))
+    torch.cuda.synchronize()
+    assert sga_ops.COUNTS_FLAT.launches == 2
+    for k in ("w", "b"):
+        want = sga_update_ref(tree(w)[k], tree(g)[k], tree(a)[k],
+                              torch.tensor(lr, device=dev),
+                              torch.tensor(float(g_th[0]), device=dev))
+        assert torch.equal(got[0][k], want[0])
+        assert torch.equal(got[1][k], want[1])
+
+
+def test_sga_kernel_rejects_mismatched_operands(dev):
+    w, g, a, lr, g_th = (torch.tensor(v, device=dev)
+                         for v in sga_rows(2, [1 / 16, 1 / 32], n=500))
+    with pytest.raises(ValueError, match="float32"):
+        sga_ops.sga_update_batch(w, g.double(), a, lr, g_th)
+    with pytest.raises(ValueError, match="lr has shape"):
+        sga_ops.sga_update_batch(w, g, a, lr[:1], g_th)
+
+
+def test_sessions_launch_one_sga_update_per_round(dev, monkeypatch):
+    """Two concurrent sessions on the card: one ``sga_update_rows``
+    launch per training round, ``imc_fused`` still once per IMC layer and
+    batched call, and the same results and events as the plain route and
+    as the CPU path (``score`` within 1e-6 there)."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    rng = np.random.default_rng(4)
+    live = rng.uniform(-1, 1, L + 50 * HOP).astype(np.float32)
+    utts = [rng.uniform(-1, 1, L).astype(np.float32) for _ in range(6)]
+    labels = [int(v) for v in rng.integers(0, cfg.num_classes, 6)]
+    rounds = []
+    update = cz.CustomizationManager._kernel_update
+
+    def counted(self, sessions, grads):
+        rounds.append(len(sessions))
+        return update(self, sessions, grads)
+
+    monkeypatch.setattr(cz.CustomizationManager, "_kernel_update", counted)
+
+    def run(device, use_kernel):
+        hw_d = hw if device == dev else _to_cpu(hw)
+        srv = StreamServer(hw_d, cfg, hop=HOP, slots=9, vad=VADConfig(),
+                           use_kernel=use_kernel, device=device)
+        sessions = []
+        for k, per_tick in enumerate((5, 3)):
+            sess = srv.customize(f"user{k}", CustomizeConfig(
+                train=OnChipTrainConfig(epochs=23), epochs_per_tick=per_tick,
+                calib_sa_noise_std=0.0, use_kernel=use_kernel))
+            for j in range(3):
+                sess.enroll(labels[3 * k + j], utts[3 * k + j])
+            sess.finish_enrollment()
+            sessions.append(sess)
+        srv.submit("live", live[:L])
+        rounds.clear()
+        ops.COUNTS.reset()
+        sga_ops.COUNTS_ROWS.reset()
+        events, pos = [], L
+        for _ in range(200):
+            if pos < len(live):
+                srv.submit("live", live[pos:pos + HOP])
+                pos += HOP
+            events.extend(srv.step())
+            if all(s.phase == "swapped" for s in sessions):
+                break
+        assert all(s.phase == "swapped" for s in sessions)
+        return dict(events=events, stats=srv.stats(), rounds=list(rounds),
+                    sga=sga_ops.COUNTS_ROWS.launches,
+                    imc=ops.COUNTS.launches,
+                    results=[s.result for s in sessions])
+
+    kern, plain = run(dev, True), run(dev, False)
+    cpu = run(torch.device("cpu"), True)
+    assert kern["sga"] == len(kern["rounds"]) == len(cpu["rounds"])
+    assert 23 <= kern["sga"] < 46 and 2 in kern["rounds"]
+    assert plain["sga"] == 0 and plain["rounds"] == []
+    calls = kern["stats"]["batched_calls"]
+    assert kern["imc"] == 5 * (calls["init"] + calls["hop"]
+                               + calls["replay"])
+    assert kern["events"] == plain["events"]
+    # the card and the CPU agree on every decision; the score's softmax
+    # and smoothing round differently in the last ulp between devices
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    assert strip(kern["events"]) == strip(cpu["events"])
+    np.testing.assert_allclose([e["score"] for e in kern["events"]],
+                               [e["score"] for e in cpu["events"]], rtol=0,
+                               atol=1e-6)
+    for r_k, r_p, r_c in zip(kern["results"], plain["results"],
+                             cpu["results"]):
+        for r in (r_p, r_c):
+            assert np.array_equal(r_k.fc_w, r.fc_w)
+            assert np.array_equal(r_k.fc_b, r.fc_b)
+            assert r_k.history == r.history
+            for name in cfg.imc_layer_names():
+                assert np.array_equal(r_k.bias[name], r.bias[name])
+
+
+def _to_cpu(hw):
+    return kws.PackedHWParams(
+        hw=kws.HWParams(*[{k: v.cpu() for k, v in d.items()}
+                          for d in (hw.hw.w_bin, hw.hw.bias, hw.hw.flip)],
+                        fc_w=hw.hw.fc_w.cpu(), fc_b=hw.hw.fc_b.cpu()),
+        packed={k: v.cpu() for k, v in hw.packed.items()})
