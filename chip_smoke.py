@@ -8,17 +8,17 @@ Run from the root of a checkout, with one CUDA card:
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-1. build the Hopper kernels ``imc_fused`` (``src/repro_torch/kernels/
-   imc_mav/csrc/imc_fused.cu``) and ``sga_update`` (``src/repro_torch/
-   kernels/sga_update/csrc/sga_update.cu``), one nvcc (sm_90a) for each,
-   started together, and print the card's name and power limit;
+1. build the four Hopper kernels, ``imc_fused`` and ``imc_mav``
+   (``src/repro_torch/kernels/imc_mav/csrc/``), ``sga_update``
+   (``.../sga_update/csrc/``) and ``int8_matmul`` (``.../int8_matmul/
+   csrc/``), one nvcc (sm_90a) for each, started together, and print the
+   card's name and power limit;
 2. per IMC layer of the paper net at full width (B = 8 streams, a full
    16 000-sample window, and the per-hop tail shapes of hop 1024): the
-   kernel against its plain PyTorch version on the card, on random ±1
-   inputs without offset, with chip offsets, and with chip offsets plus a
-   pre-sign noise operand — bitwise; then the kernel's and the plain
-   version's median times (CUDA events) beside the least time the card
-   could take;
+   fused kernel against its plain PyTorch version on the card, on random
+   ±1 inputs without offset, with chip offsets, and with chip offsets plus
+   a pre-sign noise operand — bitwise; then the kernel's and the plain
+   version's median times beside the least time the card could take;
 3. the served path: a net folded from ``init_params`` (seeded
    ``torch.Generator``) serves 8 streams of synthetic keyword audio with
    silent gaps (``repro_torch.data.audio``) through ``StreamServer`` at
@@ -29,32 +29,56 @@ result line):
    logits of the kernel path must equal the plain path's on the card and
    the port's CPU path (which the tests hold bitwise to the JAX package);
 4. on-chip customization at full width: the same net, chip and VAD at hop
-   1024 and 8 slots serve two live keyword streams while two enrollment
+   1024 and 8 slots serve two live keyword streams while three enrollment
    sessions (``StreamServer.customize``, 10 labelled one-window utterances
-   each, ``epochs_per_tick`` 10 and 7 so their learning rates differ) run
-   bias compensation (noise-free test mode) and 200 epochs of the
-   quantized head fine-tune, then hot-swap and serve their users; once
-   with the kernels and once with the plain versions.  Results (biases,
-   head, history) and every stream's events must be identical; each
-   result must equal the offline loop (``calibrate_and_compensate`` ->
-   ``hw_features`` -> ``quantized_head_finetune``) on the card and on the
-   CPU; ``sga_update_rows`` must launch exactly once per training round
-   and ``imc_fused`` 5 x (init + hop + replay batched calls).  Then the
-   SGA kernels against their plain version at B = 1, 2 and 8 rows of the
+   each, ``epochs_per_tick`` 10, 7 and 10; the third with the test mode's
+   read noise, ``calib_sa_noise_std=1.0``) run bias compensation and 200
+   epochs of the quantized head fine-tune, then hot-swap and serve their
+   users; once with the kernels and once with the plain versions.
+   Results (biases, head, history) and every stream's events must be
+   identical; each result must equal the offline loop
+   (``calibrate_and_compensate`` -> ``hw_features`` ->
+   ``quantized_head_finetune``) on the card and on the CPU;
+   ``sga_update_rows`` must launch exactly once per training round and
+   ``imc_fused`` 5 x (init + hop + replay batched calls).  Then the SGA
+   kernels against their plain version at B = 1, 2 and 8 rows of the
    head's 5770 elements, with tie cases, bitwise, with their times; and
    the error-scaling exponent on the card against the exact one for all
-   257 values the quantized loop can meet.
+   257 values the quantized loop can meet;
+5. ``imc_mav`` (K5) on the per-group patch shapes of conv1..conv5 at a
+   full window (B = 8), float32 and bfloat16, clean and with a noise
+   operand, and ``int8_matmul`` (K4) at 512 x 128 x 128 (shifts 0, 4, 7)
+   and at the FC head's 8 x 576 x 10, bitwise against their plain
+   versions, with their times, bounds, the float32 matmul of K5's product
+   alone and ``torch._int_mm`` (K4's product alone);
+6. the per-group hardware forward at full width (``grouploop_forward``:
+   ``conv_mav`` per IMC layer, 41 K5 launches, and the FC through
+   ``quantized_fc``, one K4 launch, both counted): clean logits equal to
+   the fused ``hw_forward``, the ``sa_key``-noise forward equal on the
+   kernel route and the plain route, and each layer's time beside the
+   fused layer's;
+7. the served path on a noisy chip (SA noise 1.0, chip offsets from
+   ``sample_chip_offsets(PRNGKey(0))`` at std 4), with constant and with
+   retention fills: kernel and plain routes bitwise equal on events and
+   every state leaf, ``imc_fused`` 5 x (batched calls) launches; the noise
+   field on the card equal to the CPU's; streamed logits equal to the
+   offline ``hw_forward(sa_noise_field=...)``; decisions/s beside the
+   noise-free run and the noise field's share of a tick.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
 [...]}``; the last line is ``{"ok": true, "device": {...}}``.  In the
-kernels line, ``ms``, ``plain_ms`` and ``bound_ms`` are for the work of
-one steady-state hop tick (the five IMC layers at the hop-1024 tail
-shapes, B = 8): median device time from ``torch.profiler`` (CUDA-event
+kernels line, ``imc_fused``'s ``ms``, ``plain_ms`` and ``bound_ms`` are
+for the work of one steady-state hop tick (the five IMC layers at the
+hop-1024 tail shapes, B = 8): median device time from ``torch.profiler`` (CUDA-event
 time per call where the profiler records no device activity), and the
 least time the card could take for the same bytes and operations.
-``launches`` is the count from the main path's served run.  Without a
-CUDA device, or outside a checkout, the script exits non-zero.
+``launches`` is the count from the main path's served run.  The
+``imc_mav`` row is one per-group forward's 41 launches at a full window
+(its launches counted in phase 6), the ``int8_matmul`` row the FC head's
+shape (its ``library_ms`` is ``torch._int_mm`` on the operands
+zero-padded to 32 x 576 x 16, the product alone).  Without a CUDA device,
+or outside a checkout, the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -76,13 +100,21 @@ HOP, SLOTS, HOPS, B = 1024, 8, 24, 8
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_OPS_PER_S = 495e12
 H100_FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
+H100_INT8_OPS_PER_S = 1979e12    # int8 tensor-core operations/s
 KERNEL_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_fused.cu"
 REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:141"
 SGA_SOURCE = "src/repro_torch/kernels/sga_update/csrc/sga_update.cu"
 SGA_REPLACES = {"sga_update_rows":
                 "src/repro/kernels/sga_update/sga_update.py:57",
                 "sga_update": "src/repro/kernels/sga_update/sga_update.py:89"}
-N_UTTS, EPOCHS, PER_TICK = 10, 200, (10, 7)
+MAV_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_mav.cu"
+MAV_REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:67"
+I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
+I8_REPLACES = "src/repro/kernels/int8_matmul/int8_matmul.py:34"
+# the third session takes the test mode's read noise (calib_sa_noise_std)
+N_UTTS, EPOCHS, PER_TICK = 10, 200, (10, 7, 10)
+CALIB_NOISE = (0.0, 0.0, 1.0)
+SA_STD, OFFSET_STD = 1.0, 4.0     # the noisy chip of the noisy phases
 
 
 def log(*args):
@@ -174,19 +206,23 @@ def phase_build(torch):
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch import kernels
     from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
     from repro_torch.kernels.sga_update import ops as sga_ops
-    libs = {"imc_fused": ops, "sga_update": sga_ops}
+    libs = {"imc_fused": (ops.SOURCE, ops.library),
+            "sga_update": (sga_ops.SOURCE, sga_ops.library),
+            "imc_mav": (ops.MAV_SOURCE, ops.mav_library),
+            "int8_matmul": (i8_ops.SOURCE, i8_ops.library)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
-        for fut in [pool.submit(kernels.build_library, name, [mod.SOURCE])
-                    for name, mod in libs.items()]:
+        for fut in [pool.submit(kernels.build_library, name, [src])
+                    for name, (src, _) in libs.items()]:
             fut.result()
-    for mod in libs.values():
-        mod.library()
+    for _, load in libs.values():
+        load()
     log(f"[build] {', '.join(libs)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, mod in libs.items():
-        logfile = kernels.library_path(name, [mod.SOURCE])
+    for name, (src, _) in libs.items():
+        logfile = kernels.library_path(name, [src])
         logfile = logfile.with_name(logfile.name + ".log")
         for line in logfile.read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -556,6 +592,431 @@ def phase_sga_kernels(torch, dev):
     return rows
 
 
+def _group_shapes(cfg):
+    """Per IMC layer of the paper net at a full window: (layer, groups,
+    M = B * t_conv, K = k * cpg, N = cog, stride, t_in)."""
+    from repro_torch.serving import stream as sv
+    geom = sv.make_stream_geometry(cfg, HOP)
+    out = []
+    for i in range(1, cfg.num_conv_layers):
+        g = cfg.groups(i)
+        lg = geom.layers[i]
+        out.append((i, g, B * lg.t_conv, cfg.kernels[i] * (
+            cfg.channels[i - 1] // g), cfg.channels[i] // g, cfg.strides[i],
+            lg.t_in))
+    return out
+
+
+def phase_mav_kernels(torch, dev):
+    """K5 on the per-group patch shapes of conv1..conv5 at a full window
+    (B = 8), float32 and bfloat16, clean and with a noise operand, bitwise
+    against the plain version; its times beside the bound and the float32
+    ``torch.matmul`` of the product alone.  K4 at 512 x 128 x 128 (shifts
+    0, 4, 7) and at the FC head's 8 x 576 x 10, bitwise; times beside the
+    bound and ``torch._int_mm`` (the int8 product alone)."""
+    from repro_torch.kernels.imc_mav import ops, ref
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+    from repro_torch.models import kws
+
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator(device=dev).manual_seed(555)
+
+    def pm1(*shape):
+        return (torch.randint(0, 2, shape, generator=gen, device=dev)
+                .float() * 2 - 1)
+
+    mav = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "matmul_ms": 0.0,
+           "max_abs_err": 0.0, "bytes": 0, "ops": 0, "rows": []}
+    for i, g, m, k, n, _, _ in _group_shapes(cfg):
+        x, w, flip = pm1(m, k), pm1(k, n), pm1(n)
+        bias = torch.round(torch.randn(n, generator=gen, device=dev) * 8) * 2
+        noise = torch.randn((m, n), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for nz in (None, noise):
+                got = ops.mav_matmul(x.to(dtype), w.to(dtype), bias, flip, nz)
+                want = ref.imc_mav_ref(x.to(dtype), w.to(dtype), bias, flip,
+                                       nz)
+                torch.cuda.synchronize()
+                mav["max_abs_err"] = max(mav["max_abs_err"], float(
+                    (got.float() - want.float()).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"imc_mav conv{i} {dtype} noise={nz is not None}: "
+                        f"kernel differs from the plain version on "
+                        f"{(got != want).sum().item()} of {got.numel()}")
+        kernel = lambda: ops.imc_mav(x, w, bias, flip)
+        plain = lambda: ref.imc_mav_ref(x, w, bias, flip)
+        product = lambda: torch.matmul(x, w)
+        k_ms = device_ms(torch, kernel) or cuda_ms(torch, kernel)
+        p_ms = device_ms(torch, plain) or cuda_ms(torch, plain)
+        mm_ms = device_ms(torch, product) or cuda_ms(torch, product)
+        k_call = cuda_ms(torch, kernel)
+        nbytes = 4 * (m * k + k * n + 2 * n + m * n)
+        nops = 2 * m * k * n
+        b_ms, b_by = bound_ms(nbytes, nops)
+        # a layer is ``g`` launches of this shape
+        mav["ms"] += g * k_ms
+        mav["plain_ms"] += g * p_ms
+        mav["matmul_ms"] += g * mm_ms
+        mav["bytes"] += g * nbytes
+        mav["ops"] += g * nops
+        mav["rows"].append(dict(layer=f"conv{i}", groups=g, M=m, K=k, N=n,
+                                kernel_ms=k_ms, kernel_call_ms=k_call,
+                                plain_ms=p_ms, matmul_ms=mm_ms,
+                                bound_ms=b_ms, bound_by=b_by))
+        log(f"[imc_mav] conv{i} per group M={m} K={k} N={n} (x{g} "
+            f"launches): device time kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.5f} ms, float32 matmul alone {mm_ms:.5f} ms; per call "
+            f"(CUDA events) {k_call:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+            f"bitwise equal (f32/bf16, clean/noise)")
+    mav["bound_ms"], mav["bound_by"] = bound_ms(mav["bytes"], mav["ops"])
+    log(f"[imc_mav] one per-group forward's 41 launches: kernel "
+        f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, float32 "
+        f"matmul alone {mav['matmul_ms']:.4f} ms, bound "
+        f"{mav['bound_ms']:.5f} ms ({mav['bound_by']}) (device time)")
+
+    i8 = {"max_abs_err": 0.0, "rows": []}
+    for m, k, n, shifts in ((512, 128, 128, (0, 4, 7)), (8, 576, 10, (7,))):
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-2 ** 16, 2 ** 16, (n,), generator=gen,
+                          device=dev, dtype=torch.int32)
+        x[0, :] = -128                     # the rails: largest products
+        w[:, 0] = -128
+        for shift in shifts:
+            got = i8_ops.int8_matmul(x, w, b, shift=shift)
+            want = int8_matmul_ref(x, w, b, shift=shift)
+            torch.cuda.synchronize()
+            i8["max_abs_err"] = max(i8["max_abs_err"], float(
+                (got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_matmul {m}x{k}x{n} shift "
+                                     f"{shift}: kernel differs from the "
+                                     f"plain version")
+        kernel = lambda: i8_ops.int8_matmul_launch(x, w, b, 7)
+        plain = lambda: int8_matmul_ref(x, w, b, 7)
+        # torch._int_mm needs M > 16 and K, N multiples of 8: at the head
+        # shape it runs on the operands zero-padded to 32 x 576 x 16
+        xp = torch.zeros((max(m, 32), k), dtype=torch.int8, device=dev)
+        xp[:m] = x
+        wp = torch.zeros((k, -(-n // 8) * 8), dtype=torch.int8, device=dev)
+        wp[:, :n] = w
+        lib = lambda: torch._int_mm(xp, wp)
+        k_ms = device_ms(torch, kernel) or cuda_ms(torch, kernel)
+        p_ms = device_ms(torch, plain) or cuda_ms(torch, plain)
+        l_ms = device_ms(torch, lib) or cuda_ms(torch, lib)
+        k_call = cuda_ms(torch, kernel)
+        nbytes = m * k + k * n + 4 * n + m * n
+        nops = 2 * m * k * n
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = nops / H100_INT8_OPS_PER_S * 1e3
+        row = dict(M=m, K=k, N=n, ms=k_ms, call_ms=k_call, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        i8["rows"].append(row)
+        log(f"[int8] {m}x{k}x{n} shifts {shifts} bitwise equal; device time "
+            f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, torch._int_mm "
+            f"(product only{', padded' if m < 32 else ''}) {l_ms:.5f} ms; "
+            f"per call (CUDA events) {k_call:.4f} ms; bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return mav, i8
+
+
+def grouploop_forward(torch, hw, x, cfg, sa_key=None, std=0.0):
+    """The per-group hardware forward (the fused layer's baseline, as the
+    JAX package's ``benchmarks/run.py::_grouploop_hw_forward`` runs it):
+    every IMC layer is ``conv_mav``, one K5 launch per conv group, then
+    the digital shuffle and OR-pool; GAP, and the FC twice: as the float
+    head of ``hw_forward`` (logits) and through the chip's 8-bit datapath
+    ``quantized_fc`` (K4).  With ``sa_key`` each layer draws its noise
+    down a ``split`` chain.  Returns (logits, fc codes on the act grid)."""
+    from repro_torch.core import jaxrand
+    from repro_torch.core.binary import channel_shuffle, or_maxpool
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.models import kws
+
+    hwp, _ = kws.as_hw_params(hw)
+    h = kws.hw_conv_layer(hwp, 0, x[..., None], cfg)
+    key = sa_key
+    for i in range(1, cfg.num_conv_layers):
+        name, g = f"conv{i}", cfg.groups(i)
+        sub = None
+        if key is not None:
+            key, sub = jaxrand.split(key)
+        h = ops.conv_mav(h, hwp.w_bin[name], hwp.bias[name], hwp.flip[name],
+                         groups=g, stride=cfg.strides[i], sa_key=sub,
+                         sa_noise_std=std)
+        h = channel_shuffle(h, g)
+        if cfg.pools[i] > 1:
+            h = or_maxpool(h, cfg.pools[i], axis=1)
+    logits, feats = kws.gap_fc(hwp, h)
+    return logits, i8_ops.quantized_fc(feats, hwp.fc_w, hwp.fc_b)
+
+
+def phase_grouploop(torch, dev):
+    """The per-group forward at full width (B = 8) through ``conv_mav``:
+    41 K5 launches and one K4 launch per forward, counted; clean logits
+    equal the fused ``hw_forward``; the ``sa_key``-noise forward equal on
+    the kernel route and the plain route (the CPU); per-layer time of the
+    per-group path beside the fused layer's (K1)."""
+    import numpy as np
+    from repro_torch.core import jaxrand
+    from repro_torch.core.binary import channel_shuffle, or_maxpool
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.models import kws
+
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    x = torch.tensor(np.stack([s[:cfg.sample_len] for s in _traffic(cfg)]),
+                     device=dev)
+    grouploop_forward(torch, hw, x, cfg)           # warm-up
+    torch.cuda.synchronize()
+    ops.COUNTS_MAV.reset()                         # the path's run starts
+    i8_ops.COUNTS.reset()
+    t0 = time.perf_counter()
+    logits, codes = grouploop_forward(torch, hw, x, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(imc_mav=ops.COUNTS_MAV.launches,      # ... and ends
+                    int8_matmul=i8_ops.COUNTS.launches)
+    want = sum(cfg.groups(i) for i in range(1, cfg.num_conv_layers))
+    if launches != dict(imc_mav=want, int8_matmul=1):
+        raise AssertionError(f"per-group forward launched {launches}, "
+                             f"expected {want} imc_mav and 1 int8_matmul")
+    fused, _ = kws.hw_forward(hw, x, cfg, use_kernel=True, device=dev)
+    if not torch.equal(logits, fused):
+        raise AssertionError("per-group forward logits differ from the "
+                             "fused hw_forward")
+    hw_cpu = _to(hw, "cpu")
+    key = jaxrand.PRNGKey(17, device=dev)
+    lk, ck = grouploop_forward(torch, hw, x, cfg, sa_key=key, std=SA_STD)
+    lc, cc = grouploop_forward(torch, hw_cpu, x.cpu(), cfg,
+                               sa_key=key.cpu(), std=SA_STD)
+    if not (torch.equal(lk.cpu(), lc) and torch.equal(ck.cpu(), cc)):
+        raise AssertionError("noisy per-group forward differs between the "
+                             "kernel route and the plain route")
+    if torch.equal(lk, logits) or not torch.isfinite(lk).all():
+        raise AssertionError("the noisy forward drew no noise")
+    _, c_plain = grouploop_forward(torch, hw_cpu, x.cpu(), cfg)
+    if not torch.equal(codes.cpu(), c_plain):
+        raise AssertionError("quantized_fc on the card differs from the "
+                             "CPU")
+    log(f"[grouploop] per-group forward B={B} full window: {launches}; "
+        f"logits equal to the fused hw_forward; sa_key noise (std "
+        f"{SA_STD}) equal on the kernel and plain routes; wall "
+        f"{wall * 1e3:.2f} ms")
+
+    hwp, _ = kws.as_hw_params(hw)
+    h = kws.hw_conv_layer(hwp, 0, x[..., None], cfg)
+    rows = []
+    for i in range(1, cfg.num_conv_layers):
+        name, g = f"conv{i}", cfg.groups(i)
+        args = (hwp.w_bin[name], hwp.bias[name], hwp.flip[name])
+
+        def per_group(h=h, g=g, i=i, args=args):
+            out = channel_shuffle(ops.conv_mav(h, *args, groups=g,
+                                               stride=cfg.strides[i]), g)
+            return or_maxpool(out, cfg.pools[i], axis=1) \
+                if cfg.pools[i] > 1 else out
+
+        def fused(h=h, g=g, i=i, args=args, name=name):
+            return ops.fused_conv_mav(h, *args, groups=g,
+                                      stride=cfg.strides[i],
+                                      pool=cfg.pools[i],
+                                      packed=hw.packed[name])
+
+        if not torch.equal(per_group(), fused()):
+            raise AssertionError(f"conv{i}: per-group layer differs from "
+                                 f"the fused one")
+        pg_call, f_call = cuda_ms(torch, per_group), cuda_ms(torch, fused)
+        pg_dev, f_dev = device_ms(torch, per_group), device_ms(torch, fused)
+        rows.append(dict(layer=name, groups=g, per_group_call_ms=pg_call,
+                         fused_call_ms=f_call, per_group_device_ms=pg_dev,
+                         fused_device_ms=f_dev))
+        log(f"[grouploop] conv{i} ({g} groups): per-group path per call "
+            f"{pg_call:.4f} ms (device {pg_dev} ms), fused K1 per call "
+            f"{f_call:.4f} ms (device {f_dev} ms); per-call speedup "
+            f"{pg_call / f_call:.1f}x")
+        h = fused()
+    return dict(launches=launches, wall_ms=wall * 1e3, per_layer=rows)
+
+
+def _noisy_chip(torch, cfg):
+    from repro_torch.core import imc, jaxrand
+    chans = {n: cfg.channels[i]
+             for i, n in enumerate(cfg.imc_layer_names(), start=1)}
+    return imc.sample_chip_offsets(jaxrand.PRNGKey(0, device="cpu"), chans,
+                                   imc.IMCNoiseParams(OFFSET_STD, SA_STD))
+
+
+def phase_noisy_served(torch, dev):
+    """The served path on a noisy chip at full width: 8 streams, hop 1024,
+    8 slots, VAD on, SA noise 1.0, chip offsets from
+    ``sample_chip_offsets(PRNGKey(0))`` at std 4, with constant and with
+    retention fills.  Kernel and plain routes bitwise equal on events and
+    every state leaf; ``imc_fused`` 5 x (batched calls); the card's noise
+    field equal to the CPU's; streamed logits equal to the offline
+    ``hw_forward(sa_noise_field=...)``; decisions/s and the noise field's
+    share of a tick."""
+    import numpy as np
+    from repro_torch.core import jaxrand, sa_noise
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.serving import stream as sv
+    from repro_torch.serving.scheduler import StreamServer
+    from repro_torch.serving.vad import VADConfig
+
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    chip = _noisy_chip(torch, cfg)
+    streams = _traffic(cfg)
+
+    def serve(use_kernel, fill, sa_std=SA_STD, profiled=False):
+        from torch.profiler import ProfilerActivity, profile
+        srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, chip_offsets=chip,
+                           sa_noise_std=sa_std, silence_fill=fill, seed=0,
+                           use_kernel=use_kernel, vad=VADConfig(),
+                           device=dev)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        torch.cuda.synchronize()
+        prof = None
+        ops.COUNTS.reset()                  # the path's run starts
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                events = srv.drain()
+                torch.cuda.synchronize()
+        else:
+            events = srv.drain()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(srv=srv, events=events, launches=ops.COUNTS.launches,
+                    wall=wall, prof=prof, kernel=use_kernel)
+
+    def leaves(srv):
+        st = srv._state
+        return ([st.audio_carry, *st.carries, st.ring, st.hop, st.key]
+                + list(srv._dstate) + list(srv._vstate))
+
+    out = {}
+    for fill in ("constant", "retention"):
+        serve(True, fill), serve(False, fill)          # warm-up
+        runs = [serve(False, fill), serve(True, fill), serve(True, fill),
+                serve(False, fill)]
+        st = runs[1]["srv"].stats()
+        calls = st["batched_calls"]
+        n_calls = calls["init"] + calls["hop"] + calls["replay"]
+        for run in runs:
+            if run["events"] != runs[0]["events"]:
+                raise AssertionError(f"noisy served events ({fill}) differ "
+                                     f"between the kernel and the plain "
+                                     f"version")
+            want = 5 * n_calls if run["kernel"] else 0
+            if run["launches"] != want:
+                raise AssertionError(f"imc_fused launched {run['launches']} "
+                                     f"times, expected {want}")
+            for a, b in zip(leaves(run["srv"]), leaves(runs[0]["srv"])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"noisy served state ({fill}) "
+                                         f"differs between the routes")
+        if not runs[1]["events"] or st["gated_hops"] == 0:
+            raise AssertionError(f"noisy run did not exercise the path: {st}")
+        dps = [st["decisions"] / r["wall"] for r in runs]
+        log(f"[noisy] {fill} fills: {st['decisions']} decisions in "
+            f"{st['steps']} ticks, gated hops {st['gated_hops']}, batched "
+            f"calls {calls}, imc_fused launches {runs[1]['launches']} (= 5 x "
+            f"{n_calls}); events and state equal on both routes; wall "
+            f"decisions/s plain, kernel, kernel, plain: "
+            f"{[round(v, 1) for v in dps]}")
+        out[fill] = dict(decisions=st["decisions"], ticks=st["steps"],
+                         launches=runs[1]["launches"], batched_calls=calls,
+                         wall_dps_kernel=dps[1:3],
+                         wall_dps_plain=[dps[0], dps[3]])
+    # the same traffic noise-free, in the same call, for the noise's cost
+    quiet = [serve(True, "constant", sa_std=0.0) for _ in range(2)]
+    out["noise_free_wall_dps"] = [quiet[0]["srv"].stats()["decisions"]
+                                  / q["wall"] for q in quiet]
+    prof_run = serve(True, "constant", profiled=True)
+    busy_us, rows = device_time(torch, prof_run["prof"])
+    busy = busy_us / 1e6 / prof_run["wall"]
+    log(f"[noisy] noise-free wall decisions/s (same traffic) "
+        f"{[round(v, 1) for v in out['noise_free_wall_dps']]}; profiled "
+        f"noisy kernel run: wall {prof_run['wall'] * 1e3:.1f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms (share {busy:.4f}, idle "
+        f"{1 - busy:.4f})")
+    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"[noisy]   {us / 1e3:8.3f} ms  n={n:6d}  {name[:80]}")
+
+    # the noise field of one served hop tick, alone: its wall per tick
+    geom = sv.make_stream_geometry(cfg, HOP)
+    keys = jaxrand.fold_in(jaxrand.PRNGKey(0, device=dev),
+                           torch.arange(SLOTS, device=dev))
+    hops = torch.arange(3, 3 + SLOTS, dtype=torch.int32, device=dev)
+    field = lambda: sv.hop_sa_noise_fields(keys, hops, cfg, geom, SA_STD)
+    field_call = cuda_ms(torch, field, reps=5, iters=10)
+    field_dev = device_ms(torch, field, reps=3, iters=5)
+    tick_ms = prof_run["wall"] / prof_run["srv"].stats()["steps"] * 1e3
+    on_card = field()
+    on_cpu = sv.hop_sa_noise_fields(keys.cpu(), hops.cpu(), cfg, geom,
+                                    SA_STD)
+    for name in on_cpu:
+        if not torch.equal(on_card[name].cpu(), on_cpu[name]):
+            raise AssertionError(f"noise field {name} differs between the "
+                                 f"card and the CPU")
+    win = sa_noise.field_window_noise(sa_noise.SANoiseField(
+        keys[:2], hops[:2], SA_STD, HOP), cfg)
+    win_cpu = sa_noise.field_window_noise(sa_noise.SANoiseField(
+        keys[:2].cpu(), hops[:2].cpu(), SA_STD, HOP), cfg)
+    for name in win_cpu:
+        if not torch.equal(win[name].cpu(), win_cpu[name]):
+            raise AssertionError(f"window noise {name} differs between the "
+                                 f"card and the CPU")
+    log(f"[noisy] noise field of a hop tick (B={SLOTS}, five layers' tails) "
+        f"equal on the card and the CPU, and full windows too; one field "
+        f"per call {field_call:.3f} ms (CUDA events), device {field_dev} "
+        f"ms, beside a profiled tick of {tick_ms:.3f} ms")
+
+    # streamed logits == the offline forward on the same field
+    eng = sv.StreamEngine(hw, cfg, HOP, chip_offsets=chip,
+                          sa_noise_std=SA_STD, device=dev)
+    audio = torch.tensor(np.stack([s[:cfg.sample_len + 3 * HOP]
+                                   for s in streams]), device=dev)
+    lg, state = eng.init(audio[:, :cfg.sample_len], keys)
+    streamed = [lg]
+    for h in range(3):
+        lo = cfg.sample_len + h * HOP
+        lg, state = eng.step(state, audio[:, lo:lo + HOP])
+        streamed.append(lg)
+    for t, lg in enumerate(streamed):
+        want, _ = kws.hw_forward(
+            hw, audio[:, t * HOP:t * HOP + cfg.sample_len], cfg,
+            chip_offsets=chip, use_kernel=True, device=dev,
+            sa_noise_field=sa_noise.SANoiseField(
+                keys, torch.full((SLOTS,), t, device=dev), SA_STD, HOP))
+        if not torch.equal(lg, want):
+            raise AssertionError(f"streamed window {t} differs from the "
+                                 f"offline noisy forward")
+    log(f"[noisy] streamed logits of windows 0-3 (B={SLOTS}) equal the "
+        f"offline hw_forward(sa_noise_field=...)")
+    out.update(device_busy_share=busy, field_call_ms=field_call,
+               field_device_ms=field_dev, tick_ms=tick_ms)
+    return out
+
+
 def _session_audio(cfg):
     """Live keyword traffic (utterance, 6 silent hops, utterance, ...),
     enrollment utterances with labels, and post-swap user audio."""
@@ -566,6 +1027,12 @@ def _session_audio(cfg):
     enroll, labels = audio.make_dataset(seed=7, n_per_class=2, n_speakers=2,
                                         accent_shift=0.3, augment=False,
                                         length=cfg.sample_len)
+    # the third session's user: 10 more utterances of another accent
+    more, more_labels = audio.make_dataset(
+        seed=8, n_per_class=1, n_speakers=2, accent_shift=-0.3,
+        augment=False, length=cfg.sample_len)
+    enroll = list(enroll) + list(more)
+    labels = list(labels) + list(more_labels)
     gap = np.random.default_rng(2).uniform(-1e-4, 1e-4, 6 * HOP)
     live = []
     for s in range(2):
@@ -573,10 +1040,11 @@ def _session_audio(cfg):
         for j in range(14):
             parts += [utts[(s + 3 * j) % 10], gap]
         live.append(np.concatenate(parts).astype(np.float32))
+    n = len(PER_TICK)
     after = [np.concatenate([utts[(4 + s) % 10], gap, utts[(7 + s) % 10]])
-             .astype(np.float32) for s in range(2)]
-    return live, list(enroll[:2 * N_UTTS]), [int(v) for v in
-                                            labels[:2 * N_UTTS]], after
+             .astype(np.float32) for s in range(n)]
+    return live, list(enroll[:n * N_UTTS]), [int(v) for v in
+                                            labels[:n * N_UTTS]], after
 
 
 def phase_customize(torch, dev):
@@ -626,13 +1094,14 @@ def phase_customize(torch, dev):
             opened.append(time.perf_counter())
             sess = srv.customize(f"user{k}", CustomizeConfig(
                 train=tcfg, epochs_per_tick=per_tick, compensate=True,
-                calib_sa_noise_std=0.0, use_kernel=use_kernel))
+                calib_sa_noise_std=CALIB_NOISE[k], calib_seed=k,
+                use_kernel=use_kernel))
             for j in range(N_UTTS):
                 sess.enroll(labels[k * N_UTTS + j], enroll[k * N_UTTS + j])
             sess.finish_enrollment()
             sessions.append(sess)
         events, pos, rounds, ticks = [], cfg.sample_len, 0, 0
-        swapped, train_wall = [None, None], 0.0
+        swapped, train_wall = [None] * len(PER_TICK), 0.0
         while not all(s.phase == "swapped" for s in sessions):
             if ticks > 2000:
                 raise AssertionError(f"sessions stuck: "
@@ -658,8 +1127,9 @@ def phase_customize(torch, dev):
         n_swap = len(events)
         for s in range(2):
             srv.submit(f"live{s}", live[s][pos:])
-            srv.submit(f"user{s}", after[s])
             srv.finish(f"live{s}")
+        for s in range(len(PER_TICK)):
+            srv.submit(f"user{s}", after[s])
             srv.finish(f"user{s}")
         events.extend(srv.drain())
         torch.cuda.synchronize()
@@ -692,7 +1162,8 @@ def phase_customize(torch, dev):
     if kern["events"] != plain["events"]:
         raise AssertionError("served events differ between the kernel and "
                              "the plain run")
-    if not {"user0", "user1"} <= kern["after_swap"] or \
+    if not {f"user{k}" for k in range(len(PER_TICK))} <= kern["after_swap"] \
+            or \
             st["learn_hops"] == 0 or st["gated_hops"] == 0:
         raise AssertionError(f"the path was not exercised: {st}")
 
@@ -711,8 +1182,9 @@ def phase_customize(torch, dev):
                                  f"differ")
         x = np.stack(sk.windows)
         for d, hw_d, offs in ((dev, hw, chip_dev), ("cpu", hw_cpu, chip)):
-            hw_c = tr.calibrate_and_compensate(hw_d, x, offs, cfg,
-                                               sa_noise_std=0.0, device=d)
+            hw_c = tr.calibrate_and_compensate(
+                hw_d, x, offs, cfg, sa_noise_std=CALIB_NOISE[k], seed=k,
+                device=d)
             feats = tr.hw_features(hw_c, x, cfg, chip_offsets=offs,
                                    device=d)
             w, b = quantized_head_finetune(
@@ -729,13 +1201,14 @@ def phase_customize(torch, dev):
                     for n in cfg.imc_layer_names())
         wall_s, ticks = kern["swapped"][k]
         log(f"[customize] session user{k} (epochs_per_tick "
-            f"{PER_TICK[k]}): customize() to swapped {wall_s:.3f} s over "
+            f"{PER_TICK[k]}, calibration read noise {CALIB_NOISE[k]}): "
+            f"customize() to swapped {wall_s:.3f} s over "
             f"{ticks} ticks (plain run {plain['swapped'][k][0]:.3f} s); "
             f"{rk.epochs} epochs in {rk.epochs} rounds; train accuracy "
             f"{rk.history[-1]['train_accuracy']}; {moved} biases "
             f"compensated; equal to the offline loop on the card and the "
             f"CPU and to the plain run")
-    log(f"[customize] kernel run: {kern['ticks']} ticks to both swaps, "
+    log(f"[customize] kernel run: {kern['ticks']} ticks to all swaps, "
         f"{kern['rounds']} training rounds, sga_update_rows launches "
         f"{kern['counts']['rows']}, sga_update launches "
         f"{kern['counts']['flat']}, imc_fused launches "
@@ -796,11 +1269,16 @@ def main() -> int:
     launches = served["launches"]
     custom = phase_customize(torch, dev)
     sga = phase_sga_kernels(torch, dev)
+    mav, i8 = phase_mav_kernels(torch, dev)
+    group = phase_grouploop(torch, dev)
+    noisy = phase_noisy_served(torch, dev)
 
     k_ms, p_ms, nbytes, nops = totals["hop"]
     b_ms, b_by = bound_ms(nbytes, nops)
     print(json.dumps({"card": smi, "layers": rows, "served": served,
-                      "customize": custom, "sga": sga}), flush=True)
+                      "customize": custom, "sga": sga, "imc_mav": mav,
+                      "int8_matmul": i8, "grouploop": group,
+                      "noisy": noisy}), flush=True)
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"(device time); {launches} launches on the served path")
@@ -824,6 +1302,29 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    log(f"[summary] {smi}: imc_mav, one per-group forward's "
+        f"{group['launches']['imc_mav']} launches (B={B}): kernel "
+        f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, bound "
+        f"{mav['bound_ms']:.5f} ms (device time)")
+    head = i8["rows"][1]
+    log(f"[summary] {smi}: int8_matmul at the head shape 8x576x10: kernel "
+        f"{head['ms']:.5f} ms, plain {head['plain_ms']:.5f} ms, "
+        f"torch._int_mm (padded, product only) {head['library_ms']:.5f} ms, "
+        f"bound {head['bound_ms']:.6f} ms (device time)")
+    kernels.append({
+        "name": "imc_mav", "route": "cuda", "source": MAV_SOURCE,
+        "replaces": MAV_REPLACES,
+        "launches": group["launches"]["imc_mav"],
+        "max_abs_err": mav["max_abs_err"], "ms": mav["ms"],
+        "plain_ms": mav["plain_ms"], "bound_ms": mav["bound_ms"],
+        "bound_by": mav["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda", "source": I8_SOURCE,
+        "replaces": I8_REPLACES,
+        "launches": group["launches"]["int8_matmul"],
+        "max_abs_err": i8["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Count-exact functional model of the SRAM IMC macro (paper §IV).
 
 Port of the inference half of ``repro/core/imc.py``: in-memory BN folding
-onto the word-line bias grid, the MAV + sense-amplifier epilogue and the
-grouped ±1 convolution counts.  Everything is expressed in the array's
-integer count domain, so the model is exact.
+onto the word-line bias grid, the chip's static MAV offsets, the MAV +
+sense-amplifier epilogue (with the SA read noise drawn here or given) and
+the grouped ±1 convolution counts.  Everything is expressed in the
+array's integer count domain, so the model is exact; the noise comes from
+``core.jaxrand``, so a key draws the reference's numbers.
 
 The float-add order of ``mav_sa`` is the reference's: counts, then bias,
 then offset, then noise, then × flip.  The fused kernel
@@ -14,10 +16,11 @@ keeps it bit-identical to this model.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import jaxrand
 from repro_torch.core.binary import binarize
 
 
@@ -40,6 +43,29 @@ class IMCMacroConfig:
 
 
 DEFAULT_MACRO = IMCMacroConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class IMCNoiseParams:
+    """Noise magnitudes in array-count units (1 count = one ±1 product)."""
+
+    mav_offset_std: float = 4.0    # static per-channel MAV mismatch
+    sa_noise_std: float = 1.0      # per-evaluation SA comparator noise
+
+    def none(self) -> "IMCNoiseParams":
+        return IMCNoiseParams(0.0, 0.0)
+
+
+def sample_chip_offsets(key: torch.Tensor, channels_per_layer: Dict[str, int],
+                        noise: IMCNoiseParams) -> Dict[str, torch.Tensor]:
+    """The static MAV offsets of one fabricated chip, one per output
+    channel per IMC layer, on the key's device: a split chain over the
+    sorted layer names, as the reference draws them."""
+    offsets = {}
+    for name, c in sorted(channels_per_layer.items()):
+        key, sub = jaxrand.split(key)
+        offsets[name] = noise.mav_offset_std * jaxrand.normal(sub, (c,))
+    return offsets
 
 
 def fold_bn_to_bias(gamma: torch.Tensor, beta: torch.Tensor,
@@ -80,14 +106,21 @@ def map_bias(bias: torch.Tensor, method: str = "best",
 
 def mav_sa(counts: torch.Tensor, bias_int: torch.Tensor, flip: torch.Tensor,
            mav_offset: Optional[torch.Tensor] = None,
+           sa_key: Optional[torch.Tensor] = None,
+           sa_noise_std: float = 0.0,
            sa_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The macro's analog epilogue: sign((counts + bias [+ offset]
-    [+ noise]) * flip), channels on the last axis.  ``sa_noise`` is an
-    explicit pre-sign realization broadcastable to ``counts``."""
+    [+ noise]) * flip), channels on the last axis.  The SA noise is drawn
+    here from ``sa_key``/``sa_noise_std`` (one value per evaluation,
+    ``std * normal(sa_key, counts.shape)``) or given as ``sa_noise``,
+    broadcastable to ``counts``; both enter at the same point of the
+    float chain."""
     pre = counts + bias_int
     if mav_offset is not None:
         pre = pre + mav_offset
-    if sa_noise is not None:
+    if sa_key is not None and sa_noise_std > 0.0:
+        pre = pre + sa_noise_std * jaxrand.normal(sa_key, tuple(pre.shape))
+    elif sa_noise is not None:
         pre = pre + sa_noise
     return binarize(pre * flip)
 

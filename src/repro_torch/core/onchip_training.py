@@ -18,10 +18,10 @@ schedule is computed in float32 on the host (powers of two, exact), and
 ``lr * g`` is one rounded product followed by one rounded difference, as
 in the reference.
 
-Random Gradient Prediction (Eq 4, ``rgp=True``) draws normal noise, which
-needs the jax-compatible PRNG still to port: asking for it raises.
-``HeadState.key`` is kept as an opaque field (``None``) so the state has
-the reference's shape.
+Random Gradient Prediction (Eq 4, ``rgp=True``) adds quantized normal
+noise to the gradients, drawn with ``core.jaxrand`` down the reference's
+key chain (``HeadState.key`` from ``PRNGKey(cfg.seed)``, a three-way
+``split`` per epoch), so an RGP fine-tune is the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import jaxrand
 from repro_torch.core.quantize import (ACCUM_Q, ACT_Q, ERROR_Q, GRAD_Q,
                                        WEIGHT_Q, QFormat,
                                        error_scale_exponent)
@@ -122,7 +123,7 @@ class OnChipTrainConfig:
     error_scale_mode: str = "ceil"
     error_scale_max_exponent: Optional[int] = None
     sga: bool = True
-    rgp: bool = False                    # raises: needs the PRNG
+    rgp: bool = False
     rgp_lambda: float = 8.0
     quantized: bool = True               # False -> full-precision baseline
     seed: int = 0
@@ -138,7 +139,7 @@ class HeadState(NamedTuple):
     b: torch.Tensor          # (C,)
     accum_w: torch.Tensor    # SGA banks
     accum_b: torch.Tensor
-    key: Optional[object]    # the reference's PRNG key; always None here
+    key: torch.Tensor        # (2,) jaxrand key of the RGP draws
 
 
 def lr_schedule(cfg: OnChipTrainConfig, epoch: int,
@@ -159,22 +160,21 @@ def head_logits(features_q: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return cfg.act_fmt.quantize(z) if cfg.quantized else z
 
 
-def _no_rgp(cfg: OnChipTrainConfig) -> None:
-    if cfg.rgp and cfg.quantized:
-        raise NotImplementedError(
-            "rgp=True: Random Gradient Prediction draws normal noise, which "
-            "needs the jax-compatible PRNG still to port (ROADMAP.md, "
-            "queue 1, item 1)")
+def rgp_noise(key: torch.Tensor, shape, lam: float,
+              fmt: QFormat = GRAD_Q) -> torch.Tensor:
+    """Eq (4): quantize(N(0, 1) / lambda) on the gradient grid."""
+    return fmt.quantize(jaxrand.normal(key, tuple(shape)) / lam)
 
 
 def epoch_grads(state: HeadState, epoch: int, features_q: torch.Tensor,
                 labels_1hot: torch.Tensor, cfg: OnChipTrainConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, None]:
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
     """The pre-optimizer half of one epoch: forward, hardware softmax,
-    error scaling (Eq 1-2) and gradient quantization.  Returns (gw, gb,
-    lr, key): everything ``apply_update`` (or the batched ``sga_update``
-    kernel) needs to transition the head state."""
-    _no_rgp(cfg)
+    error scaling (Eq 1-2), gradient quantization and, with ``rgp``, the
+    Random Gradient Prediction noise.  Returns (gw, gb, lr, key):
+    everything ``apply_update`` (or the batched ``sga_update`` kernel)
+    needs to transition the head state."""
     n = features_q.shape[0]
     lr = lr_schedule(cfg, epoch, device=features_q.device)
 
@@ -206,7 +206,17 @@ def epoch_grads(state: HeadState, epoch: int, features_q: torch.Tensor,
     else:
         gw = features_q.T @ err / n
         gb = torch.sum(err, dim=0) / n
-    return gw, gb, lr, state.key
+
+    key = state.key
+    if cfg.rgp and cfg.quantized:
+        key, k1, k2 = jaxrand.split(key, 3)
+        gw = cfg.grad_fmt.quantize(gw + rgp_noise(k1, gw.shape,
+                                                  cfg.rgp_lambda,
+                                                  cfg.grad_fmt))
+        gb = cfg.grad_fmt.quantize(gb + rgp_noise(k2, gb.shape,
+                                                  cfg.rgp_lambda,
+                                                  cfg.grad_fmt))
+    return gw, gb, lr, key
 
 
 def apply_update(state: HeadState, gw: torch.Tensor, gb: torch.Tensor,
@@ -251,7 +261,8 @@ def finetune_init(features, labels, w0, b0, cfg: OnChipTrainConfig,
     w = cfg.weight_fmt.quantize(w0) if cfg.quantized else w0
     b = cfg.weight_fmt.quantize(b0) if cfg.quantized else b0
     state = HeadState(w=w, b=b, accum_w=torch.zeros_like(w),
-                      accum_b=torch.zeros_like(b), key=None)
+                      accum_b=torch.zeros_like(b),
+                      key=jaxrand.PRNGKey(cfg.seed, device=dev))
     return state, feats, labels_1hot
 
 
@@ -276,7 +287,6 @@ def quantized_head_finetune(features, labels, w0, b0,
     buffer, labels (N,) class ids.  Returns the fine-tuned (w, b) on the
     weight grid, on ``device`` (``None`` means CUDA).  Equals
     ``finetune_init`` + ``finetune_epochs(0, cfg.epochs)``."""
-    _no_rgp(cfg)
     state, feats, labels_1hot = finetune_init(features, labels, w0, b0,
                                               cfg, num_classes, device)
     state = finetune_epochs(state, feats, labels_1hot, cfg, 0, cfg.epochs)

@@ -1,7 +1,8 @@
 """Fixed-point formats of the accelerator's digital datapath (paper §VI-A3).
 
 Port of the forward half of ``repro/core/quantize.py``: the formats, their
-round-to-nearest-even quantizer and the error-scaling exponent of Eq (2).
+round-to-nearest-even quantizer and integer codes, and the error-scaling
+exponent of Eq (2).
 ``torch.round`` rounds half to even like ``jnp.round``, so the quantized
 values are bit-identical.
 
@@ -57,6 +58,12 @@ class QFormat:
         values."""
         q = torch.clamp(torch.round(x / self.scale), self.qmin, self.qmax)
         return q * self.scale
+
+    def to_int(self, x: torch.Tensor,
+               dtype: torch.dtype = torch.int32) -> torch.Tensor:
+        """Real value -> integer code (saturating round-to-nearest-even)."""
+        return torch.clamp(torch.round(x / self.scale), self.qmin,
+                           self.qmax).to(dtype)
 
 
 WEIGHT_Q = QFormat(int_bits=0, frac_bits=7, name="weight:Q1.7")

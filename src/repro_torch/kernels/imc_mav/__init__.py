@@ -1,2 +1,3 @@
-"""The fused IMC layer: Hopper kernel ``csrc/imc_fused.cu``, its wrapper
-``ops.py`` and its plain PyTorch version ``ref.py``."""
+"""The IMC kernels: the fused layer (``csrc/imc_fused.cu``) and the
+per-group product tile (``csrc/imc_mav.cu``), their wrappers ``ops.py``
+and their plain PyTorch versions ``ref.py``."""

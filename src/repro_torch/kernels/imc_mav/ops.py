@@ -1,16 +1,24 @@
-"""Wrapper of the fused IMC layer kernel (K1).
+"""Wrappers of the IMC kernels: the fused layer (K1) and the per-group
+product tile (K5).
 
-Port of ``repro/kernels/imc_mav/ops.py::fused_conv_mav`` /
-``fused_conv_mav_step``: the whole grouped IMC layer (binary group conv +
-chip offset + word-line bias + pre-sign noise operand + BN-decoder flip +
-SA sign + channel shuffle + OR-maxpool) in exactly one launch for a whole
-batch of streams.
+Port of ``repro/kernels/imc_mav/ops.py``.  ``fused_conv_mav`` /
+``fused_conv_mav_step`` run the whole grouped IMC layer (binary group
+conv + chip offset + word-line bias + pre-sign noise operand + BN-decoder
+flip + SA sign + channel shuffle + OR-maxpool) in exactly one launch for
+a whole batch of streams.  ``conv_mav`` is the per-group layer the fused
+one replaced, kept as its baseline: im2col patches per conv group and one
+``mav_matmul`` launch each (``groups`` launches per layer).
 
-For a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/imc_fused.cu``) and raises if it cannot; for a CPU tensor it runs
-the plain version (``ref.fused_conv_mav_ref``).  ``COUNTS.launches``
-counts kernel launches, and nothing else: it takes the place of the JAX
-package's launch auditor, which patched ``pl.pallas_call``.
+The SA noise is drawn here from ``sa_key``/``sa_noise_std`` (the
+fresh-draw form, ``core.jaxrand``, the reference's numbers) or given as
+an explicit pre-sign operand; the kernels draw nothing.
+
+For a CUDA tensor a wrapper launches the hand-written kernel
+(``csrc/imc_fused.cu``, ``csrc/imc_mav.cu``) and raises if it cannot; for
+a CPU tensor it runs the plain version (``ref.py``).  ``COUNTS`` (K1) and
+``COUNTS_MAV`` (K5) count kernel launches, and nothing else: they take
+the place of the JAX package's launch auditor, which patched
+``pl.pallas_call``.
 """
 
 from __future__ import annotations
@@ -22,12 +30,14 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.imc_mav.ref import fused_conv_mav_ref
+from repro_torch.core import jaxrand
+from repro_torch.kernels.imc_mav.ref import fused_conv_mav_ref, imc_mav_ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "imc_fused.cu"
+MAV_SOURCE = pathlib.Path(__file__).parent / "csrc" / "imc_mav.cu"
 
-
-COUNTS = kernels.LaunchCount()
+COUNTS = kernels.LaunchCount()          # K1: imc_fused
+COUNTS_MAV = kernels.LaunchCount()      # K5: imc_mav
 
 
 def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -51,6 +61,19 @@ def _declare(lib: ctypes.CDLL) -> None:
 def library() -> ctypes.CDLL:
     """The built kernel library (compiled at first use)."""
     return kernels.load_library("imc_fused", [SOURCE], _declare)
+
+
+def _declare_mav(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.imc_mav_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.imc_mav_launch.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def mav_library() -> ctypes.CDLL:
+    """The built K5 library (compiled at first use)."""
+    return kernels.load_library("imc_mav", [MAV_SOURCE], _declare_mav)
 
 
 def _operand(name: str, v: torch.Tensor, shape, device) -> torch.Tensor:
@@ -107,19 +130,110 @@ def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+            flip: torch.Tensor,
+            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K5 on CUDA tensors: x (M, K), w (K, N) ±1, both float32 or
+    both bfloat16; bias/flip (N,) and noise (M, N) float32.  Returns
+    (M, N) ±1 in x's dtype on PyTorch's current stream, without
+    synchronising."""
+    dev = x.device
+    m, k = x.shape
+    k2, n = w.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise ValueError(f"imc_mav: x and w must both be float32 or both "
+                         f"bfloat16, got {x.dtype} and {w.dtype}")
+    if k2 != k or w.device != dev:
+        raise ValueError(f"imc_mav: w {tuple(w.shape)} on {w.device} does "
+                         f"not match x {tuple(x.shape)} on {dev}")
+    x, w = x.contiguous(), w.contiguous()
+    bias = _operand("bias", bias, (n,), dev)
+    flip = _operand("flip", flip, (n,), dev)
+    if noise is not None:
+        noise = _operand("noise", noise, (m, n), dev)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    lib = mav_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.imc_mav_launch(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), flip.data_ptr(),
+            None if noise is None else noise.data_ptr(), out.data_ptr(),
+            m, k, n, int(x.dtype == torch.bfloat16), stream)
+    kernels.check_launch(lib, "imc_mav", status)
+    COUNTS_MAV.launches += 1
+    return out
+
+
+def mav_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               flip: torch.Tensor,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One ±1 product tile with the SA epilogue: x (M, K), w (K, N) ->
+    (M, N) ±1 in x's dtype.  The reference pads to its TPU tiles; the
+    kernel guards its ragged edges instead, with the same result."""
+    if x.device.type == "cuda":
+        return imc_mav(x, w, bias, flip, noise)
+    if x.device.type != "cpu":
+        raise ValueError(f"mav_matmul: no kernel for {x.device}")
+    return imc_mav_ref(x, w, bias, flip, noise)
+
+
+def _im2col(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """x (B, T, C) -> patches (B, T_out, k*C), tap-major."""
+    b, t, c = x.shape
+    t_out = (t - k) // stride + 1
+    taps = [x[:, j:j + stride * (t_out - 1) + 1:stride] for j in range(k)]
+    return torch.stack(taps, dim=2).reshape(b, t_out, k * c)
+
+
+def conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             flip: torch.Tensor, groups: int, stride: int = 1,
+             sa_key: Optional[torch.Tensor] = None,
+             sa_noise_std: float = 0.0) -> torch.Tensor:
+    """The per-group IMC layer (the fused layer's baseline): one
+    ``mav_matmul`` per conv group over materialized im2col patches, no
+    pool or shuffle.  x: (B, T, C_in) ±1;  w: (K, C_in // groups, C_out)
+    ±1.  Returns (B, T_out, C_out) in pre-shuffle channel order.  With
+    ``sa_key`` and ``sa_noise_std > 0`` each group draws its own noise
+    ``(B*T_out, cog)`` down a ``split`` chain, as the reference does."""
+    b, _, _ = x.shape
+    k, cpg, c_out = w.shape
+    cog = c_out // groups
+    t_out = (x.shape[1] - k) // stride + 1
+    outs = []
+    key = sa_key
+    for g in range(groups):
+        xg = x[..., g * cpg:(g + 1) * cpg]
+        wg = w[..., g * cog:(g + 1) * cog]
+        patches = _im2col(xg, k, stride).reshape(b * t_out, k * cpg)
+        noise = None
+        if key is not None and sa_noise_std > 0:
+            key, sub = jaxrand.split(key)
+            noise = sa_noise_std * jaxrand.normal(sub, (b * t_out, cog))
+        og = mav_matmul(patches, wg.reshape(k * cpg, cog),
+                        bias[g * cog:(g + 1) * cog],
+                        flip[g * cog:(g + 1) * cog], noise)
+        outs.append(og.reshape(b, t_out, cog))
+    return torch.cat(outs, dim=-1)
+
+
 def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    flip: torch.Tensor, groups: int, stride: int = 1,
                    pool: int = 1,
                    chip_offset: Optional[torch.Tensor] = None,
+                   sa_key: Optional[torch.Tensor] = None,
+                   sa_noise_std: float = 0.0,
                    sa_noise: Optional[torch.Tensor] = None,
                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole IMC layer in one launch.
 
     x: (B, T, C_in) ±1;  w: (K, C_in // groups, C_out) ±1;
-    bias/flip/chip_offset: (C_out,);  sa_noise: an explicit pre-pool,
-    pre-sign operand (B, T_out, C_out).  Returns (B, T_out // pool, C_out)
-    ±1 in post-shuffle channel order.  ``packed`` is ``pack_weights(w,
-    groups)`` precomputed at fold time."""
+    bias/flip/chip_offset: (C_out,).  The SA noise is either drawn here,
+    ``sa_noise_std * normal(sa_key, (B, T_out, C_out))`` (the same draw as
+    ``core.imc.mav_sa``, so the fused and unfused paths agree noise
+    included), or given as ``sa_noise``, an explicit pre-pool, pre-sign
+    operand (B, T_out, C_out).  Returns (B, T_out // pool, C_out) ±1 in
+    post-shuffle channel order.  ``packed`` is ``pack_weights(w, groups)``
+    precomputed at fold time."""
     k = w.shape[0]
     t_out = (x.shape[1] - k) // stride + 1
     if t_out // pool <= 0:
@@ -127,6 +241,9 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             f"fused_conv_mav: input T={x.shape[1]} yields no complete pool "
             f"window (k={k}, stride={stride}, pool={pool}) — input too "
             f"short for this layer")
+    if sa_key is not None and sa_noise_std > 0:
+        sa_noise = sa_noise_std * jaxrand.normal(
+            sa_key, (x.shape[0], t_out, w.shape[2]))
     if x.device.type == "cuda":
         if packed is None:
             packed = pack_weights(w, groups)

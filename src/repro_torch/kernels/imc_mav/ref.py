@@ -1,9 +1,10 @@
-"""Plain PyTorch version of the fused IMC layer (the kernel's oracle).
+"""Plain PyTorch versions of the IMC kernels (the kernels' oracles).
 
-Port of ``repro/kernels/imc_mav/ref.py::fused_conv_mav_ref``: the whole
+Port of ``repro/kernels/imc_mav/ref.py``: ``imc_mav_ref`` is one ±1
+product tile with the SA epilogue (K5); ``fused_conv_mav_ref`` the whole
 layer through the model's count-exact primitives (conv counts -> mav_sa
--> shuffle -> OR-pool).  The noise operand is explicit here; the port has
-no in-kernel noise draw.
+-> shuffle -> OR-pool, K1).  The noise operand is explicit in both: the
+kernels draw nothing.
 """
 
 from __future__ import annotations
@@ -14,6 +15,22 @@ import torch
 
 from repro_torch.core import imc
 from repro_torch.core.binary import channel_shuffle, or_maxpool
+
+
+def imc_mav_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                flip: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sign(((x @ w + bias) [+ noise]) * flip) for x (M, K), w (K, N) ±1
+    (float32 or bfloat16), bias/flip (N,), noise (M, N) float32; the
+    output has x's dtype.  The float32 product is exact for ±1 operands
+    (TF32 or not: ±1 is exact in TF32, every partial sum a small
+    integer)."""
+    counts = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    pre = counts + bias
+    if noise is not None:
+        pre = pre + noise
+    pre = pre * flip
+    return torch.where(pre >= 0, 1.0, -1.0).to(x.dtype)
 
 
 def fused_conv_mav_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

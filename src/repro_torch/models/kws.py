@@ -31,7 +31,8 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import imc
+from repro_torch.core import imc, jaxrand
+from repro_torch.core.sa_noise import SANoiseField, field_window_noise
 from repro_torch.core.binary import binarize, channel_shuffle, or_maxpool
 from repro_torch.core.energy import CYCLES_PER_DECISION
 from repro_torch.core.quantize import ACT_Q, WEIGHT_Q
@@ -262,13 +263,16 @@ def hw_conv_layer(hw: HWParams, i: int, h: torch.Tensor,
                   cfg: KWSConfig = PAPER_KWS, *,
                   packed: Optional[torch.Tensor] = None,
                   chip_offset: Optional[torch.Tensor] = None,
+                  sa_key: Optional[torch.Tensor] = None,
                   sa_noise: Optional[torch.Tensor] = None,
+                  sa_noise_std: float = 0.0,
                   use_kernel: bool = False) -> torch.Tensor:
     """One conv layer of the hardware path on activations (B, T, C_in)
     (layer 0: (B, T, 1) audio): counts -> mav_sa -> shuffle -> OR-pool.
 
     Shared by ``hw_forward`` and the streaming path (``serving.stream``),
-    so both run the same op chain.  ``sa_noise`` is an explicit
+    so both run the same op chain.  The SA noise is drawn from
+    ``sa_key``/``sa_noise_std`` or given as ``sa_noise``, an explicit
     (B, t_conv, C_out) pre-sign operand; layer 0 takes neither noise nor
     offset."""
     name = f"conv{i}"
@@ -276,8 +280,11 @@ def hw_conv_layer(hw: HWParams, i: int, h: torch.Tensor,
         return mav_ops.fused_conv_mav(
             h, hw.w_bin[name], hw.bias[name], hw.flip[name],
             groups=cfg.groups(i), stride=cfg.strides[i], pool=cfg.pools[i],
-            chip_offset=chip_offset, sa_noise=sa_noise, packed=packed)
-    return _sense(hw, i, _counts(hw, i, h, cfg, chip_offset), cfg, sa_noise)
+            chip_offset=chip_offset, sa_key=sa_key,
+            sa_noise_std=sa_noise_std, sa_noise=sa_noise, packed=packed)
+    return _sense(hw, i, _counts(hw, i, h, cfg, chip_offset), cfg,
+                  sa_key=sa_key, sa_noise_std=sa_noise_std,
+                  sa_noise=sa_noise)
 
 
 def _counts(hw: HWParams, i: int, h: torch.Tensor, cfg: KWSConfig,
@@ -288,12 +295,14 @@ def _counts(hw: HWParams, i: int, h: torch.Tensor, cfg: KWSConfig,
     return counts if chip_offset is None else counts + chip_offset
 
 
-def _sense(hw: HWParams, i: int, counts: torch.Tensor, cfg: KWSConfig,
-           sa_noise: Optional[torch.Tensor]) -> torch.Tensor:
+def _sense(hw: HWParams, i: int, counts: torch.Tensor, cfg: KWSConfig, *,
+           sa_key: Optional[torch.Tensor] = None, sa_noise_std: float = 0.0,
+           sa_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Counts -> mav_sa -> channel shuffle -> OR-pool (Fig 9's digital
     block after each layer)."""
     name = f"conv{i}"
-    h = imc.mav_sa(counts, hw.bias[name], hw.flip[name], sa_noise=sa_noise)
+    h = imc.mav_sa(counts, hw.bias[name], hw.flip[name], sa_key=sa_key,
+                   sa_noise_std=sa_noise_std, sa_noise=sa_noise)
     h = channel_shuffle(h, cfg.groups(i))
     if cfg.pools[i] > 1:
         h = or_maxpool(h, cfg.pools[i], axis=1)
@@ -312,42 +321,70 @@ def gap_fc(hw: HWParams, h: torch.Tensor
 
 def hw_forward(hw, x, cfg: KWSConfig = PAPER_KWS,
                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+               sa_noise_std: float = 0.0,
+               rng: Optional[torch.Tensor] = None,
                collect_counts: bool = False,
                use_kernel: bool = False,
                sa_noise: Optional[Dict[str, torch.Tensor]] = None,
+               sa_noise_field: Optional[SANoiseField] = None,
                device=None):
     """The silicon path on audio windows x (B, sample_len): integer counts
     -> in-memory BN -> SA sign.  Returns (logits, features) and, with
     ``collect_counts``, the per-layer pre-SA counts (the chip's test mode;
     it runs the unfused path, since the kernel never materializes counts).
 
-    ``chip_offsets`` ({conv_i: (C_i,)}) and ``sa_noise`` (an explicit
-    per-layer dict of (B, t_conv, C_out) pre-sign operands) are moved to
-    ``device``; ``hw`` must already live there."""
+    SA noise comes from ``rng``/``sa_noise_std`` (a fresh draw per IMC
+    layer down a ``split`` chain of the ``jaxrand`` key ``rng``), from
+    ``sa_noise`` (an explicit per-layer dict of (B, t_conv, C_out)
+    pre-sign operands) or from ``sa_noise_field`` (a ``core.sa_noise``
+    batch of (stream key, window index) pairs, expanded to the explicit
+    form: the offline oracle of a noisy stream).  ``chip_offsets``
+    ({conv_i: (C_i,)}), ``sa_noise``, ``rng`` and the field's keys are
+    moved to ``device``; ``hw`` must already live there."""
     dev = resolve_device(device)
     if hw_device(hw) != dev:
         raise ValueError(f"hw_forward: parameters are on {hw_device(hw)}, "
                          f"not on {dev}")
+    if sa_noise_field is not None:
+        if sa_noise is not None or rng is not None or sa_noise_std > 0.0:
+            raise ValueError("pass only one of rng / sa_noise / "
+                             "sa_noise_std / sa_noise_field")
+        if sa_noise_field.keys.shape[0] != len(x):
+            raise ValueError(
+                f"sa_noise_field has {sa_noise_field.keys.shape[0]} rows "
+                f"for a batch of {len(x)}")
+        sa_noise = field_window_noise(sa_noise_field._replace(
+            keys=sa_noise_field.keys.to(dev)), cfg)
+        sa_noise_std = sa_noise_field.std
+    if rng is not None and sa_noise is not None:
+        raise ValueError("pass either rng or explicit sa_noise, not both")
+    if rng is not None:
+        rng = rng.to(dev)
     hw, packed_all = as_hw_params(hw)
     x = as_tensor(x, dev)
     counts_log: Dict[str, torch.Tensor] = {}
     h = x[..., None]
     for i in range(cfg.num_conv_layers):
         name = f"conv{i}"
-        noise_i = off_i = None
+        key = noise_i = off_i = None
+        if rng is not None and sa_noise_std > 0.0 and i > 0:
+            rng, key = jaxrand.split(rng)
         if sa_noise and i > 0 and name in sa_noise:
             noise_i = as_tensor(sa_noise[name], dev)
         if chip_offsets and i > 0:
             off_i = as_tensor(chip_offsets[name], dev)
+        std_i = sa_noise_std if i > 0 else 0.0
         if not collect_counts:
             h = hw_conv_layer(hw, i, h, cfg,
                               packed=packed_all[name] if (packed_all and i)
                               else None,
-                              chip_offset=off_i, sa_noise=noise_i,
+                              chip_offset=off_i, sa_key=key,
+                              sa_noise=noise_i, sa_noise_std=std_i,
                               use_kernel=use_kernel)
             continue
         counts_log[name] = _counts(hw, i, h, cfg, off_i)
-        h = _sense(hw, i, counts_log[name], cfg, noise_i)
+        h = _sense(hw, i, counts_log[name], cfg, sa_key=key,
+                   sa_noise_std=std_i, sa_noise=noise_i)
     logits, feats = gap_fc(hw, h)
     if collect_counts:
         return logits, feats, counts_log

@@ -1,8 +1,10 @@
 """Always-on streaming KWS serving over the folded model.
 
-  stream.py     — hop geometry, per-stream ring state, init/step (+ the
-                  multi-hop step and the per-stream bias-delta / head
-                  riders) and the gated (no-IMC) advance
+  stream.py     — hop geometry, per-stream ring state and noise-field
+                  key, init/step (+ the multi-hop step and the
+                  per-stream bias-delta / head riders), the SA-noise
+                  field in hop geometry, the gated (no-IMC) advance and
+                  its constant or retention fills
   vad.py        — log-energy EMA + hysteresis voice-activity detector
   decision.py   — posterior smoothing + hysteresis + refractory triggers
   scheduler.py  — StreamServer: slots, admission queue, batched hops,
@@ -20,16 +22,19 @@ from repro_torch.serving.decision import DecisionConfig
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.stream import (StreamEngine, StreamGeometry,
                                         StreamState, gated_step,
-                                        hop_alignment, make_stream_geometry,
-                                        silence_fills, stream_init,
-                                        stream_multi_step, stream_step,
-                                        streaming_layer_stats)
+                                        hop_alignment, hop_sa_noise_fields,
+                                        make_stream_geometry,
+                                        retention_fills, silence_fills,
+                                        stream_init, stream_multi_step,
+                                        stream_step, streaming_layer_stats,
+                                        window_sa_noise)
 from repro_torch.serving.vad import VADConfig
 
 __all__ = [
     "CustomizationResult", "CustomizationSession", "CustomizeConfig",
     "DecisionConfig", "StreamEngine", "StreamGeometry", "StreamServer",
     "StreamState", "VADConfig", "gated_step", "hop_alignment",
-    "make_stream_geometry", "silence_fills", "stream_init",
-    "stream_multi_step", "stream_step", "streaming_layer_stats",
+    "hop_sa_noise_fields", "make_stream_geometry", "retention_fills",
+    "silence_fills", "stream_init", "stream_multi_step", "stream_step",
+    "streaming_layer_stats", "window_sa_noise",
 ]

@@ -31,13 +31,11 @@ pipeline as scheduler-ticked background jobs:
 by ``chip_smoke.py`` on the card): the session's compensated biases and
 fine-tuned (w, b) are bit-identical to the offline loop on the same
 recorded utterances (``calibrate_and_compensate`` -> ``hw_features`` ->
-``quantized_head_finetune``).
-
-Scope of this port: no SA noise.  The calibration read noise
-(``calib_sa_noise_std``, 1.0 by default as in the reference) needs the
-jax-compatible PRNG, still to port, so a session that reaches calibration
-with it above 0 raises; ``calib_sa_noise_std=0.0`` is the noise-free
-compensation, bit-exact against the reference's.
+``quantized_head_finetune``), SA noise included: the calibration read
+noise comes from ``calibration_layer_keys(calib_seed)`` in both, and on
+a noisy server every captured feature records its stream's noise-field
+key and window (``feature_noise_field()``), which the offline
+``hw_features(sa_noise_field=...)`` evaluates.
 """
 
 from __future__ import annotations
@@ -48,12 +46,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import energy
+from repro_torch.core import energy, jaxrand
 from repro_torch.core.onchip_training import (HeadState, OnChipTrainConfig,
                                               apply_update, epoch_grads,
                                               finetune_init, head_accuracy,
                                               sga_threshold)
 from repro_torch.core.quantize import ACT_Q
+from repro_torch.core.sa_noise import SANoiseField
 from repro_torch.kernels.sga_update import ops as sga_ops
 from repro_torch.models import kws
 from repro_torch.serving import stream as sv
@@ -69,8 +68,8 @@ class CustomizeConfig:
     ``layers_per_tick`` bound the work one scheduler tick may spend on
     this session; ``compensate`` runs the §IV-B test-mode bias
     compensation before fine-tuning (off: fine-tune on the enrollment
-    features); ``calib_sa_noise_std`` is the test mode's read-noise std
-    (only 0.0 runs in this port); ``use_kernel`` routes the optimizer
+    features); ``calib_sa_noise_std``/``calib_seed`` are the test mode's
+    read-noise std and key chain seed; ``use_kernel`` routes the optimizer
     transition through the batched ``sga_update`` kernel (off: the plain
     ``apply_update``, bit-identical); ``auto_swap`` hot-swaps the result
     into the attached stream the tick fine-tuning finishes."""
@@ -81,6 +80,7 @@ class CustomizeConfig:
     layers_per_tick: int = 2
     compensate: bool = True
     calib_sa_noise_std: float = 1.0
+    calib_seed: int = 0
     use_kernel: bool = True
     auto_swap: bool = True
 
@@ -161,8 +161,8 @@ class CustomizationSession:
         self.windows: List[np.ndarray] = []      # recorded utterance windows
         self.labels: List[int] = []
         self.features: List[Optional[torch.Tensor]] = []
-        # per-feature origin: {"uid": stream uid, "hop": window index} —
-        # which stream, at which window, produced the capture
+        # per-feature noise-field origin: {"key": (2,) uint32, "hop":
+        # window index}: which stream, at which window, made the capture
         self.feature_origins: List[Optional[dict]] = []
         self.history: List[dict] = []
         self.result: Optional[CustomizationResult] = None
@@ -170,6 +170,7 @@ class CustomizationSession:
         self._captures: List[dict] = []
         self._total = 0                          # stream sample position
         self._ideal = None                       # calibration state
+        self._calib_keys = None
         self._new_bias = None
         self._calib_idx = 0
         self._replays_spawned = False
@@ -226,11 +227,26 @@ class CustomizationSession:
         return refold(self.result, self._mgr.srv.engine.hw,
                       self._mgr.srv.cfg, pack=pack)
 
-    def feature_noise_field(self) -> None:
-        """The SA-noise field the feature buffer was captured under.  The
-        port serves noise-free only (``StreamServer(sa_noise_std > 0)``
-        raises), so there is none: the offline oracle draws nothing."""
-        return None
+    def feature_noise_field(self, device=None) -> Optional[SANoiseField]:
+        """The SA-noise field the feature buffer was captured under: row n
+        is feature n's (stream key, window index), on ``device`` (``None``:
+        the server's).  Fed to ``training.kws.hw_features(sa_noise_field=
+        ...)`` it reproduces the captured features bit for bit.  ``None``
+        when the server runs noise-free."""
+        srv = self._mgr.srv
+        std = srv.engine.sa_noise_std
+        if not std:
+            return None
+        if any(o is None for o in self.feature_origins):
+            raise ValueError("feature buffer not fully captured yet "
+                             f"(phase {self.phase})")
+        dev = srv.device if device is None else device
+        return SANoiseField(
+            keys=jaxrand.key_from_numpy(np.stack(
+                [o["key"] for o in self.feature_origins]), dev),
+            hops=torch.tensor([o["hop"] for o in self.feature_origins],
+                              dtype=torch.int32, device=dev),
+            std=float(std), hop=int(srv.geom.hop))
 
 
 class CustomizationManager:
@@ -286,8 +302,10 @@ class CustomizationManager:
                 # GAP as sum / n, like jnp.mean (see models.kws.gap_fc)
                 sess.features[cap["index"]] = ACT_Q.quantize(
                     ring.sum(dim=0) / ring.shape[0])
+                # the capture's noise-field coordinates: the stream's key
+                # and the completion window's index
                 sess.feature_origins[cap["index"]] = {
-                    "uid": rec.uid,
+                    "key": jaxrand.key_to_numpy(srv.stream_key(rec.uid)),
                     "hop": (cap["target"] - srv.geom.window)
                     // srv.geom.hop,
                 }
@@ -321,18 +339,13 @@ class CustomizationManager:
         srv, cfg = self.srv, self.srv.cfg
         hwp, _ = kws.as_hw_params(srv.engine.hw)
         if sess._ideal is None:
-            if sess.ccfg.calib_sa_noise_std > 0.0:
-                raise NotImplementedError(
-                    f"CustomizeConfig(calib_sa_noise_std="
-                    f"{sess.ccfg.calib_sa_noise_std}): the test mode's read "
-                    f"noise needs the jax-compatible PRNG still to port "
-                    f"(ROADMAP.md, queue 1, item 1); use "
-                    f"calib_sa_noise_std=0.0")
             # tick 1: the test-mode reference forward over the recorded
             # utterances (collect_counts: the unfused path, no IMC launch)
             sess._ideal = tr.calibration_ideal_counts(
                 srv.engine.hw, np.stack(sess.windows), cfg,
                 device=srv.device)
+            sess._calib_keys = tr.calibration_layer_keys(
+                cfg, sess.ccfg.calib_seed, device=srv.device)
             sess._new_bias = {k: v.clone() for k, v in hwp.bias.items()}
             return
         offs = srv.engine.chip_offsets or {}
@@ -345,7 +358,7 @@ class CustomizationManager:
                                   device=srv.device)
             sess._new_bias[name] = tr.compensate_layer_bias(
                 sess._new_bias[name], sess._ideal[name], off,
-                sess.ccfg.calib_sa_noise_std)
+                sess._calib_keys[name], sess.ccfg.calib_sa_noise_std)
         sess._calib_idx += sess.ccfg.layers_per_tick
         if sess._calib_idx >= len(names):
             sess._ideal = None             # free the counts log

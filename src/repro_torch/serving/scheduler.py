@@ -8,6 +8,13 @@ pool of stream slots, each holding one live stream's incremental
   initializes; with ``batch_init`` (default) the whole wave runs in ONE
   masked batched ``stream_init`` (one fused launch per IMC layer), else
   one B=1 init per stream;
+* **SA noise** (``sa_noise_std > 0``) — every stream draws its read
+  noise from its own per-absolute-column field, keyed by
+  ``fold_in(PRNGKey(seed), uid)`` (``uid`` the stream's submission
+  order, internal replay streams included), so a stream's noise does not
+  depend on its slot or its batch mates; ``silence_fill="retention"``
+  replaces the constant silence fill by the retained noisy read
+  (``stream.retention_fills``);
 * **voice-activity gating** (``vad=VADConfig(...)``) — each ready hop is
   classified speech/silence.  The last ``wake_margin`` silent hops are
   deferred (buffered host-side, state untouched); a speech onset replays
@@ -39,9 +46,9 @@ decision and hop counters, the batched-call counts by cause (each init /
 hop / replay call costs one launch per IMC layer, a gate call none), the
 learning hops and sessions, and the modelled gated energy per decision.
 
-Not in this port yet: SA noise, dynamic hop, admission control and
-autoscaling, the recompute fallback, faults and health, profiles, compiled
-ticks, snapshots, the flight recorder and the trace.
+Not in this port yet: dynamic hop, admission control and autoscaling,
+the recompute fallback, faults and health, profiles, compiled ticks,
+snapshots, the flight recorder and the trace.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import energy
+from repro_torch.core import energy, jaxrand
 from repro_torch.kernels import resolve_device
 from repro_torch.models import kws
 from repro_torch.obs.metrics import MetricsRegistry, counter_property
@@ -140,31 +147,42 @@ class StreamServer:
                  decision: dec.DecisionConfig = dec.DecisionConfig(),
                  vad: Optional[vd.VADConfig] = None,
                  batch_init: bool = True,
+                 silence_fill: str = "constant",
                  seed: int = 0, device=None):
-        if sa_noise_std > 0.0:
-            raise NotImplementedError(
-                "sa_noise_std > 0: SA noise needs the jax-compatible PRNG "
-                "and the per-column noise field, still to port (ROADMAP.md, "
-                "queue 1, item 1)")
+        if silence_fill not in ("constant", "retention"):
+            raise ValueError(f"silence_fill={silence_fill!r}: use "
+                             f"'constant' or 'retention'")
         self.device = resolve_device(device)
         self._metrics = MetricsRegistry()
         self.cfg = cfg
         self.batch_init = batch_init
         self.dcfg = decision
         self.vcfg = vad
-        # ``seed`` will key the per-stream SA-noise fields; noise-free
-        # serving draws nothing
         self.seed = seed
+        self.silence_fill = silence_fill
         self.slots = slots
         self.engine = sv.StreamEngine(hw, cfg, hop,
                                       chip_offsets=chip_offsets,
+                                      sa_noise_std=sa_noise_std,
                                       use_kernel=use_kernel,
                                       device=self.device)
         self.geom = self.engine.geom
+        # the per-stream noise-field keys are derived on the host, as the
+        # reference does: fold_in(base_key, uid)
+        self._base_key = jaxrand.PRNGKey(seed, device="cpu")
         self._fills = None
         if vad is not None:
-            self._fills = sv.silence_fills(cfg, kws.silence_columns(
-                hw, cfg, chip_offsets=self.engine.chip_offsets))
+            if silence_fill == "retention":
+                # chip-accurate gated fill: one retained noisy SA read per
+                # layer instead of the noiseless silence response
+                self._fills = sv.retention_fills(
+                    hw, cfg, key=jaxrand.fold_in(jaxrand.PRNGKey(
+                        seed, device=self.device), 0x517),
+                    sa_noise_std=sa_noise_std,
+                    chip_offsets=self.engine.chip_offsets)
+            else:
+                self._fills = sv.silence_fills(cfg, kws.silence_columns(
+                    hw, cfg, chip_offsets=self.engine.chip_offsets))
 
         self._state = self.engine.zeros_state(slots)
         self._dstate = dec.decision_init(slots, cfg.num_classes, decision,
@@ -215,6 +233,11 @@ class StreamServer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def stream_key(self, uid: int) -> torch.Tensor:
+        """The noise-field key of the stream with submission order
+        ``uid``: ``fold_in(PRNGKey(seed), uid)``, (2,) on the CPU."""
+        return jaxrand.fold_in(self._base_key, uid)
 
     # -- customization: per-slot riders + session manager -------------------
 
@@ -424,13 +447,17 @@ class StreamServer:
 
         if self.batch_init:
             windows = np.zeros((self.slots, window), np.float32)
+            keys = torch.zeros((self.slots, 2), dtype=torch.int64)
+            keys[[s for s, _ in todo]] = self.stream_key(
+                torch.tensor([rec.uid for _, rec in todo]))
             for s, rec in todo:
                 windows[s] = rec.buf[:window]
                 rec.buf = rec.buf[window:]   # the state carries the overlap
                 init_mask[s] = True
             t0 = time.perf_counter()
-            logits, new_state = self.engine.init(self._tensor(windows),
-                                                 *self._riders())
+            logits, new_state = self.engine.init(
+                self._tensor(windows), keys.to(self.device),
+                *self._riders())
             self._state = _select_state(self._tensor(init_mask), new_state,
                                         self._state)
             logits = logits.cpu().numpy()
@@ -446,8 +473,10 @@ class StreamServer:
             first = rec.buf[:window]
             rec.buf = rec.buf[window:]
             t0 = time.perf_counter()
-            logits, one = self.engine.init(self._tensor(first[None]),
-                                           *self._row_custom(rec))
+            logits, one = self.engine.init(
+                self._tensor(first[None]),
+                self.stream_key(rec.uid)[None].to(self.device),
+                *self._row_custom(rec))
             self._state = _scatter_slot(self._state, one, s)
             init_logits[s] = logits[0].cpu().numpy()
             dt = time.perf_counter() - t0

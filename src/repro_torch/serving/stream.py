@@ -1,22 +1,33 @@
 """Frame-incremental streaming inference over the folded KWS model.
 
-Port of ``repro/serving/stream.py`` without the SA-noise field.  The
-accelerator is always-on: one decision per hop
-of a sliding window.  Every layer's activation columns are indexed by
-absolute time; when the hop is a multiple of ``hop_alignment(cfg)`` (the
-product of all strides and pool windows, 64 samples for the paper net),
-consecutive windows' overlapping columns are identical at every layer, so
-per hop each layer computes only its tail: the hop's fresh columns plus a
-small carry (the k-1 conv overlap and, where a layer's conv length is
-odd, the one column the previous window's OR-maxpool truncated).
+Port of ``repro/serving/stream.py`` (the streaming path; the recompute
+fallback ``streaming=False`` is not ported).  The accelerator is
+always-on: one decision per hop of a sliding window.  Every layer's
+activation columns are indexed by absolute time; when the hop is a
+multiple of ``hop_alignment(cfg)`` (the product of all strides and pool
+windows, 64 samples for the paper net), consecutive windows' overlapping
+columns are identical at every layer, so per hop each layer computes only
+its tail: the hop's fresh columns plus a small carry (the k-1 conv overlap
+and, where a layer's conv length is odd, the one column the previous
+window's OR-maxpool truncated).
+
+SA noise is drawn from the per-absolute-column field of
+``core.sa_noise``: ``fold_in(fold_in(stream_key, layer), abs_col)``, each
+stream's key riding in its state.  A column keeps the realization it was
+evaluated with while it is cached, and an offline window that evaluates
+the same field (``window_sa_noise``, ``hw_forward(sa_noise_field=...)``)
+reproduces the stream.  A hop evaluates all its layers' fresh columns in
+one batched hash (``hop_sa_noise_fields``).
 
 N hops of ``stream_step`` equal ``models.kws.hw_forward`` on each full
-window, bit for bit.  A ``stream_step`` over B streams launches the fused
-kernel exactly once per IMC layer (conv1..conv5) whatever B is;
+window, bit for bit, noise and chip offsets included.  A ``stream_step``
+over B streams launches the fused kernel exactly once per IMC layer
+(conv1..conv5) whatever B is;
 ``stream_multi_step`` advances n consecutive hops in the same single
 launch per layer (the VAD wake replay).  ``gated_step`` advances a silent
 hop without launching anything: each layer's constant silence response
-shifts into the carries and the GAP ring.
+(or, with ``retention_fills``, its retained noisy read) shifts into the
+carries and the GAP ring.
 
 The customization riders (``serving.customize``) ride the same launches:
 ``bias_delta`` ({conv_i: (B, C_i)}) holds each stream's integer bias
@@ -35,7 +46,10 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import jaxrand
 from repro_torch.core.quantize import ACT_Q
+from repro_torch.core.sa_noise import (SANoiseField, columns_noise,
+                                       field_window_noise, sa_noise_columns)
 from repro_torch.kernels import resolve_device
 from repro_torch.models import kws
 
@@ -124,6 +138,59 @@ def make_stream_geometry(cfg: kws.KWSConfig, hop: int) -> StreamGeometry:
 
 
 # ---------------------------------------------------------------------------
+# The per-absolute-column SA-noise field, in the hop geometry
+# ---------------------------------------------------------------------------
+
+
+def window_sa_noise(key: torch.Tensor, cfg: kws.KWSConfig,
+                    geom: StreamGeometry, hop_index: int,
+                    std: float) -> Dict[str, torch.Tensor]:
+    """The full-window view of the field: per-layer (1, t_conv, C) values
+    of stream ``key`` (2,) at window ``hop_index``, in the
+    ``hw_forward(sa_noise=...)`` layout: the offline oracle of the
+    stream's noise."""
+    return field_window_noise(SANoiseField(
+        key[None], torch.tensor([hop_index], device=key.device), std,
+        geom.hop), cfg)
+
+
+def _tail_cols(geom: StreamGeometry, cfg: kws.KWSConfig, layer: int,
+               hops: torch.Tensor, n_hops: int) -> torch.Tensor:
+    """Absolute conv columns of layer ``layer``'s tail for a run of
+    ``n_hops`` hops starting at window ``hops`` (B,): (B, n_tail)."""
+    lg = geom.layers[layer]
+    n_new = lg.d_out * cfg.pools[layer]
+    n_tail = lg.t_conv - lg.conv_lo + (n_hops - 1) * n_new
+    return (hops.to(torch.int64)[:, None] * n_new + lg.conv_lo
+            + torch.arange(n_tail, device=hops.device))
+
+
+def _hop_sa_noise(keys: torch.Tensor, hops: torch.Tensor, layer: int,
+                  cfg: kws.KWSConfig, geom: StreamGeometry,
+                  std: float) -> torch.Tensor:
+    """Field values of one hop's tail conv columns of one layer, batched
+    over streams: keys (B, 2), hops (B,) -> (B, t_conv_tail, C)."""
+    return sa_noise_columns(keys, layer, _tail_cols(geom, cfg, layer, hops,
+                                                    1),
+                            cfg.channels[layer], std)
+
+
+def hop_sa_noise_fields(keys: torch.Tensor, hops: torch.Tensor,
+                        cfg: kws.KWSConfig, geom: StreamGeometry,
+                        std: float, n_hops: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """All IMC layers' tail field values for a hop in one batched
+    evaluation: keys (B, 2), hops (B,) -> {conv_i: (B, n_tail_i, C_i)}.
+    ``n_hops > 1`` extends each tail over a run of consecutive hops (the
+    wake replay's multi-hop launch).  Bit-identical to ``_hop_sa_noise``
+    per layer and per hop: the field is per absolute column."""
+    cols = {i: _tail_cols(geom, cfg, i, hops, n_hops)
+            for i in range(1, cfg.num_conv_layers)}
+    out = columns_noise(keys, cols, cfg.channels, std)
+    return {f"conv{i}": v for i, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
 # Stream state + init/step
 # ---------------------------------------------------------------------------
 
@@ -133,12 +200,15 @@ class StreamState(NamedTuple):
 
     ``audio_carry``/``carries`` are the layers' ring tails (the only
     activation columns that survive a hop); ``ring`` is the final layer's
-    pooled window, feeding GAP; ``hop`` counts decided windows."""
+    pooled window, feeding GAP; ``hop`` counts decided windows (window t's
+    columns live at absolute index t*shift + local); ``key`` is the
+    per-stream noise-field key (``core.jaxrand`` words)."""
 
     audio_carry: torch.Tensor               # (B, carry_0) raw samples
     carries: Tuple[torch.Tensor, ...]       # (B, carry_i, C_{i-1}), i=1..
     ring: torch.Tensor                      # (B, t_feat, C_last)
     hop: torch.Tensor                       # (B,) int32
+    key: torch.Tensor                       # (B, 2) int64
 
 
 def zeros_state(cfg: kws.KWSConfig, geom: StreamGeometry, n: int,
@@ -151,7 +221,8 @@ def zeros_state(cfg: kws.KWSConfig, geom: StreamGeometry, n: int,
         audio_carry=torch.zeros((n, geom.layers[0].carry), device=device),
         carries=carries,
         ring=torch.zeros((n, geom.t_feat, cfg.channels[-1]), device=device),
-        hop=torch.zeros((n,), dtype=torch.int32, device=device))
+        hop=torch.zeros((n,), dtype=torch.int32, device=device),
+        key=torch.zeros((n, 2), dtype=torch.int64, device=device))
 
 
 def _tail(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -172,27 +243,51 @@ def _ring_logits(hwp: kws.HWParams, ring: torch.Tensor,
     return torch.bmm(feats[:, None, :], head_w)[:, 0] + head_b
 
 
-def _delta_operand(delta: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """A per-stream bias delta (B, C) as the per-column pre-sign operand
-    (B, n_cols, C) that the fused kernel adds where the word-line bias
-    lands (integers: bit-exact against refolding the bias)."""
-    return delta[:, None, :].expand(delta.shape[0], n_cols, delta.shape[1])
+def _merge_bias_delta(noise: Optional[torch.Tensor],
+                      delta: Optional[torch.Tensor],
+                      n_cols: int) -> Optional[torch.Tensor]:
+    """Fold a per-stream bias delta (B, C) into the per-column pre-sign
+    operand (B, n_cols, C) that the fused kernel adds where the word-line
+    bias lands: ``noise + delta``, or the broadcast delta alone without
+    SA noise (integers: bit-exact against refolding the bias)."""
+    if delta is None:
+        return noise
+    d = delta[:, None, :]
+    if noise is None:
+        return d.expand(delta.shape[0], n_cols, delta.shape[1])
+    return noise + d
+
+
+def _keys_or_zeros(keys: Optional[torch.Tensor], b: int,
+                   device) -> torch.Tensor:
+    if keys is None:
+        return torch.zeros((b, 2), dtype=torch.int64, device=device)
+    return keys.to(device=device, dtype=torch.int64)
 
 
 def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
                 geom: StreamGeometry, *,
+                keys: Optional[torch.Tensor] = None,
                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                sa_noise_std: float = 0.0,
                 use_kernel: bool = True,
                 bias_delta: Optional[Dict[str, torch.Tensor]] = None,
                 head_w: Optional[torch.Tensor] = None,
                 head_b: Optional[torch.Tensor] = None):
     """Process the streams' first full windows (B, window) and build their
-    incremental state.  Equivalent to ``hw_forward`` on the window, plus
-    capturing each layer's ring tail.  ``bias_delta``/``head_w``/
+    incremental state.  Equivalent to ``hw_forward`` on the window (window
+    0 of each stream's noise field, ``keys`` (B, 2); zero keys if None),
+    plus capturing each layer's ring tail.  ``bias_delta``/``head_w``/
     ``head_b`` are the per-stream customization riders.  Returns (logits
     (B, C), state)."""
     hwp, packed = kws.as_hw_params(hw)
     b = window.shape[0]
+    keys = _keys_or_zeros(keys, b, window.device)
+    noise_all = None
+    if sa_noise_std > 0.0:                  # window 0 of every stream
+        noise_all = field_window_noise(SANoiseField(
+            keys, torch.zeros((b,), dtype=torch.int64, device=keys.device),
+            sa_noise_std, geom.hop), cfg)
     h = window[..., None]
     carries = []
     for i in range(cfg.num_conv_layers):
@@ -200,8 +295,11 @@ def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
         if i > 0:
             lg = geom.layers[i]
             carries.append(_tail(h, lg.carry))
+            if noise_all is not None:
+                noise = noise_all[f"conv{i}"]
             if bias_delta is not None:
-                noise = _delta_operand(bias_delta[f"conv{i}"], lg.t_conv)
+                noise = _merge_bias_delta(noise, bias_delta[f"conv{i}"],
+                                          lg.t_conv)
             if chip_offsets is not None:
                 off = chip_offsets[f"conv{i}"]
             packed_i = packed[f"conv{i}"] if packed else None
@@ -212,32 +310,38 @@ def stream_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
     state = StreamState(
         audio_carry=_tail(window, geom.layers[0].carry),
         carries=tuple(carries), ring=h,
-        hop=torch.ones((b,), dtype=torch.int32, device=window.device))
+        hop=torch.ones((b,), dtype=torch.int32, device=window.device),
+        key=keys)
     return logits, state
 
 
 def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
                     cfg: kws.KWSConfig, geom: StreamGeometry, n_hops: int, *,
-                    chip_offsets, use_kernel, bias_delta=None,
+                    chip_offsets, sa_noise_std, use_kernel, bias_delta=None,
                     head_w=None, head_b=None
                     ) -> Tuple[List[torch.Tensor], StreamState]:
     """Advance a batch of streams by ``n_hops`` consecutive hops with ONE
     fused-kernel launch per IMC layer: each layer's tail extends by the
-    extra hops' fresh columns.  Returns ([(B, C)] * n_hops logits, state)."""
+    extra hops' fresh columns, and the noise field covers the extended
+    tail.  Returns ([(B, C)] * n_hops logits, state)."""
     hwp, packed = kws.as_hw_params(hw)
     x = torch.cat([state.audio_carry, audio], dim=1)
     new_audio_carry = _tail(x, geom.layers[0].carry)
     h = kws.hw_conv_layer(hwp, 0, x[..., None], cfg)
+    noise_all = None
+    if sa_noise_std > 0.0:
+        noise_all = hop_sa_noise_fields(state.key, state.hop, cfg, geom,
+                                        sa_noise_std, n_hops=n_hops)
     new_carries = []
     for i in range(1, cfg.num_conv_layers):
         name = f"conv{i}"
         inp = torch.cat([state.carries[i - 1], h], dim=1)
         new_carries.append(_tail(inp, geom.layers[i].carry))
         off = chip_offsets[name] if chip_offsets is not None else None
-        noise = None
+        noise = noise_all[name] if noise_all is not None else None
         if bias_delta is not None:
             t_conv_tail = (inp.shape[1] - cfg.kernels[i]) // cfg.strides[i] + 1
-            noise = _delta_operand(bias_delta[name], t_conv_tail)
+            noise = _merge_bias_delta(noise, bias_delta[name], t_conv_tail)
         h = kws.hw_conv_layer(hwp, i, inp, cfg,
                               packed=packed[name] if packed else None,
                               chip_offset=off, sa_noise=noise,
@@ -249,13 +353,14 @@ def _stream_advance(hw, state: StreamState, audio: torch.Tensor,
         logits_hops.append(_ring_logits(hwp, ring, head_w, head_b))
     new_state = StreamState(audio_carry=new_audio_carry,
                             carries=tuple(new_carries), ring=ring,
-                            hop=state.hop + n_hops)
+                            hop=state.hop + n_hops, key=state.key)
     return logits_hops, new_state
 
 
 def stream_step(hw, state: StreamState, audio: torch.Tensor,
                 cfg: kws.KWSConfig, geom: StreamGeometry, *,
                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                sa_noise_std: float = 0.0,
                 use_kernel: bool = True,
                 bias_delta: Optional[Dict[str, torch.Tensor]] = None,
                 head_w: Optional[torch.Tensor] = None,
@@ -266,8 +371,8 @@ def stream_step(hw, state: StreamState, audio: torch.Tensor,
     customization riders (see ``stream_init``)."""
     logits_hops, new_state = _stream_advance(
         hw, state, audio, cfg, geom, 1, chip_offsets=chip_offsets,
-        use_kernel=use_kernel, bias_delta=bias_delta, head_w=head_w,
-        head_b=head_b)
+        sa_noise_std=sa_noise_std, use_kernel=use_kernel,
+        bias_delta=bias_delta, head_w=head_w, head_b=head_b)
     return logits_hops[0], new_state
 
 
@@ -275,6 +380,7 @@ def stream_multi_step(hw, state: StreamState, audio: torch.Tensor,
                       cfg: kws.KWSConfig, geom: StreamGeometry,
                       n_hops: int, *,
                       chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                      sa_noise_std: float = 0.0,
                       use_kernel: bool = True,
                       bias_delta: Optional[Dict[str, torch.Tensor]] = None,
                       head_w: Optional[torch.Tensor] = None,
@@ -284,8 +390,8 @@ def stream_multi_step(hw, state: StreamState, audio: torch.Tensor,
     Bit-identical to ``n_hops`` sequential ``stream_step`` calls."""
     logits_hops, new_state = _stream_advance(
         hw, state, audio, cfg, geom, n_hops, chip_offsets=chip_offsets,
-        use_kernel=use_kernel, bias_delta=bias_delta, head_w=head_w,
-        head_b=head_b)
+        sa_noise_std=sa_noise_std, use_kernel=use_kernel,
+        bias_delta=bias_delta, head_w=head_w, head_b=head_b)
     return torch.stack(logits_hops, dim=1), new_state
 
 
@@ -300,6 +406,38 @@ def silence_fills(cfg: kws.KWSConfig, sil: Dict[str, torch.Tensor]
     the tuple ``gated_step`` consumes: fills[i] is conv layer i's constant
     (C_i,) output column on silent audio."""
     return tuple(sil[f"conv{i}"] for i in range(cfg.num_conv_layers))
+
+
+def retention_fills(hw, cfg: kws.KWSConfig, *, key: torch.Tensor,
+                    sa_noise_std: float,
+                    chip_offsets: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """SA-retention silence fills, the chip-accurate alternative to
+    ``silence_fills``: a sleeping macro retains its last latched sense-
+    amplifier read of the silent input, which carries one frozen SA-noise
+    realization.  Each layer's fill is its silence response evaluated
+    once with a noisy read (``sa_key = fold_in(key, layer)``), and that
+    retained column feeds the next layer.  Deterministic in ``key`` (a
+    ``jaxrand`` key on the parameters' device); at ``sa_noise_std=0``
+    exactly ``silence_fills``."""
+    hwp, _ = kws.as_hw_params(hw)
+    h = torch.zeros((1, cfg.sample_len, 1), device=kws.hw_device(hwp))
+    fills = []
+    for i in range(cfg.num_conv_layers):
+        off = sa_key = None
+        if i > 0:
+            if chip_offsets is not None:
+                off = chip_offsets[f"conv{i}"]
+            if sa_noise_std > 0.0:
+                sa_key = jaxrand.fold_in(key, i)
+        h = kws.hw_conv_layer(hwp, i, h, cfg, chip_offset=off,
+                              sa_key=sa_key, sa_noise_std=sa_noise_std,
+                              use_kernel=False)
+        col = h[0, 0]
+        fills.append(col)
+        # the retained column is what downstream layers see while asleep
+        h = col.expand(1, h.shape[1], col.shape[0])
+    return tuple(fills)
 
 
 def gated_step(state: StreamState, cfg: kws.KWSConfig, geom: StreamGeometry,
@@ -331,7 +469,7 @@ def gated_step(state: StreamState, cfg: kws.KWSConfig, geom: StreamGeometry,
     ring = torch.cat([state.ring[:, geom.d_feat:],
                       _fill(fills[-1], geom.d_feat)], dim=1)
     return StreamState(audio_carry=audio_carry, carries=tuple(new_carries),
-                       ring=ring, hop=state.hop + 1)
+                       ring=ring, hop=state.hop + 1, key=state.key)
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +485,8 @@ class StreamEngine:
 
     def __init__(self, hw, cfg: kws.KWSConfig, hop: int, *,
                  chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                 use_kernel: bool = True, device=None):
+                 sa_noise_std: float = 0.0, use_kernel: bool = True,
+                 device=None):
         self.device = resolve_device(device)
         if kws.hw_device(hw) != self.device:
             raise ValueError(f"StreamEngine: parameters are on "
@@ -357,17 +496,20 @@ class StreamEngine:
         self.hw = hw
         self.chip_offsets = None if chip_offsets is None else {
             k: kws.as_tensor(v, self.device) for k, v in chip_offsets.items()}
+        self.sa_noise_std = float(sa_noise_std)
         self.use_kernel = use_kernel
 
     def zeros_state(self, n: int) -> StreamState:
         return zeros_state(self.cfg, self.geom, n, self.device)
 
-    def init(self, window: torch.Tensor, bias_delta=None, head_w=None,
-             head_b=None):
-        """First full windows (B, window) -> (logits, state), with the
-        optional per-stream customization riders."""
-        return stream_init(self.hw, window, self.cfg, self.geom,
+    def init(self, window: torch.Tensor, keys=None, bias_delta=None,
+             head_w=None, head_b=None):
+        """First full windows (B, window) of streams with noise-field
+        ``keys`` (B, 2) -> (logits, state), with the optional per-stream
+        customization riders."""
+        return stream_init(self.hw, window, self.cfg, self.geom, keys=keys,
                            chip_offsets=self.chip_offsets,
+                           sa_noise_std=self.sa_noise_std,
                            use_kernel=self.use_kernel, bias_delta=bias_delta,
                            head_w=head_w, head_b=head_b)
 
@@ -377,6 +519,7 @@ class StreamEngine:
         still one fused-kernel launch per IMC layer for the whole batch."""
         return stream_step(self.hw, state, audio, self.cfg, self.geom,
                            chip_offsets=self.chip_offsets,
+                           sa_noise_std=self.sa_noise_std,
                            use_kernel=self.use_kernel, bias_delta=bias_delta,
                            head_w=head_w, head_b=head_b)
 
@@ -386,6 +529,7 @@ class StreamEngine:
         (logits (B, n_hops, C), state), with optional riders."""
         return stream_multi_step(self.hw, state, audio, self.cfg, self.geom,
                                  n_hops, chip_offsets=self.chip_offsets,
+                                 sa_noise_std=self.sa_noise_std,
                                  use_kernel=self.use_kernel,
                                  bias_delta=bias_delta, head_w=head_w,
                                  head_b=head_b)

@@ -8,11 +8,11 @@ serving sessions run (``calibration_ideal_counts`` +
 ``compensate_layer_bias``).  The float QAT training loop is not ported yet.
 
 The test mode measures ideal counts + the chip's static offset + fresh SA
-read noise.  Read noise needs the jax-compatible PRNG, still to port, so
-every path here runs at ``sa_noise_std=0`` and asking for noise raises.
-At zero noise the reference computes ``ideal + off + 0.0 * normal``, which
-equals ``ideal + off`` bit for bit, so the noise-free compensation is the
-reference's exactly.
+read noise, drawn per layer from the calibration split chain
+(``calibration_layer_keys``) with ``core.jaxrand``, so the compensated
+biases are the reference's.  The feature forward draws fresh noise per
+chunk (``sa_noise_std``/``seed``) or evaluates a stream's noise field
+(``sa_noise_field``: the offline oracle of a session's captures).
 """
 
 from __future__ import annotations
@@ -21,12 +21,10 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import compensation, imc
+from repro_torch.core import compensation, imc, jaxrand
+from repro_torch.core.sa_noise import SANoiseField
 from repro_torch.kernels import resolve_device
 from repro_torch.models import kws
-
-_NOISE_TODO = ("needs the jax-compatible PRNG still to port (ROADMAP.md, "
-               "queue 1, item 1)")
 
 
 def _check_device(hw, device) -> torch.device:
@@ -39,20 +37,41 @@ def _check_device(hw, device) -> torch.device:
 
 def hw_features(hw, x, cfg: kws.KWSConfig = kws.PAPER_KWS,
                 chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                sa_noise_std: float = 0.0, batch: int = 200,
-                use_kernel: bool = False, device=None) -> torch.Tensor:
+                sa_noise_std: float = 0.0, seed: int = 0, batch: int = 200,
+                use_kernel: bool = False,
+                sa_noise_field: Optional[SANoiseField] = None,
+                device=None) -> torch.Tensor:
     """GAP features (N, D) of audio windows x (N, sample_len) through the
     hardware path, in chunks of ``batch``: the customization feature
-    buffer (§V-C).  ``hw`` lives on ``device`` (``None`` means CUDA)."""
-    if sa_noise_std > 0.0:
-        raise NotImplementedError(
-            f"hw_features(sa_noise_std > 0): SA noise {_NOISE_TODO}")
+    buffer (§V-C).  SA noise is a fresh draw per chunk
+    (``sa_noise_std``, keys split from ``PRNGKey(seed)``) or, with
+    ``sa_noise_field``, each example's recorded (stream key, window)
+    field, which reproduces a session's captured features bit for bit.
+    ``hw`` lives on ``device`` (``None`` means CUDA)."""
     dev = _check_device(hw, device)
     x = kws.as_tensor(x, dev)
-    outs = [kws.hw_forward(hw, x[i:i + batch], cfg,
-                           chip_offsets=chip_offsets, use_kernel=use_kernel,
-                           device=dev)[1]
-            for i in range(0, x.shape[0], batch)]
+    if sa_noise_field is not None:
+        if sa_noise_std > 0.0:
+            raise ValueError("pass either sa_noise_std or sa_noise_field, "
+                             "not both")
+        if sa_noise_field.keys.shape[0] != x.shape[0]:
+            raise ValueError(
+                f"sa_noise_field has {sa_noise_field.keys.shape[0]} rows "
+                f"for {x.shape[0]} examples")
+        f = sa_noise_field
+        return torch.cat([kws.hw_forward(
+            hw, x[i:i + batch], cfg, chip_offsets=chip_offsets,
+            sa_noise_field=f._replace(keys=f.keys[i:i + batch],
+                                      hops=f.hops[i:i + batch]),
+            use_kernel=use_kernel, device=dev)[1]
+            for i in range(0, x.shape[0], batch)], dim=0)
+    outs, key = [], jaxrand.PRNGKey(seed, device=dev)
+    for i in range(0, x.shape[0], batch):
+        key, sub = jaxrand.split(key)
+        outs.append(kws.hw_forward(hw, x[i:i + batch], cfg,
+                                   chip_offsets=chip_offsets,
+                                   sa_noise_std=sa_noise_std, rng=sub,
+                                   use_kernel=use_kernel, device=dev)[1])
     return torch.cat(outs, dim=0)
 
 
@@ -73,19 +92,23 @@ def calibration_ideal_counts(hw, xcal, cfg: kws.KWSConfig = kws.PAPER_KWS,
 def compensate_layer_bias(bias_int: torch.Tensor,
                           ideal_counts: torch.Tensor,
                           chip_offset: torch.Tensor,
+                          key: Optional[torch.Tensor] = None,
                           sa_noise_std: float = 1.0,
                           macro: imc.IMCMacroConfig = imc.DEFAULT_MACRO,
                           return_est: bool = False):
     """One layer of test-mode compensation: measure ideal + the chip's
-    static offset, estimate the per-channel discrepancy and fold it into
-    the in-memory BN bias.  The reference also takes the layer's PRNG key
-    for the read noise; ``sa_noise_std`` must be 0 here, so there is none.
+    static offset + fresh SA read noise (``sa_noise_std * normal(key,
+    counts.shape)``; ``key`` is the layer's slot of
+    ``calibration_layer_keys``, and may be None at zero noise), estimate
+    the per-channel discrepancy and fold it into the in-memory BN bias.
     ``return_est=True`` also returns the raw per-channel estimate."""
-    if sa_noise_std > 0.0:
-        raise NotImplementedError(
-            f"compensate_layer_bias(sa_noise_std={sa_noise_std}): the "
-            f"calibration read noise {_NOISE_TODO}; pass sa_noise_std=0.0")
     measured = ideal_counts + chip_offset
+    if sa_noise_std > 0.0:
+        if key is None:
+            raise ValueError("compensate_layer_bias: read noise needs the "
+                             "layer's key (calibration_layer_keys)")
+        measured = measured + sa_noise_std * jaxrand.normal(
+            key.to(ideal_counts.device), tuple(ideal_counts.shape))
     est = compensation.estimate_channel_offsets(ideal_counts, measured)
     new_bias = compensation.compensate_bias(bias_int, est, macro)
     if return_est:
@@ -93,28 +116,53 @@ def compensate_layer_bias(bias_int: torch.Tensor,
     return new_bias
 
 
+def calibration_layer_keys(cfg: kws.KWSConfig = kws.PAPER_KWS,
+                           seed: int = 0, device=None
+                           ) -> Dict[str, torch.Tensor]:
+    """The per-layer measurement keys of the calibration split chain,
+    shared by ``calibrate_and_compensate`` and the tick-resumable
+    sessions so both take identical read-noise samples (``device=None``
+    means CUDA)."""
+    key = jaxrand.PRNGKey(seed, device=device)
+    out = {}
+    for name in cfg.imc_layer_names():
+        key, sub = jaxrand.split(key)
+        out[name] = sub
+    return out
+
+
 def calibrate_and_compensate(hw, xcal,
                              chip_offsets: Dict[str, torch.Tensor],
                              cfg: kws.KWSConfig = kws.PAPER_KWS,
                              macro: imc.IMCMacroConfig = imc.DEFAULT_MACRO,
-                             sa_noise_std: float = 1.0, device=None):
+                             sa_noise_std: float = 1.0, seed: int = 0,
+                             sa_noise_field: Optional[SANoiseField] = None,
+                             device=None):
     """Paper §IV-B: estimate per-channel MAV offsets through the chip's
-    test mode (layer-local, matched inputs) and fold the compensation into
-    the in-memory BN biases.  Driver over ``calibration_ideal_counts`` +
-    ``compensate_layer_bias``, the pieces the serving sessions run one
-    layer per tick.  Returns the same kind of parameters as ``hw``
-    (packed parameters are re-packed).  ``sa_noise_std`` must be 0."""
-    if sa_noise_std > 0.0:
-        raise NotImplementedError(
-            f"calibrate_and_compensate(sa_noise_std={sa_noise_std}): the "
-            f"calibration read noise {_NOISE_TODO}; pass sa_noise_std=0.0")
+    test mode (layer-local, matched inputs: ideal counts + static offset
+    + fresh read noise from ``calibration_layer_keys(cfg, seed)``) and fold
+    the compensation into the in-memory BN biases.  It runs
+    ``calibration_ideal_counts`` + ``compensate_layer_bias``, the pieces
+    the serving sessions run one layer per tick.  ``sa_noise_field`` does
+    not touch the measurement (the test mode digitizes pre-SA counts); it
+    is only checked against ``xcal``, as the reference does, so an offline
+    oracle can thread one field through calibration and features.
+    Returns the same kind of parameters as ``hw`` (packed parameters are
+    re-packed)."""
+    if sa_noise_field is not None \
+            and sa_noise_field.keys.shape[0] != len(xcal):
+        raise ValueError(
+            f"sa_noise_field has {sa_noise_field.keys.shape[0]} rows for "
+            f"{len(xcal)} calibration utterances")
     dev = _check_device(hw, device)
     hwp, packed = kws.as_hw_params(hw)
     ideal_log = calibration_ideal_counts(hwp, xcal, cfg, device=dev)
+    keys = calibration_layer_keys(cfg, seed, device=dev)
     new_bias = dict(hwp.bias)
     for name in cfg.imc_layer_names():
         new_bias[name] = compensate_layer_bias(
             hwp.bias[name], ideal_log[name],
-            kws.as_tensor(chip_offsets[name], dev), sa_noise_std, macro)
+            kws.as_tensor(chip_offsets[name], dev), keys[name],
+            sa_noise_std, macro)
     out = hwp._replace(bias=new_bias)
     return kws.pack_hw_params(out, cfg) if packed is not None else out

@@ -1,8 +1,10 @@
-"""The port's Hopper kernels on a card: ``imc_fused`` and the fused SGA
-update (``sga_update_rows``, ``sga_update``) against their plain PyTorch
-versions, bit for bit; one ``imc_fused`` launch per IMC layer on the
-served paths, and one ``sga_update_rows`` launch per training round of
-the customization sessions.
+"""The port's Hopper kernels on a card: ``imc_fused``, the fused SGA
+update (``sga_update_rows``, ``sga_update``), the per-group product tile
+``imc_mav`` and ``int8_matmul`` against their plain PyTorch versions, bit
+for bit; one ``imc_fused`` launch per IMC layer on the served paths (SA
+noise on too), one ``imc_mav`` launch per conv group, one
+``sga_update_rows`` launch per training round of the customization
+sessions; and the SA-noise field made on the card equal to the CPU's.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -15,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import imc, jaxrand, sa_noise
 from repro_torch.core.onchip_training import OnChipTrainConfig
 from repro_torch.kernels.imc_mav import ops, ref
+from repro_torch.kernels.int8_matmul import ops as i8_ops
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.sga_update import ops as sga_ops
 from repro_torch.kernels.sga_update.ref import sga_update_ref
 from repro_torch.models import kws
@@ -288,3 +293,163 @@ def _to_cpu(hw):
                           for d in (hw.hw.w_bin, hw.hw.bias, hw.hw.flip)],
                         fc_w=hw.hw.fc_w.cpu(), fc_b=hw.hw.fc_b.cpu()),
         packed={k: v.cpu() for k, v in hw.packed.items()})
+
+
+# -- K5: the per-group product tile -----------------------------------------
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noise"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(64, 72, 24), (300, 72, 96),
+                                   (257, 48, 130), (512, 128, 576),
+                                   (1, 5, 1), (31960, 72, 96)])
+def test_imc_mav_kernel_matches_plain_version(dev, m, k, n, dtype, noisy):
+    rng = np.random.default_rng(m + k + n)
+    pm1 = lambda *s: torch.tensor(np.where(rng.random(s) < 0.5, 1.0, -1.0),
+                                  dtype=torch.float32, device=dev)
+    x, w, flip = pm1(m, k).to(dtype), pm1(k, n).to(dtype), pm1(n)
+    bias = torch.tensor(np.round(rng.normal(size=n) * 10) * 2,
+                        dtype=torch.float32, device=dev)
+    noise = (torch.tensor(4.0 * rng.normal(size=(m, n)), dtype=torch.float32,
+                          device=dev) if noisy else None)
+    ops.COUNTS_MAV.reset()
+    got = ops.mav_matmul(x, w, bias, flip, noise)
+    want = ref.imc_mav_ref(x, w, bias, flip, noise)
+    torch.cuda.synchronize()
+    assert ops.COUNTS_MAV.launches == 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("std", [0.0, 1.0])
+def test_conv_mav_launches_once_per_group(dev, std):
+    x, w, bias, flip, _, _ = _inputs(7, 2, 80, 192, 288, 8, 1, dev)
+    key = jaxrand.PRNGKey(3, device=dev)
+    ops.COUNTS_MAV.reset()
+    got = ops.conv_mav(x, w, bias, flip, groups=8, sa_key=key,
+                       sa_noise_std=std)
+    assert ops.COUNTS_MAV.launches == 8
+    cpu = ops.conv_mav(x.cpu(), w.cpu(), bias.cpu(), flip.cpu(), groups=8,
+                       sa_key=key.cpu(), sa_noise_std=std)
+    assert torch.equal(got.cpu(), cpu)
+
+
+# -- K4: the int8 FC datapath ------------------------------------------------
+
+
+@pytest.mark.parametrize("shift", [0, 4, 7])
+@pytest.mark.parametrize("m,k,n", [(512, 128, 128), (8, 576, 10),
+                                   (37, 50, 11), (256, 576, 128)])
+def test_int8_kernel_matches_plain_version(dev, m, k, n, shift):
+    rng = np.random.default_rng(m * k + n + shift)
+    x = torch.tensor(rng.integers(-128, 128, (m, k)), dtype=torch.int8,
+                     device=dev)
+    w = torch.tensor(rng.integers(-128, 128, (k, n)), dtype=torch.int8,
+                     device=dev)
+    b = torch.tensor(rng.integers(-2 ** 16, 2 ** 16, n), dtype=torch.int32,
+                     device=dev)
+    i8_ops.COUNTS.reset()
+    got = i8_ops.int8_matmul(x, w, b, shift=shift)
+    want = int8_matmul_ref(x, w, b, shift=shift)
+    torch.cuda.synchronize()
+    assert i8_ops.COUNTS.launches == 1
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shift", [0, 4, 7])
+def test_int8_kernel_saturates_and_wraps(dev, shift):
+    """Operands at -128 and 127, biases near the int32 ends (the adds
+    wrap), a saturating ``out_max`` below 127."""
+    rng = np.random.default_rng(shift)
+    x = torch.tensor(rng.choice([-128, 127], (40, 64)), dtype=torch.int8,
+                     device=dev)
+    w = torch.tensor(rng.choice([-128, 127], (64, 24)), dtype=torch.int8,
+                     device=dev)
+    b = torch.tensor(np.concatenate([np.full(8, 2 ** 31 - 51),
+                                     np.full(8, -2 ** 31),
+                                     rng.integers(-2 ** 20, 2 ** 20, 8)]),
+                     dtype=torch.int32, device=dev)
+    for out_max in (127, 63):
+        got = i8_ops.int8_matmul(x, w, b, shift=shift, out_max=out_max)
+        assert torch.equal(got, int8_matmul_ref(x, w, b, shift, out_max))
+
+
+def test_quantized_fc_on_the_card_equals_the_cpu(dev):
+    rng = np.random.default_rng(576)
+    feats = torch.tensor(rng.integers(0, 17, (8, 576)) / 16.0,
+                         dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(576, 10)) * 0.05, dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=10) * 0.1, dtype=torch.float32)
+    got = i8_ops.quantized_fc(feats.to(dev), w.to(dev), b.to(dev))
+    assert torch.equal(got.cpu(), i8_ops.quantized_fc(feats, w, b))
+
+
+# -- the SA-noise field and noisy serving ------------------------------------
+
+
+def test_noise_field_on_the_card_equals_the_cpu(dev):
+    cfg = kws.KWSConfig(sample_len=L)
+    keys = jaxrand.split(jaxrand.PRNGKey(12, device=dev), 3)
+    field = sa_noise.SANoiseField(keys, torch.tensor([0, 4, 31], device=dev),
+                                  1.0, HOP)
+    on_card = sa_noise.field_window_noise(field, cfg)
+    on_cpu = sa_noise.field_window_noise(field._replace(
+        keys=keys.cpu(), hops=field.hops.cpu()), cfg)
+    for name in on_cpu:
+        assert torch.equal(on_card[name].cpu(), on_cpu[name])
+    n = jaxrand.normal(keys, (1 << 16,))
+    assert torch.equal(n.cpu(), jaxrand.normal(keys.cpu(), (1 << 16,)))
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    offs = imc.sample_chip_offsets(jaxrand.PRNGKey(0, device=dev), chans,
+                                   imc.IMCNoiseParams())
+    offs_cpu = imc.sample_chip_offsets(jaxrand.PRNGKey(0, "cpu"), chans,
+                                       imc.IMCNoiseParams())
+    for name in chans:
+        assert torch.equal(offs[name].cpu(), offs_cpu[name])
+
+
+@pytest.mark.parametrize("fill", ["constant", "retention"])
+def test_noisy_server_kernel_equals_plain_version(dev, fill):
+    """SA noise 1.0 and chip offsets: the kernel route and the plain route
+    serve the same events and states, ``imc_fused`` launches once per IMC
+    layer and batched call, and the card agrees with the CPU on every
+    decision (``score`` within 1e-6)."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(0, "cpu"), chans,
+                                   imc.IMCNoiseParams())
+    rng = np.random.default_rng(3)
+    auds = []
+    for _ in range(3):
+        x = rng.uniform(-1, 1, L + 16 * HOP).astype(np.float32)
+        x[L + 2 * HOP:L + 8 * HOP] *= 1e-4
+        auds.append(x)
+    runs = []
+    for device, use_kernel in ((dev, True), (dev, False), ("cpu", True)):
+        srv = StreamServer(hw if device == dev else _to_cpu(hw), cfg,
+                           hop=HOP, slots=3, vad=VADConfig(),
+                           chip_offsets=chip, sa_noise_std=1.0, seed=5,
+                           silence_fill=fill, use_kernel=use_kernel,
+                           device=device)
+        for i, x in enumerate(auds):
+            srv.submit(f"s{i}", x)
+            srv.finish(f"s{i}")
+        ops.COUNTS.reset()
+        events = srv.drain()
+        runs.append((events, srv.stats(), ops.COUNTS.launches, srv))
+    (ev_k, st_k, n_k, srv_k), (ev_p, _, n_p, srv_p), (ev_c, _, _, _) = runs
+    assert ev_k == ev_p and ev_k
+    for a, b in zip(srv_k._state, srv_p._state):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    calls = st_k["batched_calls"]
+    assert st_k["gated_hops"] > 0
+    assert n_k == 5 * (calls["init"] + calls["hop"] + calls["replay"])
+    assert n_p == 0
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    assert strip(ev_k) == strip(ev_c)
+    np.testing.assert_allclose([e["score"] for e in ev_k],
+                               [e["score"] for e in ev_c], rtol=0, atol=1e-6)

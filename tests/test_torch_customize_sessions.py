@@ -2,7 +2,7 @@
 on the CPU: the offline pieces themselves, a session without
 compensation, two concurrent sessions sharing one optimizer launch per
 round, ``install_custom`` against a server on the refolded net, and the
-calls that would draw random numbers.
+calibration read noise (held bitwise: the port draws JAX's numbers).
 
 Bitwise throughout: compensated biases, features and fine-tuned heads.
 The compensation's float offset estimate is summed over rows in an order
@@ -259,23 +259,41 @@ def test_install_custom_serves_like_the_refolded_net(nets, batch_init):
 
 
 def test_calibration_noise_raises_naming_the_prng(nets):
-    _, hw_t, chip = nets
+    """The draws that raised until the PRNG was ported now equal the
+    reference's: a session's calibration with read noise 1.0 (the default)
+    against ``calibrate_and_compensate`` and JAX's, and a noisy feature
+    forward."""
+    hw_j, hw_t, chip = nets
     srv = StreamServer(hw_t, CFG, hop=HOP, slots=2, chip_offsets=chip,
                        device="cpu")
-    sess = srv.customize("user")            # calib_sa_noise_std=1.0
-    utts, labels = _utterances(1, 13)
-    sess.enroll(labels[0], utts[0])
+    sess = srv.customize("user", CustomizeConfig(     # calib noise 1.0
+        train=OnChipTrainConfig(epochs=2), calib_seed=3))
+    utts, labels = _utterances(2, 13)
+    for lab, u in zip(labels, utts):
+        sess.enroll(lab, u)
     sess.finish_enrollment()
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        for _ in range(40):
-            srv.step()
-    assert sess.phase == "calibrating"
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tr.calibrate_and_compensate(hw_t, np.stack(utts), chip, CFG,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tr.hw_features(hw_t, np.stack(utts), CFG, sa_noise_std=0.5,
-                       device="cpu")
+    srv.submit("user", np.zeros(HOP, np.float32))
+    for _ in range(40):
+        srv.step()
+        if sess.phase not in ("enrolling", "calibrating"):
+            break
+    assert sess.phase == "extracting"
+    x = np.stack(sess.windows)
+    offs = {k: jnp.asarray(v) for k, v in chip.items()}
+    want = jkws.as_hw_params(jtr.calibrate_and_compensate(
+        hw_j, x, offs, JCFG, sa_noise_std=1.0, seed=3))[0].bias
+    got = tr.calibrate_and_compensate(hw_t, x, chip, CFG, seed=3,
+                                      device="cpu").hw.bias
+    for name in CFG.imc_layer_names():
+        np.testing.assert_array_equal(sess._new_bias[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+    ft = tr.hw_features(hw_t, x, CFG, chip_offsets=chip, sa_noise_std=0.5,
+                        seed=4, batch=1, device="cpu")
+    fj = jtr.hw_features(hw_j, x, JCFG, chip_offsets=offs, sa_noise_std=0.5,
+                         seed=4, batch=1)
+    np.testing.assert_array_equal(ft.numpy(), fj)
 
 
 def test_entry_points_default_to_cuda(nets, monkeypatch):

@@ -6,12 +6,14 @@ Inputs are made with numpy from a seed and handed to both packages.  Every
 quantity of the quantized head loop lies on a fixed-point grid, so the two
 libraries must agree exactly: the LUT, the LUT softmax, the error-scaling
 exponent on every value ``max|error|`` can take (k / 256), one SGA step,
-one epoch's gradients and update, and whole fine-tuning runs.  The
+one epoch's gradients and update, and whole fine-tuning runs, RGP noise
+included (the port draws JAX's numbers).  The
 compensation's float offset estimate is a sum over rows whose order the
 libraries may choose differently, so the estimate is held to 1e-5 and the
 compensated integer biases bitwise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ import torch
 from repro.core import compensation as jcomp
 from repro.core import onchip_training as jot
 from repro.core import quantize as jq
-from repro_torch.core import compensation, onchip_training as ot, quantize
+from repro.training import kws as jtr
+from repro_torch.core import compensation, jaxrand, onchip_training as ot
+from repro_torch.core import quantize
 from repro_torch.training import kws as tr
 
 D, C, N = 576, 10, 12
@@ -187,12 +191,25 @@ def test_channel_offsets_and_compensated_bias_match(seed):
 
 
 def test_noise_and_rgp_raise_naming_the_prng():
+    """The draws that raised until the PRNG was ported now equal the
+    reference's: an ``rgp=True`` fine-tune and a compensation step with
+    read noise."""
     feats, labels, w0, b0 = _head_inputs(0, n=4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        ot.quantized_head_finetune(feats, labels, w0, b0,
-                                   ot.OnChipTrainConfig(epochs=2, rgp=True),
-                                   device="cpu")
-    z = torch.zeros((2, 3, 4))
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tr.compensate_layer_bias(torch.zeros(4), z, torch.zeros(4),
-                                 sa_noise_std=1.0)
+    w, b = ot.quantized_head_finetune(
+        feats, labels, w0, b0, ot.OnChipTrainConfig(epochs=6, rgp=True,
+                                                    seed=2), device="cpu")
+    wj, bj = jot.quantized_head_finetune(
+        jnp.asarray(feats), jnp.asarray(labels), jnp.asarray(w0),
+        jnp.asarray(b0), jot.OnChipTrainConfig(epochs=6, rgp=True, seed=2))
+    _eq(w, wj)
+    _eq(b, bj)
+    rng = np.random.default_rng(1)
+    ideal = rng.integers(-20, 20, (2, 3, 4)).astype(np.float32)
+    off = (4.0 * rng.normal(size=4)).astype(np.float32)
+    jkey = jax.random.PRNGKey(6)
+    got = tr.compensate_layer_bias(
+        torch.zeros(4), torch.tensor(ideal), torch.tensor(off),
+        jaxrand.key_from_numpy(np.asarray(jkey), "cpu"), sa_noise_std=1.0)
+    want = jtr.compensate_layer_bias(jnp.zeros(4), jnp.asarray(ideal),
+                                     jnp.asarray(off), jkey, 1.0)
+    _eq(got, want)

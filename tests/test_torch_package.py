@@ -4,7 +4,8 @@
   neither does the card check script ``chip_smoke.py``.
 * Entry points take ``device=None`` meaning CUDA; without a card they
   raise unless the caller passes ``device="cpu"``.
-* SA noise is not ported yet, and asking for it raises.
+* SA noise serves: each stream's noise field is keyed by
+  ``fold_in(PRNGKey(seed), uid)``.
 """
 
 import ast
@@ -83,8 +84,17 @@ def test_parameters_must_live_on_the_serving_device(hw_cpu):
 
 
 def test_sa_noise_is_rejected_until_ported(hw_cpu):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        StreamServer(hw_cpu, CFG, hop=64, sa_noise_std=0.5, device="cpu")
+    """SA noise was rejected until the PRNG was ported; now a noisy server
+    serves, every stream under its own noise-field key."""
+    from repro_torch.core import jaxrand
+    srv = StreamServer(hw_cpu, CFG, hop=64, sa_noise_std=0.5, seed=3,
+                       device="cpu")
+    for sid in ("a", "b"):
+        srv.submit(sid, torch.linspace(-1, 1, CFG.sample_len + 64).numpy())
+        srv.finish(sid)
+    assert len(srv.drain()) == 4
+    assert torch.equal(srv.stream_key(1), jaxrand.fold_in(
+        jaxrand.PRNGKey(3, "cpu"), 1))
 
 
 def test_kernel_library_is_content_addressed():
