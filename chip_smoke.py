@@ -16,9 +16,13 @@ result line):
 2. per IMC layer of the paper net at full width (B = 8 streams, a full
    16 000-sample window, and the per-hop tail shapes of hop 1024): the
    fused kernel against its plain PyTorch version on the card, on random
-   ±1 inputs without offset, with chip offsets, and with chip offsets plus
-   a pre-sign noise operand — bitwise; then the kernel's and the plain
-   version's median times beside the least time the card could take;
+   ±1 activations, on ±1 activations with two of the eight streams all
+   zero (the carries of free slots) and on activations in {-1, 0, +1};
+   each without offset, with chip offsets, and with chip offsets plus a
+   pre-sign noise operand; through the fold-time int8 weights and the
+   fp32 group-major ones — bitwise; then the kernel's and the plain
+   version's median times beside the least time the card could take, and
+   the kernel's ratio to it;
 3. the served path: a net folded from ``init_params`` (seeded
    ``torch.Generator``) serves 8 streams of synthetic keyword audio with
    silent gaps (``repro_torch.data.audio``) through ``StreamServer`` at
@@ -94,9 +98,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HOP, SLOTS, HOPS, B = 1024, 8, 24, 8
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and TF32
-# tensor-core operations/s.  ±1 fp32 operands are exact in TF32, so the
-# layer's products could run at the TF32 rate.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and tensor-core
+# operations/s.  ±1 fp32 operands are exact in TF32, so a ±1 product could
+# run at the TF32 rate; K1's operands (x in {-1, 0, +1}, w ±1) are exact
+# in int8, and its products run at the int8 rate.
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_OPS_PER_S = 495e12
 H100_FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
@@ -195,9 +200,9 @@ def layer_work(b, t, c_in, c_out, groups, stride, pool, chip, noise, k=3):
     return 4 * floats, ops
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=H100_TF32_OPS_PER_S):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_TF32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -235,13 +240,24 @@ def phase_build(torch):
     return smi
 
 
-def _layer_inputs(torch, gen, dev, b, t, c_in, c_out, groups, stride):
-    """Random ±1 activations and weights, even biases on the word-line
-    grid [-64, 64], ±1 flips, chip offsets and a pre-sign noise operand."""
+def _layer_inputs(torch, gen, dev, b, t, c_in, c_out, groups, stride,
+                  kind="pm1"):
+    """Random activations, ±1 weights, even biases on the word-line grid
+    [-64, 64], ±1 flips, chip offsets and a pre-sign noise operand.  The
+    activations are ±1 (``pm1``), ±1 with streams 2 and 5 all zero
+    (``zero_streams``: the carries of free slots) or each in {-1, 0, +1}
+    (``ternary``)."""
     def pm1(*shape):
         return (torch.randint(0, 2, shape, generator=gen, device=dev)
                 .float() * 2 - 1)
-    x = pm1(b, t, c_in)
+    if kind == "ternary":
+        x = torch.randint(-1, 2, (b, t, c_in), generator=gen,
+                          device=dev).float()
+    else:
+        x = pm1(b, t, c_in)
+        if kind == "zero_streams":
+            x[2] = 0.0
+            x[5] = 0.0
     w = pm1(3, c_in // groups, c_out)
     bias = torch.round(torch.randn(c_out, generator=gen, device=dev) * 8) * 2
     flip = pm1(c_out)
@@ -252,7 +268,8 @@ def _layer_inputs(torch, gen, dev, b, t, c_in, c_out, groups, stride):
 
 
 def phase_layers(torch, dev):
-    """Kernel vs plain version per IMC layer at the served shapes; times."""
+    """Kernel vs plain version per IMC layer at the served shapes, on ±1,
+    zero-stream and ternary activations, bitwise; then times."""
     from repro_torch.kernels.imc_mav import ops, ref
     from repro_torch.models import kws
     from repro_torch.serving import stream as sv
@@ -268,28 +285,38 @@ def phase_layers(torch, dev):
         groups, pool, stride = cfg.groups(i), cfg.pools[i], cfg.strides[i]
         lg = geom.layers[i]
         for shape, t in (("window", lg.t_in), ("hop", lg.tail_in)):
-            x, w, bias, flip, off, noise = _layer_inputs(
-                torch, gen, dev, B, t, c_in, c_out, groups, stride)
-            packed = ops.pack_weights(w, groups)
-            for case, o, n in (("clean", None, None), ("chip", off, None),
-                               ("noise", off, noise)):
-                got = ops.fused_conv_mav(x, w, bias, flip, groups=groups,
-                                         stride=stride, pool=pool,
-                                         chip_offset=o, sa_noise=n,
-                                         packed=packed)
-                want = ref.fused_conv_mav_ref(x, w, bias, flip,
-                                              groups=groups, stride=stride,
-                                              pool=pool, chip_offset=o,
-                                              sa_noise=n)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                max_err = max(max_err, err)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"conv{i} {shape} {case}: kernel differs from the "
-                        f"plain version on {(got != want).sum().item()} "
-                        f"of {got.numel()} outputs")
-            # time the served configuration: chip offsets, no noise
+            for kind in ("pm1", "zero_streams", "ternary"):
+                x, w, bias, flip, off, noise = _layer_inputs(
+                    torch, gen, dev, B, t, c_in, c_out, groups, stride, kind)
+                packed = ops.pack_weights_s8(w, groups)
+                for case, o, n in (("clean", None, None),
+                                   ("chip", off, None),
+                                   ("noise", off, noise)):
+                    got = ops.fused_conv_mav(x, w, bias, flip, groups=groups,
+                                             stride=stride, pool=pool,
+                                             chip_offset=o, sa_noise=n,
+                                             packed=packed)
+                    want = ref.fused_conv_mav_ref(x, w, bias, flip,
+                                                  groups=groups,
+                                                  stride=stride, pool=pool,
+                                                  chip_offset=o, sa_noise=n)
+                    # the fp32 group-major weights, packed on the call
+                    got32 = ops.imc_fused(x, ops.pack_weights(w, groups),
+                                          bias, flip, o, n, k=3,
+                                          groups=groups, stride=stride,
+                                          pool=pool)
+                    torch.cuda.synchronize()
+                    for g_ in (got, got32):
+                        err = float((g_ - want).abs().max())
+                        max_err = max(max_err, err)
+                        if not torch.equal(g_, want):
+                            raise AssertionError(
+                                f"conv{i} {shape} {kind} {case}: kernel "
+                                f"differs from the plain version on "
+                                f"{(g_ != want).sum().item()} of "
+                                f"{g_.numel()} outputs")
+            # time the served configuration: chip offsets, no noise (on the
+            # last inputs: the kernel's work does not depend on values)
             kernel = lambda: ops.imc_fused(
                 x, packed, bias, flip, off, None, k=3, groups=groups,
                 stride=stride, pool=pool)
@@ -302,27 +329,35 @@ def phase_layers(torch, dev):
             p_ms = p_dev if p_dev is not None else p_call
             nbytes, nops = layer_work(B, t, c_in, c_out, groups, stride,
                                       pool, chip=True, noise=False)
-            b_ms, b_by = bound_ms(nbytes, nops)
+            b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
             tot = totals[shape]
             tot[0] += k_ms
             tot[1] += p_ms
             tot[2] += nbytes
             tot[3] += nops
+            t_pool = ((t - 3) // stride + 1) // pool
+            tile = ops.plan_tiles(B, t_pool, groups, c_out // groups, 3,
+                                  stride, pool,
+                                  torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
             rows.append(dict(layer=f"conv{i}", shape=shape, B=B, T=t,
                              c_in=c_in, c_out=c_out, groups=groups,
-                             kernel_device_ms=k_dev, plain_device_ms=p_dev,
-                             kernel_call_ms=k_call, plain_call_ms=p_call,
-                             bound_ms=b_ms, bound_by=b_by))
+                             tile=tile, kernel_device_ms=k_dev,
+                             plain_device_ms=p_dev, kernel_call_ms=k_call,
+                             plain_call_ms=p_call, bound_ms=b_ms,
+                             bound_by=b_by, over_bound=k_ms / b_ms))
             log(f"[layer] conv{i} {shape:6s} B={B} T={t:5d} "
-                f"{c_in:3d}->{c_out:3d} g={groups:2d}: device time kernel "
-                f"{k_dev} ms, plain {p_dev} ms; per call (CUDA events) "
-                f"kernel {k_call:.4f} ms, plain {p_call:.4f} ms; bound "
-                f"{b_ms:.5f} ms ({b_by}); bitwise equal (clean/chip/noise)")
+                f"{c_in:3d}->{c_out:3d} g={groups:2d} tile {tile}: device "
+                f"time kernel {k_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{k_ms / b_ms:.1f}x the bound; plain {p_dev} ms; per call "
+                f"(CUDA events) kernel {k_call:.4f} ms, plain "
+                f"{p_call:.4f} ms; bitwise equal (pm1/zero streams/ternary "
+                f"x clean/chip/noise)")
     for shape, (k_ms, p_ms, nbytes, nops) in totals.items():
-        b_ms, b_by = bound_ms(nbytes, nops)
+        b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
         log(f"[layer] five layers, {shape} shapes: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms (device time), bound {b_ms:.5f} ms "
-            f"({b_by})")
+            f"({b_by}), {k_ms / b_ms:.1f}x the bound")
     return rows, totals, max_err
 
 
@@ -1274,14 +1309,18 @@ def main() -> int:
     noisy = phase_noisy_served(torch, dev)
 
     k_ms, p_ms, nbytes, nops = totals["hop"]
-    b_ms, b_by = bound_ms(nbytes, nops)
+    b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
     print(json.dumps({"card": smi, "layers": rows, "served": served,
                       "customize": custom, "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy}), flush=True)
+    w_ms, wp_ms, w_bytes, w_ops = totals["window"]
+    wb_ms, _ = bound_ms(w_bytes, w_ops, H100_INT8_OPS_PER_S)
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"(device time); {launches} launches on the served path")
+        f"(device time); at a full window: kernel {w_ms:.4f} ms, plain "
+        f"{wp_ms:.4f} ms, bound {wb_ms:.5f} ms; {launches} launches on the "
+        f"served path")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "

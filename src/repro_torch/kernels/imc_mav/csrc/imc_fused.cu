@@ -1,105 +1,417 @@
-// imc_fused: one whole grouped IMC layer of the KWS net in one launch.
+// imc_fused: one whole grouped IMC layer of the KWS net in one launch,
+// designed for Hopper: int8 tensor-core products over an implicit im2col.
 //
 // Replaces the Pallas TPU kernel `imc_fused` (src/repro/kernels/imc_mav/
 // imc_mav.py:141, with `_fused_kernel`, `_fused_kernel_noise` and
 // `_epilogue`).  It computes the same function, not the same blocks:
 //
-//   counts[b, t, ch] = sum over taps k and group channels c of
-//                      x[b, t*stride + k, g*cpg + c] * w[k, c, ch]
+//   counts[b, t, ch] = sum over taps j and group channels c of
+//                      x[b, t*stride + j, g*cpg + c] * w[j, c, ch]
 //   pre  = ((counts + off) + bias) [+ noise]      (fp32, in this order)
 //   act  = (pre * flip) >= 0 ? +1 : -1
 //   out[b, tp, a*groups + g] = max over r < pool of act[b, tp*pool + r, g*cog + a]
 //
-// i.e. grouped ±1 convolution, chip offset, word-line bias, optional
-// pre-sign noise operand, BN-decoder flip, SA sign, OR-maxpool and the
-// channel shuffle, with no pre-activation ever written to device memory.
-// The add order is the reference's (repro/core/imc.py::mav_sa), so the
-// result is bit-identical to the plain version in ../ref.py.
+// i.e. grouped convolution, chip offset, word-line bias, optional pre-sign
+// noise operand, BN-decoder flip, SA sign, OR-maxpool and the channel
+// shuffle, with no pre-activation ever written to device memory.  The add
+// order is the reference's (repro/core/imc.py::mav_sa), spelled out with
+// __fadd_rn / __fmul_rn (the build also passes --fmad=false), so the result
+// is bit-identical to the plain version in ../ref.py.
 //
-// What bounds it on an H100: the layer moves its ±1 activations in and out
-// of HBM (fp32, 4 bytes each) and does 72 multiply-adds per output
-// element, about 48 operations per byte at the paper's first IMC layer.
-// That is below the tensor cores' ridge, so the floor is the bytes moved
-// at 3.35 TB/s.  The design keeps HBM traffic at that floor: an implicit
-// im2col stages each block's input rows once in shared memory (no patch
-// tensor in HBM), the counts and the epilogue stay in registers, and one
-// thread owns a whole pool window, so OR-pooling needs no exchange between
-// threads.  This first version issues the products on the CUDA cores with
-// both operands read from shared memory (two loads per product), so in
-// practice it is bound by shared-memory loads rather than by HBM; holding
-// each thread's 72 weights in registers, or int8 tensor-core products, is
-// the next step.
+// The input contract is x in {-1, 0, +1}, not only ±1.  The served path
+// sends zeros: the carries of slots that were never admitted are zeroed
+// (serving/stream.py::zeros_state) and ride every batched hop until their
+// results are thrown away.  The plain version counts a zero as a zero
+// product, so the kernel must too.  A ternary x and a ±1 w are exact as
+// s8, and each count is an exact int32 of magnitude at most k*cpg (72 in
+// the paper net), which converts to the same float the plain version sums.
+// An XNOR-popcount design would read 0 as +1 and differ on those rows.
 //
-// Layouts (all fp32, contiguous):
-//   x     (B, T, C_in)            ±1 activations, C_in = groups * cpg
-//   wp    (groups, k*cpg, cog)    ±1 weights, group-major (models/kws.py
-//                                 packs the reference's (k, cpg, C_out))
-//   bias, flip, off   (C_out,)    pre-shuffle channel order; off may be null
-//   noise (B, noise_t, C_out)     optional (null), pre-pool rows
-//   out   (B, t_pool, C_out)      post-shuffle channel order
-// Grid: (groups, ceil(t_pool / kCols), B); one block per group, tile of
-// pooled output columns and stream.
+// What bounds it on an H100: the layer moves its activations in and out of
+// HBM as fp32 (4 bytes each) and does 2*k*cpg = 144 operations per product
+// row, about 40-50 operations per byte: far below the int8 tensor cores'
+// ridge (~590 per byte), so the floor is the bytes at 3.35 TB/s.  What the
+// first version lost was latency inside each thread (72-step serial float
+// chains) and a grid of under a wave.  The design:
+//
+// * Products on the tensor cores, in int8: mma.sync m16n8k32 s8 x s8 -> s32.
+//   Each tap's cpg (<= 32) group channels are one 32-deep k-step, padded
+//   with zero weights, so k = 3 takes 3 mma per 16 x 8 tile.  wgmma is not
+//   needed: a group's N (cog) is 32-96 and a block's M per group is 16-64
+//   rows, so there is no 64-row warpgroup tile to fill, and at ~45
+//   operations per byte the products are nowhere near the limit; mma.sync
+//   keeps each warp's small tile independent and its operands in registers.
+// * Weights as int8 B rows made once, at fold time (../ops.py::
+//   pack_weights_s8, from models/kws.py::pack_hw_params): row (g, j, n) is
+//   w[j, 0..cpg-1, g*cog + n] in 32 bytes, zero past cpg.  A block copies
+//   its chunk of groups (one contiguous range, 4x smaller than fp32) into
+//   shared memory with cp.async, nothing converted per block.  Thread t of
+//   a quad takes channels t*8..t*8+7 (bytes t*8 of an A or B row) as its
+//   fragment's k = t*4..t*4+3 and 16+t*4..16+t*4+3: a permutation of the
+//   k-step that both operands share, so each fragment half is one 8-byte
+//   shared-memory load and a half-warp reads four whole rows.
+// * An implicit im2col, kept: a block stages each input row it needs once,
+//   read as fp32 with 16-byte loads along C_in and converted to s8 in
+//   registers into a shared layout [row][group][32].  The A fragment of
+//   conv column m and tap j is row m*stride + j of the group; no patch
+//   tensor exists.  The row pitch is padded so that a quad's four rows
+//   (spaced pool*stride apart) fall in distinct banks.
+// * OR-maxpool in registers.  Row i of an m16 tile is pooled column m0 + i,
+//   and the tile is computed `pool` times, pass r taking conv column
+//   (m0 + i)*pool + r.  A pool window's columns thus land in the same
+//   accumulator slot of the same thread on successive passes, and the OR
+//   is a bit set in a register: no shuffle, no shared-memory exchange, one
+//   code path for any pool, and ragged tails stay right (columns past
+//   t_pool*pool are never computed, as the reference drops them).  It
+//   spends the same mma per pooled column as pairing conv columns 2q,
+//   2q + 1 on rows i, i + 8 would, without that pool-2-only special case.
+// * Warps walk (m16 tile, group, two n-tiles) items; an item loads its
+//   epilogue constants, B fragments and noise ahead of use, and its
+//   epilogue is branch-free (invalid slots are masked), which keeps loads
+//   and products in flight in every warp.
+// * Coalesced shuffled stores: the block's (pooled column x channel) tile
+//   is staged in shared memory as s8 in post-shuffle order (a*groups + g),
+//   then written as ±1 fp32 with 16-byte stores; a block that holds all
+//   groups writes one contiguous range of the output.
+// * A grid that fills the card: one block per (group chunk, tile of pooled
+//   columns, stream).  The wrapper (../ops.py::plan_tiles) picks the tile
+//   and the chunk: about two blocks per SM at the full-window shapes, and
+//   as many as the hop-tail shapes allow.
+// * Guards, not padding: HBM operands are read as given; ragged column
+//   tiles, ragged n-tiles (cog not a multiple of 8) and rows past T are
+//   guarded (a row past T only ever feeds a column that is not stored).
+//
+// Layouts (contiguous):
+//   x     (B, T, C_in) fp32       {-1, 0, +1}, C_in = groups * cpg, 16-byte
+//                                 aligned, cpg % 4 == 0, cpg <= 32
+//   wq    (groups, k, cog, 32) s8 the fold-time B rows, cog % 4 == 0
+//   bias, flip, off   (C_out,)    fp32, pre-shuffle order; off may be null
+//   noise (B, noise_t, C_out)     fp32, optional (null), pre-pool rows
+//   out   (B, t_pool, C_out)      fp32, post-shuffle channel order
+// Grid: (groups / gc, ceil(t_pool / pt), B); 256 threads (8 warps).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 32;  // pooled output columns per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kNChunk = 2;        // n-tiles of 8 channels per warp item
+constexpr int kSlot = 32;         // bytes per group in a staged row
+constexpr int kWeightSlack = 16 * kSlot;  // B rows read past cog
+constexpr int kStage = 8;         // float4 loads in flight per thread
 
-__global__ void __launch_bounds__(kThreads)
-imc_fused_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ flip,
-                 const float* __restrict__ off,
-                 const float* __restrict__ noise, float* __restrict__ out,
-                 int T, int c_in, int k, int cpg, int c_out, int groups,
-                 int stride, int pool, int t_pool, int noise_t) {
-  extern __shared__ float smem[];
-  const int cog = c_out / groups;
-  const int kg = k * cpg;
-  const int g = blockIdx.x;
-  const int p0 = blockIdx.y * kCols;  // first pooled column of the tile
+// n / d for 0 <= n < 2**31 as a multiply-high and a shift (the divisor's
+// magic number is made once, on the host): the staging, item and store
+// loops divide indices by runtime widths.
+struct FastDiv {
+  uint32_t mul;
+  uint32_t shift;
+};
+
+FastDiv make_fastdiv(uint32_t d) {
+  uint32_t shift = 0;
+  while ((1u << shift) < d) ++shift;
+  const uint64_t mul = ((1ull << 32) * ((1ull << shift) - d)) / d + 1;
+  return FastDiv{(uint32_t)mul, shift};
+}
+
+__device__ __forceinline__ int fdiv(int n, FastDiv f) {
+  return (int)((__umulhi((uint32_t)n, f.mul) + (uint32_t)n) >> f.shift);
+}
+
+// Shared-memory layout of one block (the wrapper's planner computes the
+// same size: ../ops.py::tile_smem_bytes).
+struct Layout {
+  int mt;          // m16 tiles per block
+  int rows;        // staged input rows
+  int pitch;       // bytes per staged s8 row
+  int xs, ws, ep, os;               // region offsets (bytes)
+  int bytes;                        // total
+};
+
+// Pitch padding: the smallest 8-byte pad that puts the four rows a quad
+// reads (spaced `spacing` rows apart) on distinct 8-bank windows.
+int row_pitch(int gc, int spacing) {
+  const int base = gc * kSlot;
+  for (int pad = 0; pad < 128; pad += 8) {
+    const int words = ((base + pad) / 4) * spacing % 32;
+    if (words == 8 || words == 24) return base + pad;
+  }
+  return base;
+}
+
+int round16(int v) { return (v + 15) & ~15; }
+
+Layout layout(int pt, int gc, int k, int cog, int stride, int pool) {
+  Layout l;
+  l.mt = pt / 16;
+  l.rows = (l.mt * 16 * pool - 1) * stride + k;
+  l.pitch = row_pitch(gc, pool * stride);
+  l.xs = 0;
+  l.ws = l.xs + round16(l.rows * l.pitch);
+  l.ep = l.ws + round16(gc * k * cog * kSlot + kWeightSlack);
+  l.os = l.ep + round16(3 * 4 * gc * cog);
+  l.bytes = l.os + round16(pt * gc * cog);
+  return l;
+}
+
+struct Params {
+  const float* x;
+  const int8_t* wq;      // (groups, k, cog, 32) int8 B rows
+  const float* bias;
+  const float* flip;
+  const float* off;      // may be null
+  const float* noise;    // may be null
+  float* out;
+  int T, c_in, k, cpg, cog, c_out, groups, stride, pool, t_pool, noise_t;
+  int pt, gc;
+  Layout l;
+  FastDiv by_quads, by_cpg, by_c_chunk, by_gc, by_mt, by_chunks;
+};
+
+__device__ __forceinline__ uint32_t pack_s8(float a, float b, float c,
+                                            float d) {
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rz(a) |
+         ((uint32_t)(uint8_t)(int8_t)__float2int_rz(b) << 8) |
+         ((uint32_t)(uint8_t)(int8_t)__float2int_rz(c) << 16) |
+         ((uint32_t)(uint8_t)(int8_t)__float2int_rz(d) << 24);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst,
+                                           const void* gmem_src) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <bool kNoise>
+__global__ void __launch_bounds__(kThreads, 3)
+imc_fused_kernel(const Params P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout& l = P.l;
+  const int cog = P.cog, cpg = P.cpg, gc = P.gc, k = P.k;
+  const int pool = P.pool, stride = P.stride;
+  const int g0 = blockIdx.x * gc;     // first group of the chunk
+  const int p0 = blockIdx.y * P.pt;   // first pooled column of the tile
   const int b = blockIdx.z;
-  const int n_cols = min(kCols, t_pool - p0);
-  const int row0 = p0 * pool * stride;  // first input row the tile reads
-  const int n_rows = (n_cols * pool - 1) * stride + k;
+  const int n_cols = min(P.pt, P.t_pool - p0);
+  const int c_chunk = gc * cog;
+  unsigned char* xs = smem + l.xs;          // [rows][gc][32] s8 (pitched)
+  unsigned char* ws = smem + l.ws;          // [gc][k*cog][32] int8 B rows
+  float* eb = (float*)(smem + l.ep);        // [c_chunk] bias, flip and
+  float* ef = eb + c_chunk;                 // offset of the chunk's
+  float* eo = ef + c_chunk;                 // channels (pre-shuffle)
+  signed char* os = (signed char*)(smem + l.os);   // [pt][c_chunk] s8
+  const int tid = threadIdx.x;
 
-  float* w_s = smem;             // [kg][cog]: this group's weights
-  float* x_s = smem + kg * cog;  // [n_rows][cpg]: this group's input rows
+  // 1. Stage.  The chunk's int8 B rows are one contiguous range of the
+  // fold-time pack: 16-byte asynchronous copies, all in flight at once.
+  // The input rows [row0, row0 + rows) of the chunk's channels are read
+  // as float4 along C_in (each thread's loads of a round in flight
+  // together), packed to four s8 and stored as [row][group][32].  The
+  // chunk's bias, flip and offset (zero without an offset: adding +0 to
+  // an integer-valued count changes nothing) are loaded as they are.
+  {
+    const int n_w = gc * k * cog * kSlot / 16;
+    const int4* wsrc = reinterpret_cast<const int4*>(
+        P.wq + (size_t)g0 * k * cog * kSlot);
+    for (int i = tid; i < n_w; i += kThreads)
+      cp_async16(ws + 16 * i, wsrc + i);
+    asm volatile("cp.async.commit_group;\n" ::);
 
-  const float* wg = wp + (size_t)g * kg * cog;
-  for (int i = threadIdx.x; i < kg * cog; i += blockDim.x) w_s[i] = wg[i];
-  const float* xb = x + ((size_t)b * T + row0) * c_in + (size_t)g * cpg;
-  for (int i = threadIdx.x; i < n_rows * cpg; i += blockDim.x) {
-    const int r = i / cpg, c = i - r * cpg;
-    x_s[i] = xb[(size_t)r * c_in + c];
+    const int row0 = p0 * pool * stride;
+    const int n_rows = min(l.rows, P.T - row0);
+    const int quads = gc * cpg / 4;                 // float4s per row
+    const int n_x = n_rows * quads;
+    const int total = n_x + c_chunk;
+    const float* xb =
+        P.x + ((size_t)b * P.T + row0) * P.c_in + (size_t)g0 * cpg;
+    for (int base = tid; base < total; base += kStage * kThreads) {
+      float4 v[kStage];
+      int dst[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n_x) {
+          const int r = fdiv(i, P.by_quads);
+          const int c = (i - r * quads) * 4;
+          const int gl = fdiv(c, P.by_cpg);
+          dst[u] = r * l.pitch + gl * kSlot + c - gl * cpg;
+          v[u] = __ldg(reinterpret_cast<const float4*>(
+              xb + (size_t)r * P.c_in + c));
+        } else if (i < total) {
+          const int ch = g0 * cog + (i - n_x);
+          dst[u] = i - n_x;
+          v[u] = make_float4(__ldg(P.bias + ch), __ldg(P.flip + ch),
+                             P.off != nullptr ? __ldg(P.off + ch) : 0.f,
+                             0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n_x) {
+          *reinterpret_cast<uint32_t*>(xs + dst[u]) =
+              pack_s8(v[u].x, v[u].y, v[u].z, v[u].w);
+        } else if (i < total) {
+          eb[dst[u]] = v[u].x;
+          ef[dst[u]] = v[u].y;
+          eo[dst[u]] = v[u].z;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
   }
   __syncthreads();
 
-  // One thread per (pooled column j, group channel a); consecutive threads
-  // take consecutive channels, so weight reads are conflict-free and the
-  // input reads are broadcasts.
-  for (int item = threadIdx.x; item < n_cols * cog; item += blockDim.x) {
-    const int j = item / cog, a = item - j * cog;
-    const int ch = g * cog + a;  // pre-shuffle channel
-    const float bias_c = bias[ch], flip_c = flip[ch];
-    float act = -1.f;
-    for (int r = 0; r < pool; ++r) {
-      const int t = (p0 + j) * pool + r;  // conv column
-      const float* xr = x_s + (size_t)(j * pool + r) * stride * cpg;
-      float counts = 0.f;
-      for (int q = 0; q < kg; ++q) counts += xr[q] * w_s[q * cog + a];
-      float pre = counts;
-      if (off != nullptr) pre = pre + off[ch];
-      pre = pre + bias_c;
-      if (noise != nullptr)
-        pre = pre + noise[((size_t)b * noise_t + t) * c_out + ch];
-      pre = pre * flip_c;
-      act = fmaxf(act, pre >= 0.f ? 1.f : -1.f);
+  // 2. Products and epilogue.  One warp item = (m16 tile, group, two
+  // n-tiles); its constants, B fragments and noise are loaded ahead of use
+  // and the epilogue is branch-free (invalid slots are masked), so a warp
+  // keeps several loads and products in flight.
+  const int warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tq = lane % 4;
+  const int n_tiles = (cog + 7) / 8;
+  const int n_chunks = (n_tiles + kNChunk - 1) / kNChunk;
+  const int items = l.mt * gc * n_chunks;
+  const int row_step = 8 * pool * stride;           // rows i -> i + 8
+  for (int item = warp; item < items; item += kWarps) {
+    const int rest = fdiv(item, P.by_mt);
+    const int mt = item - rest * l.mt;
+    const int gl = fdiv(rest, P.by_chunks);
+    const int nc = rest - gl * n_chunks;
+    const int m0 = mt * 16;
+    const int g = g0 + gl;
+    // slot i of n-tile q: column n = (nc*2 + q)*8 + 2*tq + (i & 1), row
+    // m0 + gid (+ 8 for i >= 2)
+    float cb[kNChunk][2], cf[kNChunk][2], co[kNChunk][2];
+    uint32_t valid = 0;
+#pragma unroll
+    for (int q = 0; q < kNChunk; ++q) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = (nc * kNChunk + q) * 8 + 2 * tq + e;
+        const int ec = gl * cog + min(n, cog - 1);
+        cb[q][e] = eb[ec];
+        cf[q][e] = ef[ec];
+        co[q][e] = eo[ec];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (n < cog && m0 + gid + 8 * h < n_cols)
+            valid |= 1u << (q * 4 + 2 * h + e);
+      }
     }
-    out[((size_t)b * t_pool + p0 + j) * c_out + (size_t)a * groups + g] = act;
+    uint32_t bits = 0;   // bit q*4 + i: slot i of n-tile q fired
+    const unsigned char* xa =
+        xs + (m0 + gid) * pool * stride * l.pitch + gl * kSlot + tq * 8;
+    // B row (gl, j, n = (nc*2 + q)*8 + gid), this thread's 8 bytes
+    const unsigned char* wb =
+        ws + (gl * k * cog + nc * kNChunk * 8 + gid) * kSlot + tq * 8;
+    for (int r = 0; r < pool; ++r) {
+      float nz[kNChunk][4];
+      if (kNoise) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // conv column of row m0 + gid + 8h (clamped: a masked slot)
+          const int t = min((p0 + m0 + gid + 8 * h) * pool + r,
+                            P.noise_t - 1);
+          const float* src = P.noise + ((size_t)b * P.noise_t + t) * P.c_out +
+                             g * cog;
+#pragma unroll
+          for (int q = 0; q < kNChunk; ++q) {
+            const int n = min((nc * kNChunk + q) * 8 + 2 * tq, cog - 2);
+            const float2 v = __ldg(reinterpret_cast<const float2*>(src + n));
+            nz[q][2 * h] = v.x;
+            nz[q][2 * h + 1] = v.y;
+          }
+        }
+      }
+      int acc[kNChunk][4];
+#pragma unroll
+      for (int q = 0; q < kNChunk; ++q)
+        acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0;
+      const unsigned char* xr = xa + r * stride * l.pitch;
+#pragma unroll 3
+      for (int j = 0; j < k; ++j) {
+        const uint2 lo = *reinterpret_cast<const uint2*>(xr + j * l.pitch);
+        const uint2 hi = *reinterpret_cast<const uint2*>(
+            xr + (j + row_step) * l.pitch);
+        uint2 bw[kNChunk];
+#pragma unroll
+        for (int q = 0; q < kNChunk; ++q)
+          bw[q] = *reinterpret_cast<const uint2*>(
+              wb + (j * cog + q * 8) * kSlot);
+#pragma unroll
+        for (int q = 0; q < kNChunk; ++q)
+          mma_s8(acc[q], lo.x, hi.x, lo.y, hi.y, bw[q].x, bw[q].y);
+      }
+#pragma unroll
+      for (int q = 0; q < kNChunk; ++q) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float pre = __int2float_rn(acc[q][i]);
+          pre = __fadd_rn(pre, co[q][i & 1]);
+          pre = __fadd_rn(pre, cb[q][i & 1]);
+          if (kNoise) pre = __fadd_rn(pre, nz[q][i]);
+          pre = __fmul_rn(pre, cf[q][i & 1]);
+          bits |= (pre >= 0.f ? 1u : 0u) << (q * 4 + i);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kNChunk; ++q) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = (nc * kNChunk + q) * 8 + 2 * tq + (i & 1);
+        const int m = m0 + gid + (i >= 2 ? 8 : 0);
+        if ((valid >> (q * 4 + i)) & 1u)
+          os[m * c_chunk + n * gc + gl] =
+              (bits >> (q * 4 + i)) & 1u ? 1 : -1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. Store the tile: element e of the staged tile is pooled column
+  // e / c_chunk, shuffled channel a*groups + g0 + gl with
+  // e % c_chunk = a*gc + gl.  Four at a time when the destination runs
+  // are 16-byte aligned (all groups, or chunks of a multiple of 4).
+  const int groups = P.groups, c_out = P.c_out;
+  const bool vec = gc == groups ? c_out % 4 == 0
+                                : gc % 4 == 0 && groups % 4 == 0;
+  const int total = n_cols * c_chunk;
+  float* ob = P.out + ((size_t)b * P.t_pool + p0) * c_out + g0;
+  if (vec) {
+    for (int e = tid * 4; e < total; e += kThreads * 4) {
+      const int p = fdiv(e, P.by_c_chunk), rem = e - p * c_chunk;
+      const int a = fdiv(rem, P.by_gc), gl = rem - a * gc;
+      const uint32_t s = *reinterpret_cast<const uint32_t*>(os + e);
+      float4 v;
+      v.x = (float)(int8_t)(s & 0xff);
+      v.y = (float)(int8_t)((s >> 8) & 0xff);
+      v.z = (float)(int8_t)((s >> 16) & 0xff);
+      v.w = (float)(int8_t)(s >> 24);
+      *reinterpret_cast<float4*>(ob + (size_t)p * c_out + a * groups + gl) =
+          v;
+    }
+  } else {
+    for (int e = tid; e < total; e += kThreads) {
+      const int p = fdiv(e, P.by_c_chunk), rem = e - p * c_chunk;
+      const int a = fdiv(rem, P.by_gc), gl = rem - a * gc;
+      ob[(size_t)p * c_out + a * groups + gl] = (float)os[e];
+    }
   }
 }
 
@@ -107,26 +419,50 @@ imc_fused_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
 extern "C" {
 
-// Launches one layer on `stream`; returns cudaGetLastError() (0 = queued).
-int imc_fused_launch(const float* x, const float* wp, const float* bias,
+// Launches one layer on `stream` with tiles of `pt` pooled columns (a
+// multiple of 16) and `gc` groups (a divisor of groups); returns
+// cudaGetLastError() (0 = queued).
+int imc_fused_launch(const float* x, const int8_t* wq, const float* bias,
                      const float* flip, const float* off, const float* noise,
                      float* out, int B, int T, int c_in, int k, int cpg,
                      int c_out, int groups, int stride, int pool, int t_pool,
-                     int noise_t, void* stream) {
-  const int cog = c_out / groups;
-  const int max_rows = (kCols * pool - 1) * stride + k;
-  const size_t smem =
-      sizeof(float) * ((size_t)k * cpg * cog + (size_t)max_rows * cpg);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        imc_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                     int noise_t, int pt, int gc, void* stream) {
+  if (pt <= 0 || pt % 16 != 0 || gc <= 0 || groups % gc != 0 || cpg > kSlot ||
+      cpg % 4 != 0 || c_out % groups != 0 || (c_out / groups) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params P;
+  P.x = x, P.wq = wq, P.bias = bias, P.flip = flip, P.off = off;
+  P.noise = noise, P.out = out;
+  P.T = T, P.c_in = c_in, P.k = k, P.cpg = cpg, P.cog = c_out / groups;
+  P.c_out = c_out, P.groups = groups, P.stride = stride, P.pool = pool;
+  P.t_pool = t_pool, P.noise_t = noise_t, P.pt = pt, P.gc = gc;
+  P.l = layout(pt, gc, k, P.cog, stride, pool);
+  P.by_quads = make_fastdiv(gc * cpg / 4);
+  P.by_cpg = make_fastdiv(cpg);
+  P.by_c_chunk = make_fastdiv(gc * P.cog);
+  P.by_gc = make_fastdiv(gc);
+  P.by_mt = make_fastdiv(P.l.mt);
+  P.by_chunks = make_fastdiv(((P.cog + 7) / 8 + kNChunk - 1) / kNChunk);
+  const int smem = P.l.bytes;
+  const dim3 grid(groups / gc, (t_pool + pt - 1) / pt, B);
+  cudaError_t e;
+  if (noise != nullptr) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(imc_fused_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    imc_fused_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(P);
+  } else {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(imc_fused_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    imc_fused_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(P);
   }
-  const dim3 grid(groups, (t_pool + kCols - 1) / kCols, B);
-  imc_fused_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, wp, bias, flip, off, noise, out, T, c_in, k, cpg, c_out, groups,
-      stride, pool, t_pool, noise_t);
   return (int)cudaGetLastError();
 }
 

@@ -15,17 +15,20 @@ an explicit pre-sign operand; the kernels draw nothing.
 
 For a CUDA tensor a wrapper launches the hand-written kernel
 (``csrc/imc_fused.cu``, ``csrc/imc_mav.cu``) and raises if it cannot; for
-a CPU tensor it runs the plain version (``ref.py``).  ``COUNTS`` (K1) and
-``COUNTS_MAV`` (K5) count kernel launches, and nothing else: they take
-the place of the JAX package's launch auditor, which patched
-``pl.pallas_call``.
+a CPU tensor it runs the plain version (``ref.py``).  K1 takes its
+weights as int8 B rows packed at fold time (``pack_weights_s8``), its
+activations in {-1, 0, +1}, and its block tile from ``plan_tiles``.
+``COUNTS`` (K1) and ``COUNTS_MAV`` (K5) count kernel launches, and
+nothing else: they take the place of the JAX package's launch auditor,
+which patched ``pl.pallas_call``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,17 +45,98 @@ COUNTS_MAV = kernels.LaunchCount()      # K5: imc_mav
 
 def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
     """(K, cpg, C_out) -> (groups, K*cpg, cog) contiguous: each group's
-    weights are one contiguous block, which the kernel stages whole into
-    shared memory.  Done once at fold time (``models.kws.pack_hw_params``)."""
+    weights are one contiguous block, group-major.  ``imc_fused`` takes
+    this fp32 form too, and converts it to the int8 form
+    (``pack_weights_s8``) on every call."""
     k, cpg, c_out = w.shape
     cog = c_out // groups
     return (w.reshape(k * cpg, groups, cog).permute(1, 0, 2)
             .contiguous())
 
 
+def unpack_group_major(wp: torch.Tensor, k: int) -> torch.Tensor:
+    """``pack_weights``'s inverse: (groups, K*cpg, cog) -> (K, cpg, C_out)."""
+    groups, kg, cog = wp.shape
+    return (wp.reshape(groups, k, kg // k, cog).permute(1, 2, 0, 3)
+            .reshape(k, kg // k, groups * cog))
+
+
+def pack_weights_s8(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """(K, cpg, C_out) ±1 -> the kernel's int8 B rows, (groups, K, cog,
+    32): row (g, j, n) holds w[j, c, g*cog + n] at byte c, zero for
+    cpg <= c < 32, one 32-deep int8 k-step of the tensor-core product.  A
+    kernel block copies its groups' rows to shared memory as they are.
+    Done once at fold time (``models.kws.pack_hw_params``), which models
+    programming the SRAM arrays."""
+    k, cpg, c_out = w.shape
+    cog = c_out // groups
+    if cpg > 32 or c_out % groups:
+        raise ValueError(f"pack_weights_s8: {cpg} channels per group (at "
+                         f"most 32) and {c_out} outputs in {groups} groups")
+    rows = torch.zeros((groups, k, cog, 32), dtype=torch.int8,
+                       device=w.device)
+    rows[..., :cpg] = (w.reshape(k, cpg, groups, cog).permute(2, 0, 3, 1)
+                       .to(torch.int8))
+    return rows
+
+
+# K1's tiles: a block takes ``pt`` pooled columns (a multiple of the m16
+# tile) of one stream and ``gc`` of the layer's groups.  The rule and its
+# numbers come from timing every tile at the served shapes on an H100
+# (``benchmarks/torch_imc_fused.py --sweep``).
+TILE_COLUMNS = (128, 64, 32, 16)
+TILE_SMEM_BUDGET = 72 * 1024      # bytes a block may take: 3 blocks/SM
+GRID_BLOCKS_PER_SM = 1.9          # a grid this full gains nothing more
+
+
+def tile_smem_bytes(pt: int, gc: int, k: int, cog: int, stride: int,
+                    pool: int) -> int:
+    """Shared memory of one K1 block, as ``csrc/imc_fused.cu::layout``
+    lays it out (keep the two in step): the s8 input rows (a bank-spread
+    pitch), the int8 B rows, the fp32 bias, flip and offset, and the s8
+    output tile."""
+    r16 = lambda v: (v + 15) & ~15
+    spacing = pool * stride
+    pitch = gc * 32
+    for pad in range(0, 128, 8):
+        if ((gc * 32 + pad) // 4) * spacing % 32 in (8, 24):
+            pitch = gc * 32 + pad
+            break
+    rows = (pt * pool - 1) * stride + k
+    return (r16(rows * pitch) + r16(gc * k * cog * 32 + 16 * 32)
+            + r16(12 * gc * cog) + r16(pt * gc * cog))
+
+
+def plan_tiles(b: int, t_pool: int, groups: int, cog: int, k: int,
+               stride: int, pool: int, sms: int = 132) -> Tuple[int, int]:
+    """K1's block tile ``(pt, gc)`` for a layer call: of the tiles that
+    fit ``TILE_SMEM_BUDGET``, the one with the most blocks up to
+    ``GRID_BLOCKS_PER_SM`` per SM; among those, the widest chunk of groups
+    (the shuffled output rows are then long contiguous runs), then the
+    longest column tile (fewer blocks stage the same weights).  A column
+    tile is not taken where half of it gives as many tiles."""
+    cap = GRID_BLOCKS_PER_SM * sms
+    best, best_key = None, None
+    for gc in (d for d in range(1, groups + 1) if groups % d == 0):
+        for pt in TILE_COLUMNS:
+            n_tiles = -(-t_pool // pt)
+            if pt > 16 and n_tiles == -(-t_pool // (pt // 2)):
+                continue
+            if tile_smem_bytes(pt, gc, k, cog, stride, pool) > \
+                    TILE_SMEM_BUDGET:
+                continue
+            key = (min(b * n_tiles * (groups // gc), cap), gc, pt)
+            if best_key is None or key > best_key:
+                best, best_key = (pt, gc), key
+    if best is None:
+        raise ValueError(f"imc_fused: no tile of {groups} groups x {cog} "
+                         f"channels fits {TILE_SMEM_BUDGET} bytes")
+    return best
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.imc_fused_launch.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.imc_fused_launch.argtypes = [p] * 7 + [i] * 13 + [p]
     lib.imc_fused_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -89,30 +173,60 @@ def _operand(name: str, v: torch.Tensor, shape, device) -> torch.Tensor:
 def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
               flip: torch.Tensor, off: Optional[torch.Tensor],
               noise: Optional[torch.Tensor], *, k: int, groups: int,
-              stride: int, pool: int) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors: x (B, T, C_in), wp packed
-    (groups, k*cpg, cog), bias/flip/off (C_out,), noise (B, T_out, C_out)
-    or None.  Returns (B, T_out // pool, C_out) on PyTorch's current
-    stream, without synchronising."""
+              stride: int, pool: int,
+              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors: x (B, T, C_in) with values in
+    {-1, 0, +1}; wp the int8 B rows (``pack_weights_s8``) or the fp32
+    group-major weights (``pack_weights``, packed to int8 here); bias,
+    flip, off (C_out,); noise (B, T_out, C_out) or None.  Returns
+    (B, T_out // pool, C_out) on PyTorch's current stream, without
+    synchronising.  A group's input channels are one int8 k-step, moved
+    four at a time: cpg must be a multiple of 4 and at most 32, and cog a
+    multiple of 4.  ``tile`` = (pooled columns, groups) per block
+    overrides ``plan_tiles``."""
     dev = x.device
     b, t, c_in = x.shape
-    g, kg, cog = wp.shape
-    c_out = g * cog
-    cpg = kg // k
-    if g != groups or cpg * k != kg or c_in != groups * cpg:
+    cpg = c_in // groups
+    cog = wp.shape[2] if wp.dim() > 2 else -1
+    want = ((groups, k, cog, 32) if wp.dtype == torch.int8
+            else (groups, k * cpg, cog))
+    if tuple(wp.shape) != want or c_in != groups * cpg:
         raise ValueError(f"imc_fused: x {tuple(x.shape)} does not match "
                          f"packed weights {tuple(wp.shape)} (k={k}, "
                          f"groups={groups})")
+    if cpg > 32 or cpg % 4 or cog % 4:
+        raise ValueError(f"imc_fused: {cpg} input and {cog} output channels "
+                         f"per group; the kernel takes multiples of 4, at "
+                         f"most 32 input channels")
+    c_out = groups * cog
     t_out = (t - k) // stride + 1
     t_pool = t_out // pool
     x = _operand("x", x, (b, t, c_in), dev)
-    wp = _operand("weights", wp, (g, kg, cog), dev)
+    if wp.dtype != torch.int8:
+        wp = _operand("weights", wp, want, dev)
+        wp = pack_weights_s8(unpack_group_major(wp, k), groups)
+    elif wp.device != dev:
+        raise ValueError(f"imc_fused: weights on {wp.device}, x on {dev}")
+    wp = wp.contiguous()
+    if tile is None:
+        tile = plan_tiles(b, t_pool, groups, cog, k, stride, pool,
+                          _sm_count(dev))
+    pt, gc = tile
+    if pt <= 0 or pt % 16 or groups % gc:
+        raise ValueError(f"imc_fused: tile {tile} is not (a multiple of 16 "
+                         f"columns, a divisor of {groups} groups)")
+    if x.data_ptr() % 16:          # the kernel reads 16-byte words
+        x = x.clone()
+    if wp.data_ptr() % 16:
+        wp = wp.clone()
     bias = _operand("bias", bias, (c_out,), dev)
     flip = _operand("flip", flip, (c_out,), dev)
     if off is not None:
         off = _operand("chip_offset", off, (c_out,), dev)
     if noise is not None:
         noise = _operand("sa_noise", noise, (b, t_out, c_out), dev)
+        if noise.data_ptr() % 8:   # read in pairs
+            noise = noise.clone()
     out = torch.empty((b, t_pool, c_out), dtype=torch.float32, device=dev)
     lib = library()
 
@@ -124,10 +238,15 @@ def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
         status = lib.imc_fused_launch(
             ptr(x), ptr(wp), ptr(bias), ptr(flip), ptr(off), ptr(noise),
             ptr(out), b, t, c_in, k, cpg, c_out, groups, stride, pool,
-            t_pool, t_out, stream)
+            t_pool, t_out, pt, gc, stream)
     kernels.check_launch(lib, "imc_fused", status)
     COUNTS.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -226,14 +345,15 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole IMC layer in one launch.
 
-    x: (B, T, C_in) ±1;  w: (K, C_in // groups, C_out) ±1;
-    bias/flip/chip_offset: (C_out,).  The SA noise is either drawn here,
+    x: (B, T, C_in) in {-1, 0, +1} (free slots carry zeros);  w: (K,
+    C_in // groups, C_out) ±1;  bias/flip/chip_offset: (C_out,).  The SA
+    noise is either drawn here,
     ``sa_noise_std * normal(sa_key, (B, T_out, C_out))`` (the same draw as
     ``core.imc.mav_sa``, so the fused and unfused paths agree noise
     included), or given as ``sa_noise``, an explicit pre-pool, pre-sign
     operand (B, T_out, C_out).  Returns (B, T_out // pool, C_out) ±1 in
-    post-shuffle channel order.  ``packed`` is ``pack_weights(w, groups)``
-    precomputed at fold time."""
+    post-shuffle channel order.  ``packed`` is ``pack_weights_s8(w,
+    groups)`` (or ``pack_weights``) precomputed at fold time."""
     k = w.shape[0]
     t_out = (x.shape[1] - k) // stride + 1
     if t_out // pool <= 0:
@@ -246,7 +366,7 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             sa_key, (x.shape[0], t_out, w.shape[2]))
     if x.device.type == "cuda":
         if packed is None:
-            packed = pack_weights(w, groups)
+            packed = pack_weights_s8(w, groups)
         return imc_fused(x, packed, bias, flip, chip_offset, sa_noise, k=k,
                          groups=groups, stride=stride, pool=pool)
     if x.device.type != "cpu":

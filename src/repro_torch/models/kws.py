@@ -163,8 +163,8 @@ class HWParams(NamedTuple):
 
 class PackedHWParams(NamedTuple):
     """HWParams plus the fused kernel's fold-time packed weights: each IMC
-    layer's ±1 weights group-major, (groups, K*cpg, cog) contiguous
-    (``ops.pack_weights``).  Packing once models programming the SRAM
+    layer's ±1 weights as the kernel's int8 B rows, (groups, K, cog, 32)
+    (``ops.pack_weights_s8``).  Packing once models programming the SRAM
     arrays; everything that takes HWParams takes this too."""
 
     hw: HWParams
@@ -185,7 +185,7 @@ def hw_device(hw) -> torch.device:
 def pack_hw_params(hw, cfg: KWSConfig = PAPER_KWS) -> PackedHWParams:
     """Pack every IMC layer's kernel weights once (fold time)."""
     hw, _ = as_hw_params(hw)
-    packed = {name: mav_ops.pack_weights(hw.w_bin[name], cfg.groups(i))
+    packed = {name: mav_ops.pack_weights_s8(hw.w_bin[name], cfg.groups(i))
               for i, name in enumerate(cfg.imc_layer_names(), start=1)}
     return PackedHWParams(hw=hw, packed=packed)
 

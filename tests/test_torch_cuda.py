@@ -1,4 +1,5 @@
-"""The port's Hopper kernels on a card: ``imc_fused``, the fused SGA
+"""The port's Hopper kernels on a card: ``imc_fused`` (on ±1 and on
+{-1, 0, +1} activations, at every block tile it may take), the fused SGA
 update (``sga_update_rows``, ``sga_update``), the per-group product tile
 ``imc_mav`` and ``int8_matmul`` against their plain PyTorch versions, bit
 for bit; one ``imc_fused`` launch per IMC layer on the served paths (SA
@@ -55,11 +56,19 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _inputs(seed, b, t, c_in, c_out, groups, stride, dev):
+def _inputs(seed, b, t, c_in, c_out, groups, stride, dev, kind="pm1"):
+    """x ±1 (``pm1``), in {-1, 0, +1} (``ternary``) or ±1 with streams 0
+    and 2 all zero (``zero_streams``, the carries of free slots); w ±1;
+    biases, flips, chip offsets and a pre-sign noise operand."""
     rng = np.random.default_rng(seed)
     pm1 = lambda *s: np.where(rng.random(s) < 0.5, 1.0, -1.0)
     t_out = (t - 3) // stride + 1
-    arrays = (pm1(b, t, c_in), pm1(3, c_in // groups, c_out),
+    x = pm1(b, t, c_in)
+    if kind == "ternary":
+        x = rng.integers(-1, 2, (b, t, c_in)).astype(np.float64)
+    elif kind == "zero_streams":
+        x[0] = x[2] = 0.0
+    arrays = (x, pm1(3, c_in // groups, c_out),
               np.round(rng.normal(size=c_out) * 8) * 2, pm1(c_out),
               4.0 * rng.normal(size=c_out),
               1.5 * rng.normal(size=(b, t_out, c_out)))
@@ -83,6 +92,75 @@ def test_kernel_matches_plain_version(dev, c_in, c_out, groups, stride, pool,
     torch.cuda.synchronize()
     assert ops.COUNTS.launches == 1
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["zero_streams", "ternary"])
+@pytest.mark.parametrize("case", ["clean", "chip", "noise"])
+@pytest.mark.parametrize("c_in,c_out,groups,stride,pool", LAYERS)
+def test_kernel_matches_plain_version_on_zero_carries(dev, c_in, c_out,
+                                                      groups, stride, pool,
+                                                      case, kind):
+    """The kernel is exact on x in {-1, 0, +1}: whole streams of zeros (the
+    carries of free slots) and mixed ternary rows, through the fold-time
+    int8 weights and through the fp32 group-major ones."""
+    x, w, bias, flip, off, noise = _inputs(c_out + 7, 4, 301, c_in, c_out,
+                                           groups, stride, dev, kind)
+    off = None if case == "clean" else off
+    noise = noise if case == "noise" else None
+    want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=groups,
+                                  stride=stride, pool=pool,
+                                  chip_offset=off, sa_noise=noise)
+    for packed in (ops.pack_weights_s8(w, groups),
+                   ops.pack_weights(w, groups)):
+        got = ops.fused_conv_mav(x, w, bias, flip, groups=groups,
+                                 stride=stride, pool=pool, chip_offset=off,
+                                 sa_noise=noise, packed=packed)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c_in,c_out,groups,stride,pool", [
+    LAYERS[1], LAYERS[2], LAYERS[4], LAYERS[5]])
+def test_kernel_matches_plain_version_at_every_tile(dev, c_in, c_out, groups,
+                                                    stride, pool):
+    """Every block tile the planner may pick gives the plain version's
+    result (tiles past the columns, one group or all groups, ragged
+    column tiles, zero streams)."""
+    x, w, bias, flip, off, noise = _inputs(c_out + 3, 3, 141, c_in, c_out,
+                                           groups, stride, dev,
+                                           "zero_streams")
+    t_pool = ((141 - 3) // stride + 1) // pool
+    cog = c_out // groups
+    packed = ops.pack_weights_s8(w, groups)
+    want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=groups,
+                                  stride=stride, pool=pool, chip_offset=off,
+                                  sa_noise=noise)
+    n = 0
+    for gc in (d for d in range(1, groups + 1) if groups % d == 0):
+        for pt in ops.TILE_COLUMNS:
+            if ops.tile_smem_bytes(pt, gc, 3, cog, stride, pool) > \
+                    ops.TILE_SMEM_BUDGET:
+                continue
+            got = ops.imc_fused(x, packed, bias, flip, off, noise, k=3,
+                                groups=groups, stride=stride, pool=pool,
+                                tile=(pt, gc))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pt, gc, t_pool)
+            n += 1
+    assert n >= 2
+
+
+def test_kernel_rejects_group_widths_it_does_not_take(dev):
+    for c_in, c_out, groups in ((80, 96, 2), (96, 72, 4), (36, 48, 2)):
+        x, w, bias, flip, _, _ = _inputs(1, 2, 40, c_in, c_out, groups, 1,
+                                         dev)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            ops.fused_conv_mav(x, w, bias, flip, groups=groups,
+                               packed=ops.pack_weights(w, groups))
+    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 96, 192, 4, 1, dev)
+    with pytest.raises(ValueError, match="tile"):
+        ops.imc_fused(x, ops.pack_weights_s8(w, 4), bias, flip, None, None,
+                      k=3, groups=4, stride=1, pool=1, tile=(24, 4))
 
 
 def test_kernel_rejects_mismatched_operands(dev):

@@ -7,7 +7,12 @@ runs the Pallas ``imc_fused`` kernel in interpret mode and its
 count-exact oracle.  Cases: the five paper IMC layer shapes, no offset /
 chip offset / chip offset plus an explicit pre-sign noise operand, the
 streaming ``_step`` entry, and a stride-2 layer whose conv length leaves a
-pool remainder.  tests/test_torch_cuda.py holds the Hopper kernel itself
+pool remainder.  The kernel's input contract is pinned here too: the
+plain version on activations in {-1, 0, +1} (and with whole streams of
+zeros, as free slots carry them) equals the JAX oracle, and a served run
+sends the fused layer nothing else.  The fold-time int8 weights, the
+block-tile planner and the wrapper's refusals are checked as far as a
+CPU reaches.  tests/test_torch_cuda.py holds the Hopper kernel itself
 against the plain version on a card.
 """
 
@@ -23,6 +28,9 @@ from repro.kernels.imc_mav import ops as jops
 from repro.kernels.imc_mav.ref import fused_conv_mav_ref as jref
 from repro_torch.kernels.imc_mav import ops, ref
 from repro_torch.models import kws
+from repro_torch.serving import stream as sv
+from repro_torch.serving.scheduler import StreamServer
+from repro_torch.serving.vad import VADConfig
 
 # (c_in, c_out, groups, stride, pool) of the paper's IMC layers conv1..conv5
 PAPER_IMC_LAYERS = [
@@ -39,11 +47,17 @@ def _pm1(rng, shape):
     return np.where(rng.random(shape) < 0.5, 1.0, -1.0).astype(np.float32)
 
 
-def _layer_inputs(seed, b, t, c_in, c_out, groups, stride, case):
+def _layer_inputs(seed, b, t, c_in, c_out, groups, stride, case,
+                  kind="pm1"):
     """x, w, bias, flip, chip offset, noise as numpy (offset/noise None
-    where the case has none)."""
+    where the case has none).  x is ±1 (``pm1``), in {-1, 0, +1}
+    (``ternary``) or ±1 with stream 0 all zero (``zero_stream``)."""
     rng = np.random.default_rng(seed)
     x = _pm1(rng, (b, t, c_in))
+    if kind == "ternary":
+        x = rng.integers(-1, 2, (b, t, c_in)).astype(np.float32)
+    elif kind == "zero_stream":
+        x[0] = 0.0
     w = _pm1(rng, (3, c_in // groups, c_out))
     bias = (np.round(rng.normal(size=c_out) * 8) * 2).astype(np.float32)
     flip = _pm1(rng, (c_out,))
@@ -176,3 +190,128 @@ def test_hw_forward_one_fused_call_per_imc_layer(monkeypatch):
     assert len(calls) == cfg.num_conv_layers - 1 == 5
     assert all(shape[0] == 2 for shape in calls)    # whole batch per call
     assert ops.COUNTS.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["ternary", "zero_stream"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("c_in,c_out,groups,stride,pool", PAPER_IMC_LAYERS + [
+    pytest.param(48, 96, 2, 2, 2, id="stride2-odd")])
+def test_plain_version_on_ternary_matches_jax(c_in, c_out, groups, stride,
+                                              pool, case, kind):
+    """The kernel's input contract is x in {-1, 0, +1}: on such inputs the
+    port's plain version (the kernel's oracle on the card) equals the JAX
+    count-exact oracle, a zero counting as a zero product."""
+    args = _layer_inputs(c_out + groups + 1, 3, 27, c_in, c_out, groups,
+                         stride, case, kind)
+    x, w, bias, flip, off, noise = args
+    assert (x == 0).any()
+    got = _port(x, w, bias, flip, groups, stride, pool, off, noise).numpy()
+    np.testing.assert_array_equal(
+        got, _jax_oracle(x, w, bias, flip, groups, stride, pool, off, noise))
+
+
+def test_served_activations_are_ternary_and_hold_zeros(monkeypatch):
+    """A StreamServer with free slots sends the fused layer only values in
+    {-1, 0, +1}, and zeros do occur: the zeroed carries of slots never
+    admitted ride every batched hop (the contract the kernel is exact on).
+    """
+    cfg = kws.KWSConfig(sample_len=640)
+    params = kws.init_params(torch.Generator().manual_seed(3), cfg,
+                             device="cpu")
+    hw = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
+                         pack=True)
+    seen = []
+    plain = ops.fused_conv_mav
+
+    def recording(x, *args, **kwargs):
+        seen.append(torch.unique(x))
+        return plain(x, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "fused_conv_mav", recording)
+    srv = StreamServer(hw, cfg, hop=64, slots=4, vad=VADConfig(),
+                       device="cpu")
+    rng = np.random.default_rng(4)
+    for s in range(2):
+        srv.submit(f"s{s}", rng.uniform(-1, 1, 640 + 6 * 64)
+                   .astype(np.float32))
+        srv.finish(f"s{s}")
+    srv.drain()
+    values = torch.unique(torch.cat(seen))
+    assert len(seen) >= 5
+    assert set(values.tolist()) <= {-1.0, 0.0, 1.0}
+    assert sum(bool((v == 0).any()) for v in seen) > 0
+
+
+def test_pack_weights_s8_rows():
+    """The fold-time int8 B rows: row (g, j, n) holds w[j, :, g*cog + n]
+    in its first cpg bytes and zeros after; the wrapper's unpacking of the
+    fp32 group-major form gives w back."""
+    rng = np.random.default_rng(8)
+    w = torch.tensor(_pm1(rng, (3, 24, 96)))
+    q = ops.pack_weights_s8(w, 4)
+    assert q.shape == (4, 3, 24, 32) and q.dtype == torch.int8
+    assert q.is_contiguous()
+    for g in range(4):
+        assert torch.equal(q[g, :, :, :24].float(),
+                           w[:, :, g * 24:(g + 1) * 24].permute(0, 2, 1))
+    assert not q[..., 24:].any()
+    assert torch.equal(ops.unpack_group_major(ops.pack_weights(w, 4), 3), w)
+    with pytest.raises(ValueError, match="at most 32"):
+        ops.pack_weights_s8(torch.ones(3, 40, 80), 2)
+
+
+def test_hw_params_pack_int8_rows():
+    cfg = kws.KWSConfig(sample_len=640)
+    params = kws.init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cpu")
+    hw = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
+                         pack=True)
+    for i, name in enumerate(cfg.imc_layer_names(), start=1):
+        assert torch.equal(hw.packed[name], ops.pack_weights_s8(
+            hw.hw.w_bin[name], cfg.groups(i)))
+
+
+@pytest.mark.parametrize("hop", [1024, 64])
+def test_plan_tiles_fill_the_card(hop):
+    """The block tile of every paper layer at B = 8 fits the shared-memory
+    budget and is a shape the kernel takes; a full window fills at least
+    one wave of 132 SMs, and every call gets the most blocks the rule
+    allows (capped at GRID_BLOCKS_PER_SM per SM)."""
+    cfg = kws.PAPER_KWS
+    geom = sv.make_stream_geometry(cfg, hop)
+    for i in range(1, cfg.num_conv_layers):
+        groups, pool = cfg.groups(i), cfg.pools[i]
+        cog = cfg.channels[i] // groups
+        for t, full in ((geom.layers[i].t_in, True),
+                        (geom.layers[i].tail_in, False)):
+            t_pool = ((t - 3) + 1) // pool
+            pt, gc = ops.plan_tiles(8, t_pool, groups, cog, 3, 1, pool)
+            assert pt % 16 == 0 and groups % gc == 0
+            assert (ops.tile_smem_bytes(pt, gc, 3, cog, 1, pool)
+                    <= ops.TILE_SMEM_BUDGET)
+            blocks = 8 * -(-t_pool // pt) * (groups // gc)
+            most = max(8 * -(-t_pool // p) * (groups // g)
+                       for g in range(1, groups + 1) if groups % g == 0
+                       for p in ops.TILE_COLUMNS
+                       if ops.tile_smem_bytes(p, g, 3, cog, 1, pool)
+                       <= ops.TILE_SMEM_BUDGET)
+            assert blocks >= min(most, ops.GRID_BLOCKS_PER_SM * 132)
+            if full:
+                assert blocks >= 132
+
+
+@pytest.mark.parametrize("c_in,c_out,groups", [(80, 96, 2), (96, 72, 4),
+                                              (36, 48, 2)],
+                         ids=["cpg40", "cog18", "cpg18"])
+def test_kernel_wrapper_refuses_group_widths_it_does_not_take(c_in, c_out,
+                                                              groups):
+    """The kernel takes a group's input channels as one int8 k-step moved
+    four at a time: the wrapper raises before any launch (here on CPU
+    tensors, which never reach a kernel)."""
+    x, w, bias, flip, _, _ = _layer_inputs(2, 1, 12, c_in, c_out, groups, 1,
+                                           "clean")
+    t = torch.as_tensor
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ops.imc_fused(t(x), ops.pack_weights(t(w), groups), t(bias),
+                      t(flip), None, None, k=3, groups=groups, stride=1,
+                      pool=1)
