@@ -19,10 +19,10 @@ result line):
    ±1 activations, on ±1 activations with two of the eight streams all
    zero (the carries of free slots) and on activations in {-1, 0, +1};
    each without offset, with chip offsets, and with chip offsets plus a
-   pre-sign noise operand; through the fold-time int8 weights and the
-   fp32 group-major ones — bitwise; then the kernel's and the plain
-   version's median times beside the least time the card could take, and
-   the kernel's ratio to it;
+   pre-sign noise operand — bitwise; then the kernel's and the plain
+   version's median device times beside the least time the card could
+   take, the kernel's ratio to it, and the host time a call of the
+   kernel's wrapper takes;
 3. the served path: a net folded from ``init_params`` (seeded
    ``torch.Generator``) serves 8 streams of synthetic keyword audio with
    silent gaps (``repro_torch.data.audio``) through ``StreamServer`` at
@@ -83,6 +83,12 @@ least time the card could take for the same bytes and operations.
 shape (its ``library_ms`` is ``torch._int_mm`` on the operands
 zero-padded to 32 x 576 x 16, the product alone).  Without a CUDA device,
 or outside a checkout, the script exits non-zero.
+
+    python3 chip_smoke.py --layers [DIR]
+
+runs phase 2 alone, against the port in the checkout DIR (default: this
+one), and prints no result line: run it on an unpacked older commit and
+on this one in turns, in one chip call, to compare two versions of K1.
 """
 
 from __future__ import annotations
@@ -95,7 +101,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HOP, SLOTS, HOPS, B = 1024, 8, 24, 8
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and tensor-core
@@ -144,6 +149,22 @@ def cuda_ms(torch, fn, reps=7, iters=20):
     return statistics.median(times)
 
 
+def host_ms(torch, fn, reps=7, iters=50):
+    """Median host milliseconds per call of ``fn``: the wall time of
+    issuing ``iters`` calls back to back, without waiting for the card
+    (which keeps up), over ``iters``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def device_ms(torch, fn, reps=7, iters=20):
     """Median device time per call of ``fn``: in each of ``reps`` profiled
     runs of ``iters`` calls, the summed own time of the device activities
@@ -186,18 +207,19 @@ def device_time(torch, prof):
 
 def layer_work(b, t, c_in, c_out, groups, stride, pool, chip, noise, k=3):
     """(bytes, operations) the fused layer must move and do: each input
-    read once, the output written once (fp32), 2 operations per ±1
-    product."""
+    read once, the output written once, 2 operations per ±1 product.  The
+    weights are the kernel's operand, the fold-time int8 B rows (one
+    32-byte row per tap and output channel); the rest is fp32."""
     cpg = c_in // groups
     t_out = (t - k) // stride + 1
     t_pool = t_out // pool
     floats = (b * t * c_in                         # activations in
-              + k * cpg * c_out                    # weights
               + (3 if chip else 2) * c_out         # bias, flip, offset
               + b * t_pool * c_out                 # activations out
               + (b * t_out * c_out if noise else 0))
+    weight_bytes = k * c_out * 32
     ops = 2 * b * t_pool * pool * c_out * k * cpg
-    return 4 * floats, ops
+    return 4 * floats + weight_bytes, ops
 
 
 def bound_ms(nbytes, ops, ops_per_s=H100_TF32_OPS_PER_S):
@@ -232,6 +254,11 @@ def phase_build(torch):
         for line in logfile.read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
+    return card()
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -277,9 +304,13 @@ def phase_layers(torch, dev):
     cfg = kws.PAPER_KWS
     geom = sv.make_stream_geometry(cfg, HOP)
     gen = torch.Generator(device=dev).manual_seed(1234)
+    # an older checkout (``--layers DIR``) may pack fp32 group-major
+    # weights and plan no tile
+    pack = getattr(ops, "pack_weights_s8", None) or ops.pack_weights
     max_err = 0.0
     rows = []
-    totals = {"window": [0.0, 0.0, 0, 0], "hop": [0.0, 0.0, 0, 0]}
+    totals = {shape: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+                      "host_ms": 0.0} for shape in ("window", "hop")}
     for i in range(1, cfg.num_conv_layers):
         c_in, c_out = cfg.channels[i - 1], cfg.channels[i]
         groups, pool, stride = cfg.groups(i), cfg.pools[i], cfg.strides[i]
@@ -288,7 +319,7 @@ def phase_layers(torch, dev):
             for kind in ("pm1", "zero_streams", "ternary"):
                 x, w, bias, flip, off, noise = _layer_inputs(
                     torch, gen, dev, B, t, c_in, c_out, groups, stride, kind)
-                packed = ops.pack_weights_s8(w, groups)
+                packed = pack(w, groups)
                 for case, o, n in (("clean", None, None),
                                    ("chip", off, None),
                                    ("noise", off, noise)):
@@ -300,64 +331,63 @@ def phase_layers(torch, dev):
                                                   groups=groups,
                                                   stride=stride, pool=pool,
                                                   chip_offset=o, sa_noise=n)
-                    # the fp32 group-major weights, packed on the call
-                    got32 = ops.imc_fused(x, ops.pack_weights(w, groups),
-                                          bias, flip, o, n, k=3,
-                                          groups=groups, stride=stride,
-                                          pool=pool)
                     torch.cuda.synchronize()
-                    for g_ in (got, got32):
-                        err = float((g_ - want).abs().max())
-                        max_err = max(max_err, err)
-                        if not torch.equal(g_, want):
-                            raise AssertionError(
-                                f"conv{i} {shape} {kind} {case}: kernel "
-                                f"differs from the plain version on "
-                                f"{(g_ != want).sum().item()} of "
-                                f"{g_.numel()} outputs")
-            # time the served configuration: chip offsets, no noise (on the
-            # last inputs: the kernel's work does not depend on values)
-            kernel = lambda: ops.imc_fused(
-                x, packed, bias, flip, off, None, k=3, groups=groups,
-                stride=stride, pool=pool)
+                    max_err = max(max_err, float((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"conv{i} {shape} {kind} {case}: kernel differs "
+                            f"from the plain version on "
+                            f"{(got != want).sum().item()} of "
+                            f"{got.numel()} outputs")
+            # time the served configuration through the entry the path
+            # calls: chip offsets, no noise (on the last inputs: the
+            # kernel's work does not depend on values)
+            kernel = lambda: ops.fused_conv_mav(
+                x, w, bias, flip, groups=groups, stride=stride, pool=pool,
+                chip_offset=off, packed=packed)
             plain = lambda: ref.fused_conv_mav_ref(
                 x, w, bias, flip, groups=groups, stride=stride, pool=pool,
                 chip_offset=off)
             k_call, p_call = cuda_ms(torch, kernel), cuda_ms(torch, plain)
             k_dev, p_dev = device_ms(torch, kernel), device_ms(torch, plain)
+            k_host = host_ms(torch, kernel)
             k_ms = k_dev if k_dev is not None else k_call
             p_ms = p_dev if p_dev is not None else p_call
             nbytes, nops = layer_work(B, t, c_in, c_out, groups, stride,
                                       pool, chip=True, noise=False)
             b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
             tot = totals[shape]
-            tot[0] += k_ms
-            tot[1] += p_ms
-            tot[2] += nbytes
-            tot[3] += nops
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bytes"] += nbytes
+            tot["ops"] += nops
+            tot["host_ms"] += k_host
             t_pool = ((t - 3) // stride + 1) // pool
-            tile = ops.plan_tiles(B, t_pool, groups, c_out // groups, 3,
-                                  stride, pool,
-                                  torch.cuda.get_device_properties(dev)
-                                  .multi_processor_count)
+            tile = (ops.block_tile(B, t_pool, groups, c_out // groups, 3,
+                                   stride, pool, dev)[:2]
+                    if hasattr(ops, "block_tile") else None)
             rows.append(dict(layer=f"conv{i}", shape=shape, B=B, T=t,
                              c_in=c_in, c_out=c_out, groups=groups,
                              tile=tile, kernel_device_ms=k_dev,
                              plain_device_ms=p_dev, kernel_call_ms=k_call,
-                             plain_call_ms=p_call, bound_ms=b_ms,
-                             bound_by=b_by, over_bound=k_ms / b_ms))
+                             plain_call_ms=p_call, kernel_host_ms=k_host,
+                             bound_ms=b_ms, bound_by=b_by,
+                             over_bound=k_ms / b_ms))
             log(f"[layer] conv{i} {shape:6s} B={B} T={t:5d} "
                 f"{c_in:3d}->{c_out:3d} g={groups:2d} tile {tile}: device "
                 f"time kernel {k_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"{k_ms / b_ms:.1f}x the bound; plain {p_dev} ms; per call "
+                f"{k_ms / b_ms:.2f}x the bound; plain {p_dev} ms; per call "
                 f"(CUDA events) kernel {k_call:.4f} ms, plain "
-                f"{p_call:.4f} ms; bitwise equal (pm1/zero streams/ternary "
-                f"x clean/chip/noise)")
-    for shape, (k_ms, p_ms, nbytes, nops) in totals.items():
-        b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
-        log(f"[layer] five layers, {shape} shapes: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms (device time), bound {b_ms:.5f} ms "
-            f"({b_by}), {k_ms / b_ms:.1f}x the bound")
+                f"{p_call:.4f} ms; wrapper host time {k_host:.4f} ms; "
+                f"bitwise equal (pm1/zero streams/ternary x "
+                f"clean/chip/noise)")
+    for shape, tot in totals.items():
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], H100_INT8_OPS_PER_S)
+        tot["bound_ms"], tot["bound_by"] = b_ms, b_by
+        log(f"[layer] five layers, {shape} shapes: kernel {tot['ms']:.5f} "
+            f"ms, plain {tot['plain_ms']:.4f} ms (device time), bound "
+            f"{b_ms:.5f} ms ({b_by}), {tot['ms'] / b_ms:.2f}x the bound; "
+            f"wrapper host time {tot['host_ms']:.4f} ms")
     return rows, totals, max_err
 
 
@@ -1285,6 +1315,14 @@ def phase_customize(torch, dev):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", nargs="?", const=ROOT, default=None,
+                    metavar="DIR", help="run phase 2 alone, against the "
+                    "port in the checkout DIR (default: this one)")
+    args = ap.parse_args()
+    root = os.path.abspath(args.layers or ROOT)
+    sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1298,6 +1336,13 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    if args.layers is not None:
+        log(f"[layers] the port at {root}")
+        smi = card()
+        rows, totals, _ = phase_layers(torch, dev)
+        print(json.dumps({"card": smi, "root": root, "layers": rows,
+                          "totals": totals}), flush=True)
+        return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
     served = phase_served(torch, dev)
@@ -1308,14 +1353,15 @@ def main() -> int:
     group = phase_grouploop(torch, dev)
     noisy = phase_noisy_served(torch, dev)
 
-    k_ms, p_ms, nbytes, nops = totals["hop"]
-    b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
+    hop = totals["hop"]
+    k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
+                              hop["bound_by"])
     print(json.dumps({"card": smi, "layers": rows, "served": served,
                       "customize": custom, "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy}), flush=True)
-    w_ms, wp_ms, w_bytes, w_ops = totals["window"]
-    wb_ms, _ = bound_ms(w_bytes, w_ops, H100_INT8_OPS_PER_S)
+    win = totals["window"]
+    w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"(device time); at a full window: kernel {w_ms:.4f} ms, plain "

@@ -74,9 +74,10 @@
 //   then written as ±1 fp32 with 16-byte stores; a block that holds all
 //   groups writes one contiguous range of the output.
 // * A grid that fills the card: one block per (group chunk, tile of pooled
-//   columns, stream).  The wrapper (../ops.py::plan_tiles) picks the tile
-//   and the chunk: about two blocks per SM at the full-window shapes, and
-//   as many as the hop-tail shapes allow.
+//   columns, stream).  The launch picks the tile and the chunk
+//   (`plan_tile`, below, beside the shared-memory layout it sizes): about
+//   two blocks per SM at the full-window shapes, and as many as the
+//   hop-tail shapes allow.
 // * Guards, not padding: HBM operands are read as given; ragged column
 //   tiles, ragged n-tiles (cog not a multiple of 8) and rows past T are
 //   guarded (a row past T only ever feeds a column that is not stored).
@@ -91,6 +92,7 @@
 // Grid: (groups / gc, ceil(t_pool / pt), B); 256 threads (8 warps).
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -122,8 +124,7 @@ __device__ __forceinline__ int fdiv(int n, FastDiv f) {
   return (int)((__umulhi((uint32_t)n, f.mul) + (uint32_t)n) >> f.shift);
 }
 
-// Shared-memory layout of one block (the wrapper's planner computes the
-// same size: ../ops.py::tile_smem_bytes).
+// Shared-memory layout of one block.
 struct Layout {
   int mt;          // m16 tiles per block
   int rows;        // staged input rows
@@ -156,6 +157,47 @@ Layout layout(int pt, int gc, int k, int cog, int stride, int pool) {
   l.os = l.ep + round16(3 * 4 * gc * cog);
   l.bytes = l.os + round16(pt * gc * cog);
   return l;
+}
+
+// The block tile: `pt` pooled columns (a multiple of the m16 tile) of one
+// stream and `gc` of the layer's groups.  Of the tiles whose shared memory
+// fits kSmemBudget, the one with the most blocks up to kBlocksPerSM per SM;
+// among those, the widest chunk of groups (the shuffled output rows are
+// then long contiguous runs), then the longest column tile (fewer blocks
+// stage the same weights).  A column tile is not taken where half of it
+// gives as many tiles.  The rule was chosen by timing every tile at the
+// paper net's served shapes on an H100.
+constexpr int kTileColumns[] = {128, 64, 32, 16};
+constexpr int kSmemBudget = 72 * 1024;   // bytes a block may take: 3 per SM
+constexpr double kBlocksPerSM = 1.9;     // a grid this full gains no more
+
+struct Tile {
+  int pt, gc, bytes;                     // bytes = 0: no tile fits
+};
+
+Tile plan_tile(int B, int t_pool, int groups, int cog, int k, int stride,
+               int pool, int sms) {
+  const double cap = kBlocksPerSM * sms;
+  Tile best{0, 0, 0};
+  double best_blocks = -1.0;
+  for (int gc = 1; gc <= groups; ++gc) {
+    if (groups % gc != 0) continue;
+    for (const int pt : kTileColumns) {
+      const int n_tiles = (t_pool + pt - 1) / pt;
+      if (pt > 16 && n_tiles == (t_pool + pt / 2 - 1) / (pt / 2)) continue;
+      const int bytes = layout(pt, gc, k, cog, stride, pool).bytes;
+      if (bytes > kSmemBudget) continue;
+      const double blocks =
+          std::min((double)B * n_tiles * (groups / gc), cap);
+      if (blocks > best_blocks ||
+          (blocks == best_blocks &&
+           (gc > best.gc || (gc == best.gc && pt > best.pt)))) {
+        best = Tile{pt, gc, bytes};
+        best_blocks = blocks;
+      }
+    }
+  }
+  return best;
 }
 
 struct Params {
@@ -419,23 +461,39 @@ imc_fused_kernel(const Params P) {
 
 extern "C" {
 
-// Launches one layer on `stream` with tiles of `pt` pooled columns (a
-// multiple of 16) and `gc` groups (a divisor of groups); returns
-// cudaGetLastError() (0 = queued).
+// The block tile the launch takes for a layer call on a card of `sms`
+// SMs: writes (pt, gc) to tile[0..1] and returns the block's shared-memory
+// bytes, or 0 if no tile fits.
+int imc_fused_plan(int B, int t_pool, int groups, int cog, int k, int stride,
+                   int pool, int sms, int* tile) {
+  const Tile t = plan_tile(B, t_pool, groups, cog, k, stride, pool, sms);
+  tile[0] = t.pt;
+  tile[1] = t.gc;
+  return t.bytes;
+}
+
+// Launches one layer on `stream`, in blocks of the planned tile for a card
+// of `sms` SMs; returns cudaGetLastError() (0 = queued), or -1 if no tile
+// fits the shared-memory budget (nothing launched).
 int imc_fused_launch(const float* x, const int8_t* wq, const float* bias,
                      const float* flip, const float* off, const float* noise,
                      float* out, int B, int T, int c_in, int k, int cpg,
                      int c_out, int groups, int stride, int pool, int t_pool,
-                     int noise_t, int pt, int gc, void* stream) {
-  if (pt <= 0 || pt % 16 != 0 || gc <= 0 || groups % gc != 0 || cpg > kSlot ||
-      cpg % 4 != 0 || c_out % groups != 0 || (c_out / groups) % 4 != 0)
+                     int noise_t, int sms, void* stream) {
+  if (cpg > kSlot || cpg % 4 != 0 || c_out % groups != 0 ||
+      (c_out / groups) % 4 != 0)
     return (int)cudaErrorInvalidValue;
   Params P;
   P.x = x, P.wq = wq, P.bias = bias, P.flip = flip, P.off = off;
   P.noise = noise, P.out = out;
   P.T = T, P.c_in = c_in, P.k = k, P.cpg = cpg, P.cog = c_out / groups;
   P.c_out = c_out, P.groups = groups, P.stride = stride, P.pool = pool;
-  P.t_pool = t_pool, P.noise_t = noise_t, P.pt = pt, P.gc = gc;
+  P.t_pool = t_pool, P.noise_t = noise_t;
+  const Tile tile =
+      plan_tile(B, t_pool, groups, P.cog, k, stride, pool, sms);
+  if (tile.bytes == 0) return -1;
+  const int pt = tile.pt, gc = tile.gc;
+  P.pt = pt, P.gc = gc;
   P.l = layout(pt, gc, k, P.cog, stride, pool);
   P.by_quads = make_fastdiv(gc * cpg / 4);
   P.by_cpg = make_fastdiv(cpg);

@@ -16,8 +16,9 @@ an explicit pre-sign operand; the kernels draw nothing.
 For a CUDA tensor a wrapper launches the hand-written kernel
 (``csrc/imc_fused.cu``, ``csrc/imc_mav.cu``) and raises if it cannot; for
 a CPU tensor it runs the plain version (``ref.py``).  K1 takes its
-weights as int8 B rows packed at fold time (``pack_weights_s8``), its
-activations in {-1, 0, +1}, and its block tile from ``plan_tiles``.
+weights as int8 B rows packed at fold time (``pack_weights_s8``) and its
+activations in {-1, 0, +1}; its launch picks its own block tile
+(``block_tile`` reports it).
 ``COUNTS`` (K1) and ``COUNTS_MAV`` (K5) count kernel launches, and
 nothing else: they take the place of the JAX package's launch auditor,
 which patched ``pl.pallas_call``.
@@ -45,20 +46,12 @@ COUNTS_MAV = kernels.LaunchCount()      # K5: imc_mav
 
 def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
     """(K, cpg, C_out) -> (groups, K*cpg, cog) contiguous: each group's
-    weights are one contiguous block, group-major.  ``imc_fused`` takes
-    this fp32 form too, and converts it to the int8 form
-    (``pack_weights_s8``) on every call."""
+    weights are one contiguous block, group-major (the JAX package's
+    packed layout; the kernel takes ``pack_weights_s8``)."""
     k, cpg, c_out = w.shape
     cog = c_out // groups
     return (w.reshape(k * cpg, groups, cog).permute(1, 0, 2)
             .contiguous())
-
-
-def unpack_group_major(wp: torch.Tensor, k: int) -> torch.Tensor:
-    """``pack_weights``'s inverse: (groups, K*cpg, cog) -> (K, cpg, C_out)."""
-    groups, kg, cog = wp.shape
-    return (wp.reshape(groups, k, kg // k, cog).permute(1, 2, 0, 3)
-            .reshape(k, kg // k, groups * cog))
 
 
 def pack_weights_s8(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -80,64 +73,12 @@ def pack_weights_s8(w: torch.Tensor, groups: int) -> torch.Tensor:
     return rows
 
 
-# K1's tiles: a block takes ``pt`` pooled columns (a multiple of the m16
-# tile) of one stream and ``gc`` of the layer's groups.  The rule and its
-# numbers come from timing every tile at the served shapes on an H100
-# (``benchmarks/torch_imc_fused.py --sweep``).
-TILE_COLUMNS = (128, 64, 32, 16)
-TILE_SMEM_BUDGET = 72 * 1024      # bytes a block may take: 3 blocks/SM
-GRID_BLOCKS_PER_SM = 1.9          # a grid this full gains nothing more
-
-
-def tile_smem_bytes(pt: int, gc: int, k: int, cog: int, stride: int,
-                    pool: int) -> int:
-    """Shared memory of one K1 block, as ``csrc/imc_fused.cu::layout``
-    lays it out (keep the two in step): the s8 input rows (a bank-spread
-    pitch), the int8 B rows, the fp32 bias, flip and offset, and the s8
-    output tile."""
-    r16 = lambda v: (v + 15) & ~15
-    spacing = pool * stride
-    pitch = gc * 32
-    for pad in range(0, 128, 8):
-        if ((gc * 32 + pad) // 4) * spacing % 32 in (8, 24):
-            pitch = gc * 32 + pad
-            break
-    rows = (pt * pool - 1) * stride + k
-    return (r16(rows * pitch) + r16(gc * k * cog * 32 + 16 * 32)
-            + r16(12 * gc * cog) + r16(pt * gc * cog))
-
-
-def plan_tiles(b: int, t_pool: int, groups: int, cog: int, k: int,
-               stride: int, pool: int, sms: int = 132) -> Tuple[int, int]:
-    """K1's block tile ``(pt, gc)`` for a layer call: of the tiles that
-    fit ``TILE_SMEM_BUDGET``, the one with the most blocks up to
-    ``GRID_BLOCKS_PER_SM`` per SM; among those, the widest chunk of groups
-    (the shuffled output rows are then long contiguous runs), then the
-    longest column tile (fewer blocks stage the same weights).  A column
-    tile is not taken where half of it gives as many tiles."""
-    cap = GRID_BLOCKS_PER_SM * sms
-    best, best_key = None, None
-    for gc in (d for d in range(1, groups + 1) if groups % d == 0):
-        for pt in TILE_COLUMNS:
-            n_tiles = -(-t_pool // pt)
-            if pt > 16 and n_tiles == -(-t_pool // (pt // 2)):
-                continue
-            if tile_smem_bytes(pt, gc, k, cog, stride, pool) > \
-                    TILE_SMEM_BUDGET:
-                continue
-            key = (min(b * n_tiles * (groups // gc), cap), gc, pt)
-            if best_key is None or key > best_key:
-                best, best_key = (pt, gc), key
-    if best is None:
-        raise ValueError(f"imc_fused: no tile of {groups} groups x {cog} "
-                         f"channels fits {TILE_SMEM_BUDGET} bytes")
-    return best
-
-
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.imc_fused_launch.argtypes = [p] * 7 + [i] * 13 + [p]
+    lib.imc_fused_launch.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.imc_fused_launch.restype = i
+    lib.imc_fused_plan.argtypes = [i] * 8 + [p]
+    lib.imc_fused_plan.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -170,30 +111,29 @@ def _operand(name: str, v: torch.Tensor, shape, device) -> torch.Tensor:
     return v.contiguous()
 
 
-def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
               flip: torch.Tensor, off: Optional[torch.Tensor],
               noise: Optional[torch.Tensor], *, k: int, groups: int,
-              stride: int, pool: int,
-              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+              stride: int, pool: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: x (B, T, C_in) with values in
-    {-1, 0, +1}; wp the int8 B rows (``pack_weights_s8``) or the fp32
-    group-major weights (``pack_weights``, packed to int8 here); bias,
-    flip, off (C_out,); noise (B, T_out, C_out) or None.  Returns
+    {-1, 0, +1}; wq the int8 B rows (``pack_weights_s8``); bias, flip,
+    off (C_out,); noise (B, T_out, C_out) or None.  Returns
     (B, T_out // pool, C_out) on PyTorch's current stream, without
     synchronising.  A group's input channels are one int8 k-step, moved
     four at a time: cpg must be a multiple of 4 and at most 32, and cog a
-    multiple of 4.  ``tile`` = (pooled columns, groups) per block
-    overrides ``plan_tiles``."""
+    multiple of 4."""
     dev = x.device
     b, t, c_in = x.shape
     cpg = c_in // groups
-    cog = wp.shape[2] if wp.dim() > 2 else -1
-    want = ((groups, k, cog, 32) if wp.dtype == torch.int8
-            else (groups, k * cpg, cog))
-    if tuple(wp.shape) != want or c_in != groups * cpg:
+    cog = wq.shape[2] if wq.dim() == 4 else -1
+    if (wq.dtype != torch.int8 or tuple(wq.shape) != (groups, k, cog, 32)
+            or c_in != groups * cpg):
         raise ValueError(f"imc_fused: x {tuple(x.shape)} does not match "
-                         f"packed weights {tuple(wp.shape)} (k={k}, "
-                         f"groups={groups})")
+                         f"weights {tuple(wq.shape)} {wq.dtype} (k={k}, "
+                         f"groups={groups}; the int8 rows of "
+                         f"pack_weights_s8)")
+    if wq.device != dev:
+        raise ValueError(f"imc_fused: weights on {wq.device}, x on {dev}")
     if cpg > 32 or cpg % 4 or cog % 4:
         raise ValueError(f"imc_fused: {cpg} input and {cog} output channels "
                          f"per group; the kernel takes multiples of 4, at "
@@ -202,23 +142,11 @@ def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     t_out = (t - k) // stride + 1
     t_pool = t_out // pool
     x = _operand("x", x, (b, t, c_in), dev)
-    if wp.dtype != torch.int8:
-        wp = _operand("weights", wp, want, dev)
-        wp = pack_weights_s8(unpack_group_major(wp, k), groups)
-    elif wp.device != dev:
-        raise ValueError(f"imc_fused: weights on {wp.device}, x on {dev}")
-    wp = wp.contiguous()
-    if tile is None:
-        tile = plan_tiles(b, t_pool, groups, cog, k, stride, pool,
-                          _sm_count(dev))
-    pt, gc = tile
-    if pt <= 0 or pt % 16 or groups % gc:
-        raise ValueError(f"imc_fused: tile {tile} is not (a multiple of 16 "
-                         f"columns, a divisor of {groups} groups)")
+    wq = wq.contiguous()
     if x.data_ptr() % 16:          # the kernel reads 16-byte words
         x = x.clone()
-    if wp.data_ptr() % 16:
-        wp = wp.clone()
+    if wq.data_ptr() % 16:
+        wq = wq.clone()
     bias = _operand("bias", bias, (c_out,), dev)
     flip = _operand("flip", flip, (c_out,), dev)
     if off is not None:
@@ -236,12 +164,27 @@ def imc_fused(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.imc_fused_launch(
-            ptr(x), ptr(wp), ptr(bias), ptr(flip), ptr(off), ptr(noise),
+            ptr(x), ptr(wq), ptr(bias), ptr(flip), ptr(off), ptr(noise),
             ptr(out), b, t, c_in, k, cpg, c_out, groups, stride, pool,
-            t_pool, t_out, pt, gc, stream)
+            t_pool, t_out, _sm_count(dev), stream)
+    if status == -1:
+        raise ValueError(f"imc_fused: no block tile of {groups} groups x "
+                         f"{cog} channels fits the kernel's shared memory")
     kernels.check_launch(lib, "imc_fused", status)
     COUNTS.launches += 1
     return out
+
+
+def block_tile(b: int, t_pool: int, groups: int, cog: int, k: int,
+               stride: int, pool: int,
+               device: torch.device) -> Tuple[int, int, int]:
+    """The block tile K1's launch takes for a layer call on ``device``:
+    (pooled columns, groups, shared-memory bytes) per block; (0, 0, 0)
+    if none fits."""
+    tile = (ctypes.c_int * 2)()
+    nbytes = library().imc_fused_plan(b, t_pool, groups, cog, k, stride,
+                                      pool, _sm_count(device), tile)
+    return tile[0], tile[1], nbytes
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,7 +296,7 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     included), or given as ``sa_noise``, an explicit pre-pool, pre-sign
     operand (B, T_out, C_out).  Returns (B, T_out // pool, C_out) ±1 in
     post-shuffle channel order.  ``packed`` is ``pack_weights_s8(w,
-    groups)`` (or ``pack_weights``) precomputed at fold time."""
+    groups)`` precomputed at fold time."""
     k = w.shape[0]
     t_out = (x.shape[1] - k) // stride + 1
     if t_out // pool <= 0:

@@ -1,5 +1,5 @@
 """The port's Hopper kernels on a card: ``imc_fused`` (on ±1 and on
-{-1, 0, +1} activations, at every block tile it may take), the fused SGA
+{-1, 0, +1} activations, at every kind of block tile its launch plans), the fused SGA
 update (``sga_update_rows``, ``sga_update``), the per-group product tile
 ``imc_mav`` and ``int8_matmul`` against their plain PyTorch versions, bit
 for bit; one ``imc_fused`` launch per IMC layer on the served paths (SA
@@ -102,7 +102,7 @@ def test_kernel_matches_plain_version_on_zero_carries(dev, c_in, c_out,
                                                       case, kind):
     """The kernel is exact on x in {-1, 0, +1}: whole streams of zeros (the
     carries of free slots) and mixed ternary rows, through the fold-time
-    int8 weights and through the fp32 group-major ones."""
+    int8 weights and through weights packed on the call."""
     x, w, bias, flip, off, noise = _inputs(c_out + 7, 4, 301, c_in, c_out,
                                            groups, stride, dev, kind)
     off = None if case == "clean" else off
@@ -110,8 +110,7 @@ def test_kernel_matches_plain_version_on_zero_carries(dev, c_in, c_out,
     want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=groups,
                                   stride=stride, pool=pool,
                                   chip_offset=off, sa_noise=noise)
-    for packed in (ops.pack_weights_s8(w, groups),
-                   ops.pack_weights(w, groups)):
+    for packed in (ops.pack_weights_s8(w, groups), None):
         got = ops.fused_conv_mav(x, w, bias, flip, groups=groups,
                                  stride=stride, pool=pool, chip_offset=off,
                                  sa_noise=noise, packed=packed)
@@ -119,48 +118,89 @@ def test_kernel_matches_plain_version_on_zero_carries(dev, c_in, c_out,
         assert got.shape == want.shape and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("c_in,c_out,groups,stride,pool", [
-    LAYERS[1], LAYERS[2], LAYERS[4], LAYERS[5]])
-def test_kernel_matches_plain_version_at_every_tile(dev, c_in, c_out, groups,
-                                                    stride, pool):
-    """Every block tile the planner may pick gives the plain version's
-    result (tiles past the columns, one group or all groups, ragged
-    column tiles, zero streams)."""
-    x, w, bias, flip, off, noise = _inputs(c_out + 3, 3, 141, c_in, c_out,
+# (c_in, c_out, groups, stride, pool, B, T) -> the block tile (pooled
+# columns, groups) the launch plans on a 132-SM H100: every column tile,
+# one group, a part of the groups and all of them, tiles past the columns
+# and ragged ones, a stride-2 layer whose conv length leaves a pool
+# remainder
+PLANNED_TILES = [
+    pytest.param((24, 96, 1, 1, 2, 4, 20), (16, 1), id="16x1-past-columns"),
+    pytest.param((192, 288, 8, 1, 1, 8, 118), (16, 2), id="16x2of8-nopool"),
+    pytest.param((96, 192, 4, 1, 2, 4, 2000), (16, 4), id="16x4of4"),
+    pytest.param((288, 384, 12, 1, 2, 8, 301), (16, 3), id="16x3of12"),
+    pytest.param((192, 288, 8, 1, 1, 8, 104), (32, 1), id="32x1"),
+    pytest.param((192, 288, 8, 1, 1, 8, 230), (32, 2), id="32x2of8"),
+    pytest.param((384, 576, 16, 1, 2, 8, 1200), (32, 8), id="32x8of16"),
+    pytest.param((192, 288, 8, 1, 1, 8, 2000), (64, 8), id="64x8of8"),
+    pytest.param((24, 96, 1, 1, 2, 4, 7944), (64, 1), id="64x1"),
+    pytest.param((24, 96, 1, 1, 2, 4, 15882), (128, 1), id="128x1"),
+    pytest.param((48, 96, 2, 2, 2, 8, 15883), (128, 2),
+                 id="128x2of2-stride2-odd"),
+]
+
+
+@pytest.mark.parametrize("shape,tile", PLANNED_TILES)
+def test_kernel_matches_plain_version_at_each_planned_tile(dev, shape, tile):
+    """Shapes at which the launch plans each kind of block tile give the
+    plain version's result (zero streams, offsets and noise on)."""
+    c_in, c_out, groups, stride, pool, b, t = shape
+    if ops._sm_count(dev) != 132:
+        pytest.skip("the planned tiles listed are a 132-SM card's")
+    x, w, bias, flip, off, noise = _inputs(c_out + t, b, t, c_in, c_out,
                                            groups, stride, dev,
                                            "zero_streams")
-    t_pool = ((141 - 3) // stride + 1) // pool
-    cog = c_out // groups
-    packed = ops.pack_weights_s8(w, groups)
+    t_pool = ((t - 3) // stride + 1) // pool
+    assert ops.block_tile(b, t_pool, groups, c_out // groups, 3, stride,
+                          pool, dev)[:2] == tile
+    got = ops.fused_conv_mav(x, w, bias, flip, groups=groups, stride=stride,
+                             pool=pool, chip_offset=off, sa_noise=noise)
     want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=groups,
                                   stride=stride, pool=pool, chip_offset=off,
                                   sa_noise=noise)
-    n = 0
-    for gc in (d for d in range(1, groups + 1) if groups % d == 0):
-        for pt in ops.TILE_COLUMNS:
-            if ops.tile_smem_bytes(pt, gc, 3, cog, stride, pool) > \
-                    ops.TILE_SMEM_BUDGET:
-                continue
-            got = ops.imc_fused(x, packed, bias, flip, off, noise, k=3,
-                                groups=groups, stride=stride, pool=pool,
-                                tile=(pt, gc))
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (pt, gc, t_pool)
-            n += 1
-    assert n >= 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hop", [1024, 64])
+def test_block_tiles_fill_the_card(dev, hop):
+    """The block tile of every paper layer at B = 8 fits the shared-memory
+    budget; a full window fills at least one wave of the card's SMs, and
+    a hop tail gets at least as many blocks as the one-group, 16-column
+    tile gives (up to the plan's 1.9 blocks per SM)."""
+    cfg = kws.PAPER_KWS
+    sms = ops._sm_count(dev)
+    geom = sv.make_stream_geometry(cfg, hop)
+    for i in range(1, cfg.num_conv_layers):
+        groups, pool = cfg.groups(i), cfg.pools[i]
+        cog = cfg.channels[i] // groups
+        for t, full in ((geom.layers[i].t_in, True),
+                        (geom.layers[i].tail_in, False)):
+            t_pool = ((t - 3) + 1) // pool
+            pt, gc, nbytes = ops.block_tile(8, t_pool, groups, cog, 3, 1,
+                                            pool, dev)
+            assert pt % 16 == 0 and groups % gc == 0
+            assert 0 < nbytes <= 72 * 1024
+            blocks = 8 * -(-t_pool // pt) * (groups // gc)
+            assert blocks >= min(8 * -(-t_pool // 16) * groups, 1.9 * sms)
+            if full:
+                assert blocks >= sms
 
 
 def test_kernel_rejects_group_widths_it_does_not_take(dev):
     for c_in, c_out, groups in ((80, 96, 2), (96, 72, 4), (36, 48, 2)):
         x, w, bias, flip, _, _ = _inputs(1, 2, 40, c_in, c_out, groups, 1,
                                          dev)
+        rows = torch.zeros((groups, 3, c_out // groups, 32),
+                           dtype=torch.int8, device=dev)
         with pytest.raises(ValueError, match="multiples of 4"):
-            ops.fused_conv_mav(x, w, bias, flip, groups=groups,
-                               packed=ops.pack_weights(w, groups))
-    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 96, 192, 4, 1, dev)
-    with pytest.raises(ValueError, match="tile"):
-        ops.imc_fused(x, ops.pack_weights_s8(w, 4), bias, flip, None, None,
-                      k=3, groups=4, stride=1, pool=1, tile=(24, 4))
+            ops.fused_conv_mav(x, w, bias, flip, groups=groups, packed=rows)
+    # a group of 1024 outputs: its int8 rows alone pass the shared-memory
+    # budget of any block tile
+    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 32, 1024, 1, 1, dev)
+    ops.COUNTS.reset()
+    with pytest.raises(ValueError, match="no block tile"):
+        ops.fused_conv_mav(x, w, bias, flip, groups=1)
+    assert ops.COUNTS.launches == 0
 
 
 def test_kernel_rejects_mismatched_operands(dev):

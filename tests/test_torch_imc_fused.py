@@ -10,9 +10,8 @@ streaming ``_step`` entry, and a stride-2 layer whose conv length leaves a
 pool remainder.  The kernel's input contract is pinned here too: the
 plain version on activations in {-1, 0, +1} (and with whole streams of
 zeros, as free slots carry them) equals the JAX oracle, and a served run
-sends the fused layer nothing else.  The fold-time int8 weights, the
-block-tile planner and the wrapper's refusals are checked as far as a
-CPU reaches.  tests/test_torch_cuda.py holds the Hopper kernel itself
+sends the fused layer nothing else.  The fold-time int8 weights and the
+wrapper's refusals are checked as far as a CPU reaches.  tests/test_torch_cuda.py holds the Hopper kernel itself
 against the plain version on a card.
 """
 
@@ -28,7 +27,6 @@ from repro.kernels.imc_mav import ops as jops
 from repro.kernels.imc_mav.ref import fused_conv_mav_ref as jref
 from repro_torch.kernels.imc_mav import ops, ref
 from repro_torch.models import kws
-from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
 
@@ -244,8 +242,7 @@ def test_served_activations_are_ternary_and_hold_zeros(monkeypatch):
 
 def test_pack_weights_s8_rows():
     """The fold-time int8 B rows: row (g, j, n) holds w[j, :, g*cog + n]
-    in its first cpg bytes and zeros after; the wrapper's unpacking of the
-    fp32 group-major form gives w back."""
+    in its first cpg bytes and zeros after."""
     rng = np.random.default_rng(8)
     w = torch.tensor(_pm1(rng, (3, 24, 96)))
     q = ops.pack_weights_s8(w, 4)
@@ -255,7 +252,6 @@ def test_pack_weights_s8_rows():
         assert torch.equal(q[g, :, :, :24].float(),
                            w[:, :, g * 24:(g + 1) * 24].permute(0, 2, 1))
     assert not q[..., 24:].any()
-    assert torch.equal(ops.unpack_group_major(ops.pack_weights(w, 4), 3), w)
     with pytest.raises(ValueError, match="at most 32"):
         ops.pack_weights_s8(torch.ones(3, 40, 80), 2)
 
@@ -271,35 +267,6 @@ def test_hw_params_pack_int8_rows():
             hw.hw.w_bin[name], cfg.groups(i)))
 
 
-@pytest.mark.parametrize("hop", [1024, 64])
-def test_plan_tiles_fill_the_card(hop):
-    """The block tile of every paper layer at B = 8 fits the shared-memory
-    budget and is a shape the kernel takes; a full window fills at least
-    one wave of 132 SMs, and every call gets the most blocks the rule
-    allows (capped at GRID_BLOCKS_PER_SM per SM)."""
-    cfg = kws.PAPER_KWS
-    geom = sv.make_stream_geometry(cfg, hop)
-    for i in range(1, cfg.num_conv_layers):
-        groups, pool = cfg.groups(i), cfg.pools[i]
-        cog = cfg.channels[i] // groups
-        for t, full in ((geom.layers[i].t_in, True),
-                        (geom.layers[i].tail_in, False)):
-            t_pool = ((t - 3) + 1) // pool
-            pt, gc = ops.plan_tiles(8, t_pool, groups, cog, 3, 1, pool)
-            assert pt % 16 == 0 and groups % gc == 0
-            assert (ops.tile_smem_bytes(pt, gc, 3, cog, 1, pool)
-                    <= ops.TILE_SMEM_BUDGET)
-            blocks = 8 * -(-t_pool // pt) * (groups // gc)
-            most = max(8 * -(-t_pool // p) * (groups // g)
-                       for g in range(1, groups + 1) if groups % g == 0
-                       for p in ops.TILE_COLUMNS
-                       if ops.tile_smem_bytes(p, g, 3, cog, 1, pool)
-                       <= ops.TILE_SMEM_BUDGET)
-            assert blocks >= min(most, ops.GRID_BLOCKS_PER_SM * 132)
-            if full:
-                assert blocks >= 132
-
-
 @pytest.mark.parametrize("c_in,c_out,groups", [(80, 96, 2), (96, 72, 4),
                                               (36, 48, 2)],
                          ids=["cpg40", "cog18", "cpg18"])
@@ -308,10 +275,26 @@ def test_kernel_wrapper_refuses_group_widths_it_does_not_take(c_in, c_out,
     """The kernel takes a group's input channels as one int8 k-step moved
     four at a time: the wrapper raises before any launch (here on CPU
     tensors, which never reach a kernel)."""
-    x, w, bias, flip, _, _ = _layer_inputs(2, 1, 12, c_in, c_out, groups, 1,
+    x, _, bias, flip, _, _ = _layer_inputs(2, 1, 12, c_in, c_out, groups, 1,
                                            "clean")
+    rows = torch.zeros((groups, 3, c_out // groups, 32), dtype=torch.int8)
     t = torch.as_tensor
     with pytest.raises(ValueError, match="multiples of 4"):
-        ops.imc_fused(t(x), ops.pack_weights(t(w), groups), t(bias),
-                      t(flip), None, None, k=3, groups=groups, stride=1,
-                      pool=1)
+        ops.imc_fused(t(x), rows, t(bias), t(flip), None, None, k=3,
+                      groups=groups, stride=1, pool=1)
+
+
+@pytest.mark.parametrize("form", ["fp32-group-major", "fp32-rows",
+                                  "int8-other-groups"])
+def test_kernel_wrapper_takes_only_int8_rows(form):
+    """The kernel's weights are the fold-time int8 B rows and nothing
+    else: the group-major fp32 form, float rows and rows packed for
+    another group count are refused before any launch."""
+    x, w, bias, flip, _, _ = _layer_inputs(3, 1, 12, 96, 192, 4, 1, "clean")
+    x, w, bias, flip = (torch.as_tensor(a) for a in (x, w, bias, flip))
+    wrong = {"fp32-group-major": ops.pack_weights(w, 4),
+             "fp32-rows": ops.pack_weights_s8(w, 4).float(),
+             "int8-other-groups": ops.pack_weights_s8(w, 2)}[form]
+    with pytest.raises(ValueError, match="does not match"):
+        ops.imc_fused(x, wrong, bias, flip, None, None, k=3, groups=4,
+                      stride=1, pool=1)
