@@ -8,7 +8,7 @@ Run from the root of a checkout, with one CUDA card:
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-1. build the four Hopper kernels, ``imc_fused`` and ``imc_mav``
+1. build the four kernel sources, ``imc_fused`` and ``imc_mav``
    (``src/repro_torch/kernels/imc_mav/csrc/``), ``sga_update``
    (``.../sga_update/csrc/``) and ``int8_matmul`` (``.../int8_matmul/
    csrc/``), one nvcc (sm_90a) for each, started together, and print the
@@ -22,7 +22,11 @@ result line):
    pre-sign noise operand — bitwise; then the kernel's and the plain
    version's median device times beside the least time the card could
    take, the kernel's ratio to it, and the host time a call of the
-   kernel's wrapper takes;
+   kernel's wrapper takes.  Then the same bitwise checks, one launch a
+   call, at every IMC layer of two nets off the paper's group width,
+   ``KWSConfig(channels_per_group=6)`` and the cpg-48 net (``WIDTH_NETS``),
+   with each layer's block tile and full-window device time beside its
+   bound;
 3. the served path: a net folded from ``init_params`` (seeded
    ``torch.Generator``) serves 8 streams of synthetic keyword audio with
    silent gaps (``repro_torch.data.audio``) through ``StreamServer`` at
@@ -43,12 +47,20 @@ result line):
    identical; each result must equal the offline loop
    (``calibrate_and_compensate`` -> ``hw_features`` ->
    ``quantized_head_finetune``) on the card and on the CPU;
-   ``sga_update_rows`` must launch exactly once per training round and
-   ``imc_fused`` 5 x (init + hop + replay batched calls).  Then the SGA
-   kernels against their plain version at B = 1, 2 and 8 rows of the
-   head's 5770 elements, with tie cases, bitwise, with their times; and
-   the error-scaling exponent on the card against the exact one for all
-   257 values the quantized loop can meet;
+   ``head_train_rows`` must launch exactly once per training tick (the
+   three sessions share one configuration), ``sga_update_rows`` never,
+   and ``imc_fused`` 5 x (init + hop + replay batched calls).  A separate
+   short run trains one RGP session (``rgp=True``, 40 epochs, no
+   compensation): one ``sga_update_rows`` launch per epoch, none fused,
+   its head equal to the offline loop on the card and the CPU.  Then the
+   SGA kernels against their plain version at B = 1, 2 and 8 rows of the
+   head's 5770 elements, with tie cases, bitwise, with their times; the
+   fused head training against its plain version at B = 1, 2, 3, 8 rows
+   of 10 utterances and at (3, 64), (2, 1), with a softmax tie, bitwise,
+   with its time at the path's shape; and the error-scaling exponent on
+   the card, through torch and through the fused kernel's own
+   arithmetic, against the exact one for all 257 values the quantized
+   loop can meet;
 5. ``imc_mav`` (K5) on the per-group patch shapes of conv1..conv5 at a
    full window (B = 8), float32 and bfloat16, clean and with a noise
    operand, and ``int8_matmul`` (K4) at 512 x 128 x 128 (shifts 0, 4, 7)
@@ -78,7 +90,10 @@ hop-1024 tail shapes, B = 8): median device time from ``torch.profiler`` (CUDA-e
 time per call where the profiler records no device activity), and the
 least time the card could take for the same bytes and operations.
 ``launches`` is the count from the main path's served run.  The
-``imc_mav`` row is one per-group forward's 41 launches at a full window
+``head_train_rows`` row is one launch at the customization path's shape
+(three session rows of 10 utterances, budgets 10, 7, 10) with its
+launches in phase 4's run; the ``sga_update_rows`` row counts the RGP
+run's launches.  The ``imc_mav`` row is one per-group forward's 41 launches at a full window
 (its launches counted in phase 6), the ``int8_matmul`` row the FC head's
 shape (its ``library_ms`` is ``torch._int_mm`` on the operands
 zero-padded to 32 x 576 x 16, the product alone).  Without a CUDA device,
@@ -114,7 +129,11 @@ H100_INT8_OPS_PER_S = 1979e12    # int8 tensor-core operations/s
 KERNEL_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_fused.cu"
 REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:141"
 SGA_SOURCE = "src/repro_torch/kernels/sga_update/csrc/sga_update.cu"
-SGA_REPLACES = {"sga_update_rows":
+# head_train_rows takes over K2's launches on the customization path (with
+# the epoch around them, src/repro/serving/customize.py::_train_round)
+SGA_REPLACES = {"head_train_rows":
+                "src/repro/kernels/sga_update/sga_update.py:57",
+                "sga_update_rows":
                 "src/repro/kernels/sga_update/sga_update.py:57",
                 "sga_update": "src/repro/kernels/sga_update/sga_update.py:89"}
 MAV_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_mav.cu"
@@ -208,8 +227,9 @@ def device_time(torch, prof):
 def layer_work(b, t, c_in, c_out, groups, stride, pool, chip, noise, k=3):
     """(bytes, operations) the fused layer must move and do: each input
     read once, the output written once, 2 operations per ±1 product.  The
-    weights are the kernel's operand, the fold-time int8 B rows (one
-    32-byte row per tap and output channel); the rest is fp32."""
+    weights are the kernel's operand, the fold-time int8 B rows (one row
+    of whole 32-byte k-steps per tap and output channel); the rest is
+    fp32."""
     cpg = c_in // groups
     t_out = (t - k) // stride + 1
     t_pool = t_out // pool
@@ -217,7 +237,7 @@ def layer_work(b, t, c_in, c_out, groups, stride, pool, chip, noise, k=3):
               + (3 if chip else 2) * c_out         # bias, flip, offset
               + b * t_pool * c_out                 # activations out
               + (b * t_out * c_out if noise else 0))
-    weight_bytes = k * c_out * 32
+    weight_bytes = k * c_out * -(-cpg // 32) * 32
     ops = 2 * b * t_pool * pool * c_out * k * cpg
     return 4 * floats + weight_bytes, ops
 
@@ -389,6 +409,86 @@ def phase_layers(torch, dev):
             f"{b_ms:.5f} ms ({b_by}), {tot['ms'] / b_ms:.2f}x the bound; "
             f"wrapper host time {tot['host_ms']:.4f} ms")
     return rows, totals, max_err
+
+
+# group widths off the paper net's cpg 24: the nets of cpg 6 and 48
+WIDTH_NETS = {
+    "cpg6": dict(channels_per_group=6),
+    "cpg48": dict(channels=(48, 96, 192, 288, 384, 576),
+                  channels_per_group=48),
+}
+
+
+def phase_widths(torch, dev):
+    """K1 at every IMC layer of the cpg-6 and cpg-48 nets at full width
+    (B = 8, a full window and the hop-1024 tail), on ±1, zero-stream and
+    ternary activations, clean / chip / noise: bitwise against the plain
+    version, one launch a call; the kernel's device time at the full
+    window beside its bound."""
+    from repro_torch.kernels.imc_mav import ops, ref
+    from repro_torch.models import kws
+    from repro_torch.serving import stream as sv
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    max_err, rows = 0.0, []
+    for net, kw in WIDTH_NETS.items():
+        cfg = kws.KWSConfig(**kw)
+        geom = sv.make_stream_geometry(cfg, HOP)
+        for i in range(1, cfg.num_conv_layers):
+            c_in, c_out = cfg.channels[i - 1], cfg.channels[i]
+            groups, pool, stride = cfg.groups(i), cfg.pools[i], cfg.strides[i]
+            lg = geom.layers[i]
+            for shape, t in (("window", lg.t_in), ("hop", lg.tail_in)):
+                for kind in ("pm1", "zero_streams", "ternary"):
+                    x, w, bias, flip, off, noise = _layer_inputs(
+                        torch, gen, dev, B, t, c_in, c_out, groups, stride,
+                        kind)
+                    packed = ops.pack_weights_s8(w, groups)
+                    for case, o, n in (("clean", None, None),
+                                       ("chip", off, None),
+                                       ("noise", off, noise)):
+                        ops.COUNTS.reset()
+                        got = ops.fused_conv_mav(
+                            x, w, bias, flip, groups=groups, stride=stride,
+                            pool=pool, chip_offset=o, sa_noise=n,
+                            packed=packed)
+                        launched = ops.COUNTS.launches
+                        want = ref.fused_conv_mav_ref(
+                            x, w, bias, flip, groups=groups, stride=stride,
+                            pool=pool, chip_offset=o, sa_noise=n)
+                        torch.cuda.synchronize()
+                        max_err = max(max_err,
+                                      float((got - want).abs().max()))
+                        if launched != 1 or not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{net} conv{i} {shape} {kind} {case}: "
+                                f"{launched} launches, kernel differs from "
+                                f"the plain version on "
+                                f"{(got != want).sum().item()} outputs")
+                if shape == "window":
+                    kernel = lambda: ops.fused_conv_mav(
+                        x, w, bias, flip, groups=groups, stride=stride,
+                        pool=pool, chip_offset=off, packed=packed)
+                    k_ms = device_ms(torch, kernel) or cuda_ms(torch, kernel)
+                    b_ms, b_by = bound_ms(*layer_work(
+                        B, t, c_in, c_out, groups, stride, pool, chip=True,
+                        noise=False), H100_INT8_OPS_PER_S)
+                    t_pool = ((t - 3) // stride + 1) // pool
+                    tile = ops.block_tile(B, t_pool, groups, c_out // groups,
+                                          3, stride, pool, dev,
+                                          cpg=c_in // groups)
+                    rows.append(dict(net=net, layer=f"conv{i}",
+                                     groups=groups, cpg=c_in // groups,
+                                     cog=c_out // groups, tile=tile,
+                                     window_ms=k_ms, bound_ms=b_ms))
+                    log(f"[widths] {net} conv{i} {c_in}->{c_out} g={groups} "
+                        f"(cpg {c_in // groups}, cog {c_out // groups}) tile "
+                        f"{tile}: bitwise equal at the window and the hop "
+                        f"tail (pm1/zero streams/ternary x clean/chip/"
+                        f"noise); full window device time {k_ms:.5f} ms, "
+                        f"bound {b_ms:.5f} ms ({b_by}), "
+                        f"{k_ms / b_ms:.2f}x")
+    return dict(rows=rows, max_abs_err=max_err)
 
 
 def _traffic(cfg):
@@ -563,6 +663,54 @@ def sga_cases(torch, gen, dev, lrs, n):
     return w, g, a, lr, g_th
 
 
+# logits (times -1/16) whose LUT softmax rounds an exact tie (codes sum
+# to 1536: two classes at p * 256 = 21.5)
+TIE_KS = [0, 15, 1, 10, 11, 6, 8, 15, 13, 11]
+
+
+def head_cases(torch, gen, dev, ns, d=576, c=10):
+    """One session row per entry of ``ns`` (utterances) at the paper head:
+    Q1.3.4 features in [-1, 1], one-hot labels, a Q1.7 head, Q1.15 banks;
+    row 0's first utterance has zero features and biases that put its
+    softmax on a tie."""
+    def q7(x):
+        return torch.clamp(torch.round(x * 128), -128, 127) / 128
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float()
+
+    rows = {k: [] for k in ("w", "b", "aw", "ab", "f", "onehot")}
+    for r, n in enumerate(ns):
+        f = ints(-16, 17, (n, d)) / 16
+        b = q7(torch.randn(c, generator=gen, device=dev) * 0.05)
+        if r == 0:
+            f[0] = 0.0
+            b = -torch.tensor(TIE_KS, dtype=torch.float32, device=dev) / 16
+        labels = torch.randint(0, c, (n,), generator=gen, device=dev)
+        rows["f"].append(f)
+        rows["onehot"].append(torch.nn.functional.one_hot(labels, c).float())
+        rows["w"].append(q7(torch.randn((d, c), generator=gen, device=dev)
+                            / d ** 0.5))
+        rows["b"].append(b)
+        rows["aw"].append(ints(-3000, 3001, (d, c)) * 2.0 ** -15)
+        rows["ab"].append(ints(-3000, 3001, (c,)) * 2.0 ** -15)
+    return rows
+
+
+def head_train_work(ns, budgets, d=576, c=10):
+    """(bytes, operations) of a fused head-training launch: per row the
+    state and banks read and written once, its features and labels read
+    once (and the 256-entry LUT); per epoch the forward and the gradient
+    (2 N D C multiply-adds), ~25 operations per element of the update and
+    ~20 per logit of the softmax and error."""
+    nbytes, ops = 4 * 256, 0
+    for n, e in zip(ns, budgets):
+        nbytes += 4 * (2 * 2 * (d * c + c) + n * d + n * c)
+        ops += e * (4 * n * d * c + 25 * (d * c + c) + 20 * n * c)
+    return nbytes, ops
+
+
 def exact_exponent(k, mode):
     """ceil / floor of log2(1 / (k / 256)) on the float32 value of the
     division, from its binary exponent."""
@@ -578,7 +726,11 @@ def exact_exponent(k, mode):
 
 def phase_sga_kernels(torch, dev):
     """K2 / K3 against the plain version on the card, bitwise, at B = 1,
-    2, 8 rows of the head's width; times at the path's B = 2."""
+    2, 8 rows of the head's width; times at B = 2.  The fused head
+    training against its plain version at B = 1, 2, 3, 8 rows of N = 10
+    utterances, at (3, 64) and (2, 1), fixed and dynamic error scaling;
+    times at the customization path's B = 3, N = 10, budgets 10, 7, 10.
+    The error-scaling exponent on the card for all 257 values."""
     from repro_torch.core import quantize
     from repro_torch.kernels.sga_update import ops as sga_ops
     from repro_torch.kernels.sga_update.ref import sga_update_ref
@@ -641,6 +793,72 @@ def phase_sga_kernels(torch, dev):
             f"{k_call:.4f} ms, plain {p_call:.4f} ms; bound "
             f"{rows[name]['bound_ms']:.6f} ms ({rows[name]['bound_by']})")
 
+    # the fused head training against its plain version
+    from repro_torch.core import onchip_training as ot
+    from repro_torch.core.onchip_training import OnChipTrainConfig
+    from repro_torch.kernels.sga_update import ref as sga_ref
+    lut = ot.train_lut(dev)
+    starts8, budgets8 = (0, 13, 35, 190, 7, 99, 41, 3), (10, 7, 10, 10, 1,
+                                                         4, 0, 9)
+    max_err["head_train_rows"] = 0.0
+    cases = [(b, 10) for b in (1, 2, 3, 8)] + [(3, 64), (2, 1)]
+    for scaling in (dict(fixed_error_scale=1.375), dict()):
+        spec = ot.head_train_spec(OnChipTrainConfig(**scaling))
+        for b, n in cases:
+            seed = torch.randint(0, 2 ** 30, (1,), generator=gen,
+                                 device=dev).item()
+            ns = [n] * b
+            got, want = (head_cases(torch, torch.Generator(
+                device=dev).manual_seed(seed), dev, ns) for _ in range(2))
+            args = lambda t: (t["w"], t["b"], t["aw"], t["ab"], t["f"],
+                              t["onehot"], list(starts8[:b]),
+                              list(budgets8[:b]), lut, spec)
+            sga_ops.COUNTS_HEAD.reset()
+            sga_ops.head_train_batch(*args(got))
+            launched = sga_ops.COUNTS_HEAD.launches
+            sga_ref.head_train_rows_ref(*args(want))
+            torch.cuda.synchronize()
+            for k in ("w", "b", "aw", "ab"):
+                for x, y in zip(got[k], want[k]):
+                    max_err["head_train_rows"] = max(
+                        max_err["head_train_rows"],
+                        float((x - y).abs().max()))
+                    if launched != 1 or not torch.equal(x, y):
+                        raise AssertionError(
+                            f"head_train_rows B={b} N={n} {scaling}: "
+                            f"{launched} launches, {k} differs from the "
+                            f"plain version")
+    log(f"[sga] head_train_rows bitwise equal to the plain version at "
+        f"(B, N) = {cases}, fixed and dynamic error scaling, one launch "
+        f"each (a softmax tie in row 0)")
+    spec = ot.head_train_spec(OnChipTrainConfig(fixed_error_scale=1.375))
+    ns, budgets = [N_UTTS] * len(PER_TICK), list(PER_TICK)
+    t = head_cases(torch, gen, dev, ns)
+    head_args = (t["w"], t["b"], t["aw"], t["ab"], t["f"], t["onehot"],
+                 [0, 10, 30], budgets, lut, spec)
+    kernel_h = lambda: sga_ops.head_train_rows(*head_args)
+    plain_h = lambda: sga_ref.head_train_rows_ref(*head_args)
+    k_call = cuda_ms(torch, kernel_h)
+    p_call = cuda_ms(torch, plain_h, reps=3, iters=2)
+    k_dev = device_ms(torch, kernel_h)
+    p_dev = device_ms(torch, plain_h, reps=3, iters=2)
+    nbytes, nops = head_train_work(ns, budgets)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = nops / H100_FP32_OPS_PER_S * 1e3
+    rows["head_train_rows"] = dict(
+        ms=k_dev if k_dev is not None else k_call,
+        plain_ms=p_dev if p_dev is not None else p_call,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        call_ms=k_call, plain_call_ms=p_call, B=len(ns), N=N_UTTS,
+        budgets=budgets, max_abs_err=max_err["head_train_rows"])
+    log(f"[sga] head_train_rows B={len(ns)} N={N_UTTS} budgets {budgets}: "
+        f"device time kernel {k_dev} ms, plain {p_dev} ms; per call (CUDA "
+        f"events) kernel {k_call:.4f} ms, plain {p_call:.4f} ms; bound "
+        f"{rows['head_train_rows']['bound_ms']:.6f} ms "
+        f"({rows['head_train_rows']['bound_by']}: {nbytes} bytes, {nops} "
+        f"operations)")
+
     bad = []
     for mode in ("ceil", "floor"):
         for k in range(257):
@@ -652,8 +870,18 @@ def phase_sga_kernels(torch, dev):
     if bad:
         raise AssertionError(f"error-scale exponent differs from the exact "
                              f"one on the card: {bad[:8]}")
+    # the fused kernel's own exponent arithmetic (from the quotient's
+    # exponent bits) on the same 257 values
+    grid = torch.arange(257, device=dev, dtype=torch.float32) / 256.0
+    for mode in ("ceil", "floor"):
+        got = sga_ops.head_error_exponent(grid, mode).tolist()
+        want = [exact_exponent(k, mode) for k in range(257)]
+        if got != want:
+            raise AssertionError(f"head_train_rows' {mode} exponent differs "
+                                 f"from the exact one on the card")
     log("[sga] error-scale exponent on the card equals the exact one on "
-        "all 257 values k/256, ceil and floor")
+        "all 257 values k/256, ceil and floor, through torch and through "
+        "head_train_rows' own arithmetic")
     return rows
 
 
@@ -1153,6 +1381,7 @@ def phase_customize(torch, dev):
         ops.COUNTS.reset()                  # the path's run starts
         sga_ops.COUNTS_ROWS.reset()
         sga_ops.COUNTS_FLAT.reset()
+        sga_ops.COUNTS_HEAD.reset()
         t0 = time.perf_counter()
         sessions, opened = [], []
         for k, per_tick in enumerate(PER_TICK):
@@ -1165,7 +1394,7 @@ def phase_customize(torch, dev):
                 sess.enroll(labels[k * N_UTTS + j], enroll[k * N_UTTS + j])
             sess.finish_enrollment()
             sessions.append(sess)
-        events, pos, rounds, ticks = [], cfg.sample_len, 0, 0
+        events, pos, rounds, ticks, train_ticks = [], cfg.sample_len, 0, 0, 0
         swapped, train_wall = [None] * len(PER_TICK), 0.0
         while not all(s.phase == "swapped" for s in sessions):
             if ticks > 2000:
@@ -1185,6 +1414,7 @@ def phase_customize(torch, dev):
             rounds += n_rounds
             if n_rounds:
                 train_wall += time.perf_counter() - t_tick
+                train_ticks += 1
             for k, s in enumerate(sessions):
                 if s.phase == "swapped" and swapped[k] is None:
                     torch.cuda.synchronize()
@@ -1201,9 +1431,11 @@ def phase_customize(torch, dev):
         wall = time.perf_counter() - t0
         counts = dict(imc=ops.COUNTS.launches,       # ... and ends
                       rows=sga_ops.COUNTS_ROWS.launches,
-                      flat=sga_ops.COUNTS_FLAT.launches)
+                      flat=sga_ops.COUNTS_FLAT.launches,
+                      head=sga_ops.COUNTS_HEAD.launches)
         return dict(srv=srv, sessions=sessions, events=events,
-                    rounds=rounds, ticks=ticks, swapped=swapped, wall=wall,
+                    rounds=rounds, ticks=ticks, train_ticks=train_ticks,
+                    swapped=swapped, wall=wall,
                     train_wall=train_wall,
                     counts=counts, stats=srv.stats(),
                     after_swap={e["stream"] for e in events[n_swap:]})
@@ -1213,14 +1445,18 @@ def phase_customize(torch, dev):
     st = kern["stats"]
     calls = st["batched_calls"]
     n_calls = calls["init"] + calls["hop"] + calls["replay"]
-    if kern["counts"]["rows"] != kern["rounds"] or kern["rounds"] < EPOCHS:
-        raise AssertionError(f"sga_update_rows launched "
-                             f"{kern['counts']['rows']} times in "
-                             f"{kern['rounds']} training rounds")
+    # one fused launch per training tick (one format group), no per-epoch
+    # launch
+    if (kern["counts"]["head"] != kern["train_ticks"]
+            or kern["counts"]["rows"] != 0 or kern["rounds"] < EPOCHS):
+        raise AssertionError(f"head_train_rows launched "
+                             f"{kern['counts']['head']} times and "
+                             f"sga_update_rows {kern['counts']['rows']} in "
+                             f"{kern['train_ticks']} training ticks")
     if kern["counts"]["imc"] != 5 * n_calls:
         raise AssertionError(f"imc_fused launched {kern['counts']['imc']} "
                              f"times for {n_calls} batched calls")
-    if plain["counts"] != dict(imc=0, rows=0, flat=0) or \
+    if plain["counts"] != dict(imc=0, rows=0, flat=0, head=0) or \
             plain["rounds"] != kern["rounds"]:
         raise AssertionError(f"plain run: counts {plain['counts']}, rounds "
                              f"{plain['rounds']} (kernel {kern['rounds']})")
@@ -1269,12 +1505,14 @@ def phase_customize(torch, dev):
             f"{PER_TICK[k]}, calibration read noise {CALIB_NOISE[k]}): "
             f"customize() to swapped {wall_s:.3f} s over "
             f"{ticks} ticks (plain run {plain['swapped'][k][0]:.3f} s); "
-            f"{rk.epochs} epochs in {rk.epochs} rounds; train accuracy "
+            f"{rk.epochs} epochs; train accuracy "
             f"{rk.history[-1]['train_accuracy']}; {moved} biases "
             f"compensated; equal to the offline loop on the card and the "
             f"CPU and to the plain run")
     log(f"[customize] kernel run: {kern['ticks']} ticks to all swaps, "
-        f"{kern['rounds']} training rounds, sga_update_rows launches "
+        f"{kern['train_ticks']} of them training, {kern['rounds']} training "
+        f"rounds; head_train_rows launches {kern['counts']['head']} (one "
+        f"per training tick), sga_update_rows launches "
         f"{kern['counts']['rows']}, sga_update launches "
         f"{kern['counts']['flat']}, imc_fused launches "
         f"{kern['counts']['imc']} (= 5 x {n_calls} batched calls {calls}); "
@@ -1290,28 +1528,101 @@ def phase_customize(torch, dev):
     prof_run = run(True, profiled=True)
     busy_us, prof_rows = device_time(torch, prof_run["prof"])
     sga_us = sum(us for name, (us, _) in prof_rows.items()
-                 if "sga_update" in name)
+                 if "head_train" in name or "sga_update" in name)
     imc_us = sum(us for name, (us, _) in prof_rows.items()
                  if "imc_fused" in name)
     busy = busy_us / 1e6 / prof_run["wall"]
     log(f"[customize] profiled kernel run: wall {prof_run['wall']:.3f} s, "
         f"device busy {busy_us / 1e3:.3f} ms (share {busy:.4f}, idle "
-        f"{1 - busy:.4f}); sga_update_rows {sga_us / 1e3:.3f} ms in "
-        f"{prof_run['counts']['rows']} launches, imc_fused "
+        f"{1 - busy:.4f}); head_train_rows {sga_us / 1e3:.3f} ms in "
+        f"{prof_run['counts']['head']} launches, imc_fused "
         f"{imc_us / 1e3:.3f} ms in {prof_run['counts']['imc']} launches")
     for name, (us, n) in sorted(prof_rows.items(),
                                 key=lambda kv: -kv[1][0])[:6]:
         log(f"[customize]   {us / 1e3:8.3f} ms  n={n:6d}  {name[:80]}")
     return dict(rounds=kern["rounds"], ticks=kern["ticks"],
+                train_ticks=kern["train_ticks"],
+                launches_head=kern["counts"]["head"],
                 launches_rows=kern["counts"]["rows"],
                 launches_flat=kern["counts"]["flat"],
                 imc_launches=kern["counts"]["imc"],
                 session_wall_s=[sw[0] for sw in kern["swapped"]],
                 ms_per_round=per_round["kernel"],
                 ms_per_round_plain=per_round["plain"],
-                device_busy_share=busy, sga_device_ms=sga_us / 1e3,
+                device_busy_share=busy, head_device_ms=sga_us / 1e3,
                 session_wall_s_plain=[sw[0] for sw in plain["swapped"]],
                 wall_s=kern["wall"], wall_s_plain=plain["wall"])
+
+
+RGP_EPOCHS, RGP_PER_TICK = 40, 10
+
+
+def phase_customize_rgp(torch, dev):
+    """One RGP session (random gradient prediction: noise drawn through
+    ``core.jaxrand`` between the halves of every epoch) on the served net
+    and chip at full width, without compensation: it trains epoch by
+    epoch, one ``sga_update_rows`` launch per epoch and no fused launch;
+    its head equals the offline loop on the card and on the CPU."""
+    import numpy as np
+    from repro_torch.core.onchip_training import (OnChipTrainConfig,
+                                                  quantized_head_finetune)
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    from repro_torch.serving import CustomizeConfig, StreamServer, VADConfig
+    from repro_torch.training import kws as tr
+
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
+            for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    _, enroll, labels, _ = _session_audio(cfg)
+    tcfg = OnChipTrainConfig(epochs=RGP_EPOCHS, fixed_error_scale=1.375,
+                             rgp=True, seed=5)
+    srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, chip_offsets=chip,
+                       vad=VADConfig(), device=dev)
+    sess = srv.customize("rgp", CustomizeConfig(
+        train=tcfg, epochs_per_tick=RGP_PER_TICK, compensate=False))
+    for j in range(N_UTTS):
+        sess.enroll(labels[j], enroll[j])
+    sess.finish_enrollment()
+    torch.cuda.synchronize()
+    sga_ops.COUNTS_ROWS.reset()              # the RGP run starts
+    sga_ops.COUNTS_HEAD.reset()
+    t0 = time.perf_counter()
+    ticks = 0
+    while sess.phase != "swapped":
+        if ticks > 500:
+            raise AssertionError(f"RGP session stuck in {sess.phase}")
+        srv.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(rows=sga_ops.COUNTS_ROWS.launches,   # ... and ends
+                  head=sga_ops.COUNTS_HEAD.launches)
+    if counts != dict(rows=RGP_EPOCHS, head=0):
+        raise AssertionError(f"RGP session launched {counts}, expected "
+                             f"{RGP_EPOCHS} sga_update_rows and no fused "
+                             f"launch")
+    res = sess.result
+    x = np.stack(sess.windows)
+    for d, hw_d, offs in ((dev, hw, {k: v.to(dev) for k, v in chip.items()}),
+                          ("cpu", _to(hw, "cpu"), chip)):
+        feats = tr.hw_features(hw_d, x, cfg, chip_offsets=offs, device=d)
+        w, b = quantized_head_finetune(feats, sess.labels, hw_d.hw.fc_w,
+                                       hw_d.hw.fc_b, tcfg, device=d)
+        if not (np.array_equal(res.fc_w, w.cpu().numpy())
+                and np.array_equal(res.fc_b, b.cpu().numpy())):
+            raise AssertionError(f"RGP session differs from the offline "
+                                 f"loop on {d}")
+    log(f"[rgp] RGP session: {res.epochs} epochs over {ticks} ticks, "
+        f"sga_update_rows launches {counts['rows']} (one per epoch), "
+        f"head_train_rows launches {counts['head']}; head equal to the "
+        f"offline loop on the card and the CPU; wall {wall:.3f} s")
+    return dict(launches_rows=counts["rows"], epochs=res.epochs,
+                ticks=ticks, wall_s=wall)
 
 
 def main() -> int:
@@ -1345,9 +1656,12 @@ def main() -> int:
         return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
+    widths = phase_widths(torch, dev)
+    max_err = max(max_err, widths["max_abs_err"])
     served = phase_served(torch, dev)
     launches = served["launches"]
     custom = phase_customize(torch, dev)
+    rgp = phase_customize_rgp(torch, dev)
     sga = phase_sga_kernels(torch, dev)
     mav, i8 = phase_mav_kernels(torch, dev)
     group = phase_grouploop(torch, dev)
@@ -1356,8 +1670,9 @@ def main() -> int:
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
                               hop["bound_by"])
-    print(json.dumps({"card": smi, "layers": rows, "served": served,
-                      "customize": custom, "sga": sga, "imc_mav": mav,
+    print(json.dumps({"card": smi, "layers": rows, "widths": widths,
+                      "served": served, "customize": custom, "rgp": rgp,
+                      "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy}), flush=True)
     win = totals["window"]
@@ -1370,15 +1685,22 @@ def main() -> int:
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
-        f"{r2['bound_ms']:.6f} ms (device time); "
-        f"{custom['launches_rows']} launches on the customization path "
-        f"({custom['rounds']} rounds)")
+        f"{r2['bound_ms']:.6f} ms (device time); {rgp['launches_rows']} "
+        f"launches in the RGP session ({rgp['epochs']} epochs)")
+    ht = sga["head_train_rows"]
+    log(f"[summary] {smi}: head_train_rows B=3 x N=10, budgets "
+        f"{list(PER_TICK)}: kernel {ht['ms']:.5f} ms, plain "
+        f"{ht['plain_ms']:.4f} ms, bound {ht['bound_ms']:.6f} ms (device "
+        f"time); {custom['launches_head']} launches on the customization "
+        f"path ({custom['train_ticks']} training ticks, "
+        f"{custom['rounds']} rounds)")
     kernels = [{
         "name": "imc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
-    for name, n in (("sga_update_rows", custom["launches_rows"]),
+    for name, n in (("head_train_rows", custom["launches_head"]),
+                    ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):
         row = sga[name]
         kernels.append({

@@ -22,6 +22,10 @@ Random Gradient Prediction (Eq 4, ``rgp=True``) adds quantized normal
 noise to the gradients, drawn with ``core.jaxrand`` down the reference's
 key chain (``HeadState.key`` from ``PRNGKey(cfg.seed)``, a three-way
 ``split`` per epoch), so an RGP fine-tune is the reference's bit for bit.
+
+``head_train_spec`` and ``fused_head_route`` describe the loop to the
+fused kernel that runs a tick's whole budget of epochs in one launch
+(``kernels.sga_update.ops.head_train_batch``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core.quantize import (ACCUM_Q, ACT_Q, ERROR_Q, GRAD_Q,
                                        WEIGHT_Q, QFormat,
                                        error_scale_exponent)
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.sga_update import ops as sga_ops
 
 # ---------------------------------------------------------------------------
 # Hardware softmax: LUT exp + 8-bit division (paper §V-C)
@@ -55,7 +60,8 @@ _EXP_LUT = torch.round(torch.exp(
 _LUTS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _lut(device: torch.device) -> torch.Tensor:
+def train_lut(device: torch.device) -> torch.Tensor:
+    """The softmax LUT on ``device`` (also the fused kernel's operand)."""
     lut = _LUTS.get(device)
     if lut is None:
         lut = _LUTS[device] = _EXP_LUT.to(device)
@@ -69,7 +75,7 @@ def lut_softmax(logits_q: torch.Tensor) -> torch.Tensor:
     z = logits_q - torch.amax(logits_q, dim=-1, keepdim=True)
     idx = torch.clamp(torch.round((z - _LUT_MIN) / _LUT_STEP), 0,
                       _LUT_SIZE - 1)
-    e = _lut(logits_q.device)[idx.to(torch.int64)]
+    e = train_lut(logits_q.device)[idx.to(torch.int64)]
     denom = torch.sum(e, dim=-1, keepdim=True)
     p = e / torch.clamp(denom, min=1.0 / 256.0)
     return torch.round(p * 256.0) / 256.0
@@ -174,8 +180,10 @@ def epoch_grads(state: HeadState, epoch: int, features_q: torch.Tensor,
     error scaling (Eq 1-2), gradient quantization and, with ``rgp``, the
     Random Gradient Prediction noise.  Returns (gw, gb, lr, key):
     everything ``apply_update`` (or the batched ``sga_update`` kernel)
-    needs to transition the head state."""
-    n = features_q.shape[0]
+    needs to transition the head state.  The batch means divide by N as
+    a tensor: on CUDA PyTorch turns a division by a Python number into a
+    multiplication by its reciprocal, which is not the IEEE quotient."""
+    n = features_q.new_full((), float(features_q.shape[0]))
     lr = lr_schedule(cfg, epoch, device=features_q.device)
 
     logits = head_logits(features_q, state.w, state.b, cfg)
@@ -300,3 +308,58 @@ def head_accuracy(features: torch.Tensor, labels: torch.Tensor,
     logits = head_logits(feats, w, b, cfg)
     labels = labels.to(logits.device)
     return torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The fused route: a tick's epochs in one kernel launch
+# ---------------------------------------------------------------------------
+
+
+def _max_code(fmt: QFormat) -> int:
+    return max(-fmt.qmin, fmt.qmax)
+
+
+def head_train_exact(cfg: OnChipTrainConfig, n: int, d: int) -> bool:
+    """Whether every sum of the quantized head loop is exact in float32 in
+    any order, for n utterances of d features: the forward's
+    d max|act| max|w| + max|b| and the gradient's n max|act| max|err|,
+    each counted in units of its product grid, are at most 2**24.  The
+    paper formats (Q1.3.4 activations, Q1.7 weights and errors) hold it
+    at d = 576 for n up to 1024."""
+    a, w, e = (_max_code(f) for f in (cfg.act_fmt, cfg.weight_fmt,
+                                      cfg.error_fmt))
+    forward = d * a * w + w * 2 ** cfg.act_fmt.frac_bits
+    gradient = n * a * e
+    return max(forward, gradient) <= 2 ** 24
+
+
+def fused_head_route(cfg: OnChipTrainConfig, n: int, d: int, c: int
+                     ) -> bool:
+    """The rule that sends a session's training ticks to the fused kernel
+    (one launch per tick for all such sessions) rather than epoch by
+    epoch: a quantized loop with SGA and without RGP (whose noise is drawn
+    through ``core.jaxrand`` between the halves of an epoch), inside the
+    exactness bound (``head_train_exact``), whose state fits a block's
+    shared memory on an H100.  It reads the configuration and the buffer's
+    shape only, never the device or the data: the other sessions take the
+    per-epoch ``sga_update_rows`` launch, bitwise the same loop."""
+    return (cfg.quantized and cfg.sga and not cfg.rgp
+            and head_train_exact(cfg, n, d)
+            and sga_ops.head_train_smem(d, c, n) <= sga_ops.HEAD_SMEM_BYTES)
+
+
+def head_train_spec(cfg: OnChipTrainConfig) -> sga_ops.HeadTrainSpec:
+    """The fused kernel's launch constants for ``cfg`` (sessions with
+    equal specs share a launch)."""
+    fmt = lambda f: (f.scale, f.qmin, f.qmax)
+    return sga_ops.HeadTrainSpec(
+        act=fmt(cfg.act_fmt), error=fmt(cfg.error_fmt),
+        grad=fmt(cfg.grad_fmt), w_scale=cfg.weight_fmt.scale,
+        w_max=cfg.weight_fmt.max_value, a_scale=cfg.accum_fmt.scale,
+        lr_init=cfg.lr_init, lr_min=cfg.lr_min,
+        lr_halve_every=cfg.lr_halve_every,
+        error_scale=(cfg.fixed_error_scale if cfg.error_scaling else 1.0),
+        error_scale_mode=cfg.error_scale_mode,
+        error_scale_max_exponent=cfg.error_scale_max_exponent,
+        lut_min=_LUT_MIN, lut_step=_LUT_STEP)
+

@@ -54,19 +54,26 @@ def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
             .contiguous())
 
 
+def slot_bytes(cpg: int) -> int:
+    """Bytes of a group's int8 row: cpg channels rounded up to whole
+    32-deep k-steps of the tensor-core product."""
+    return -(-cpg // 32) * 32
+
+
 def pack_weights_s8(w: torch.Tensor, groups: int) -> torch.Tensor:
     """(K, cpg, C_out) ±1 -> the kernel's int8 B rows, (groups, K, cog,
-    32): row (g, j, n) holds w[j, c, g*cog + n] at byte c, zero for
-    cpg <= c < 32, one 32-deep int8 k-step of the tensor-core product.  A
-    kernel block copies its groups' rows to shared memory as they are.
-    Done once at fold time (``models.kws.pack_hw_params``), which models
-    programming the SRAM arrays."""
+    32 s) with s = ceil(cpg / 32): row (g, j, n) holds w[j, c, g*cog + n]
+    at byte c, zero for cpg <= c < 32 s, s 32-deep int8 k-steps of the
+    tensor-core product.  A kernel block copies its groups' rows to shared
+    memory as they are.  Done once at fold time
+    (``models.kws.pack_hw_params``), which models programming the SRAM
+    arrays."""
     k, cpg, c_out = w.shape
     cog = c_out // groups
-    if cpg > 32 or c_out % groups:
-        raise ValueError(f"pack_weights_s8: {cpg} channels per group (at "
-                         f"most 32) and {c_out} outputs in {groups} groups")
-    rows = torch.zeros((groups, k, cog, 32), dtype=torch.int8,
+    if c_out % groups:
+        raise ValueError(f"pack_weights_s8: {c_out} outputs do not split "
+                         f"into {groups} groups")
+    rows = torch.zeros((groups, k, cog, slot_bytes(cpg)), dtype=torch.int8,
                        device=w.device)
     rows[..., :cpg] = (w.reshape(k, cpg, groups, cog).permute(2, 0, 3, 1)
                        .to(torch.int8))
@@ -77,7 +84,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.imc_fused_launch.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.imc_fused_launch.restype = i
-    lib.imc_fused_plan.argtypes = [i] * 8 + [p]
+    lib.imc_fused_plan.argtypes = [i] * 9 + [p]
     lib.imc_fused_plan.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -119,14 +126,14 @@ def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
     {-1, 0, +1}; wq the int8 B rows (``pack_weights_s8``); bias, flip,
     off (C_out,); noise (B, T_out, C_out) or None.  Returns
     (B, T_out // pool, C_out) on PyTorch's current stream, without
-    synchronising.  A group's input channels are one int8 k-step, moved
-    four at a time: cpg must be a multiple of 4 and at most 32, and cog a
-    multiple of 4."""
+    synchronising.  Any group width runs; a layer whose smallest block
+    tile needs more shared memory than a block of the card has raises."""
     dev = x.device
     b, t, c_in = x.shape
     cpg = c_in // groups
     cog = wq.shape[2] if wq.dim() == 4 else -1
-    if (wq.dtype != torch.int8 or tuple(wq.shape) != (groups, k, cog, 32)
+    if (wq.dtype != torch.int8
+            or tuple(wq.shape) != (groups, k, cog, slot_bytes(cpg))
             or c_in != groups * cpg):
         raise ValueError(f"imc_fused: x {tuple(x.shape)} does not match "
                          f"weights {tuple(wq.shape)} {wq.dtype} (k={k}, "
@@ -134,10 +141,6 @@ def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
                          f"pack_weights_s8)")
     if wq.device != dev:
         raise ValueError(f"imc_fused: weights on {wq.device}, x on {dev}")
-    if cpg > 32 or cpg % 4 or cog % 4:
-        raise ValueError(f"imc_fused: {cpg} input and {cog} output channels "
-                         f"per group; the kernel takes multiples of 4, at "
-                         f"most 32 input channels")
     c_out = groups * cog
     t_out = (t - k) // stride + 1
     t_pool = t_out // pool
@@ -169,21 +172,24 @@ def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
             t_pool, t_out, _sm_count(dev), stream)
     if status == -1:
         raise ValueError(f"imc_fused: no block tile of {groups} groups x "
-                         f"{cog} channels fits the kernel's shared memory")
+                         f"{cpg} -> {cog} channels fits the shared memory "
+                         f"of a block of the card")
     kernels.check_launch(lib, "imc_fused", status)
     COUNTS.launches += 1
     return out
 
 
 def block_tile(b: int, t_pool: int, groups: int, cog: int, k: int,
-               stride: int, pool: int,
-               device: torch.device) -> Tuple[int, int, int]:
-    """The block tile K1's launch takes for a layer call on ``device``:
-    (pooled columns, groups, shared-memory bytes) per block; (0, 0, 0)
-    if none fits."""
+               stride: int, pool: int, device: torch.device,
+               cpg: int = 32) -> Tuple[int, int, int]:
+    """The block tile K1's launch takes for a layer call on ``device``
+    (``cpg`` input channels per group): (pooled columns, groups,
+    shared-memory bytes) per block; (0, 0, 0) if none fits."""
     tile = (ctypes.c_int * 2)()
-    nbytes = library().imc_fused_plan(b, t_pool, groups, cog, k, stride,
-                                      pool, _sm_count(device), tile)
+    with torch.cuda.device(device):
+        nbytes = library().imc_fused_plan(b, t_pool, groups, cog, k, cpg,
+                                          stride, pool, _sm_count(device),
+                                          tile)
     return tile[0], tile[1], nbytes
 
 

@@ -1,39 +1,72 @@
-"""Wrappers of the fused SGA update kernel (K2 row-batched, K3 flat).
+"""Wrappers of the SGA kernels: the fused update (K2 row-batched, K3
+flat) and a training tick's whole head-training budget in one launch.
 
 Port of ``repro/kernels/sga_update/ops.py``: ``sga_update_batch`` stacks
 every enrollment session's flattened optimizer state into one row each and
 transitions them all in ONE launch, each row with its own learning rate
-and threshold (the customization path, ``serving.customize``);
-``sga_update_tree`` applies the same update leaf by leaf with scalar
-operands.  Unlike the TPU kernels there is no padding of N to a block:
-the kernel guards its ragged tail.
+and threshold; ``sga_update_tree`` applies the same update leaf by leaf
+with scalar operands.  Unlike the TPU kernels there is no padding of N to
+a block: the kernel guards its ragged tail.
 
-For CUDA tensors the wrappers launch the hand-written kernel
+``head_train_batch`` runs, for every session row, its own budget of
+epochs of the quantized head loop (forward, LUT softmax, error scaling,
+gradients, SGA update) in one launch per call (up to ``HEAD_MAX_ROWS``
+rows): the customization path's training tick (``serving.customize``).
+
+For CUDA tensors the wrappers launch the hand-written kernels
 (``csrc/sga_update.cu``) and raise if they cannot; for CPU tensors they
-run the plain version (``ref.sga_update_ref``).  ``COUNTS_ROWS`` and
-``COUNTS_FLAT`` count the two entries' kernel launches, and nothing else.
+run the plain versions (``ref.py``).  ``COUNTS_ROWS``, ``COUNTS_FLAT``
+and ``COUNTS_HEAD`` count the three entries' kernel launches, and nothing
+else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import pathlib
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.sga_update.ref import sga_update_ref
+from repro_torch.kernels.sga_update.ref import (head_train_rows_ref,
+                                                sga_update_ref)
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "sga_update.cu"
 COUNTS_ROWS = kernels.LaunchCount()      # K2: sga_update_rows
 COUNTS_FLAT = kernels.LaunchCount()      # K3: sga_update
+COUNTS_HEAD = kernels.LaunchCount()      # head_train_rows
+
+# rows one head_train_rows launch takes (kHeadRows in the source), and the
+# shared memory a block of an H100 may have
+HEAD_MAX_ROWS = 48
+HEAD_SMEM_BYTES = 232448
 
 W_SCALE, W_MAX, A_SCALE = 1.0 / 128, 127.0 / 128, 2.0 ** -15
 
 
+class _HeadRow(ctypes.Structure):
+    """``HeadRowArg`` of the source: one session row of a launch."""
+    _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("aw", ctypes.c_void_p), ("ab", ctypes.c_void_p),
+                ("feats", ctypes.c_void_p), ("onehot", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("start", ctypes.c_int),
+                ("epochs", ctypes.c_int), ("unused", ctypes.c_int)]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.head_train_rows_launch.argtypes = ([p, i, p, i, i, p] + [f] * 8
+                                           + [i, i, f, i, p])
+    lib.head_train_rows_launch.restype = i
+    lib.head_train_max_rows.argtypes = []
+    lib.head_train_max_rows.restype = i
+    lib.head_train_smem.argtypes = [i, i, i]
+    lib.head_train_smem.restype = i
+    lib.head_error_exponent_launch.argtypes = [p, p, i, i, i, p]
+    lib.head_error_exponent_launch.restype = i
     lib.sga_update_rows_launch.argtypes = ([p] * 7 + [i, i] + [f] * 4
                                            + [p])
     lib.sga_update_rows_launch.restype = i
@@ -193,3 +226,159 @@ def sga_update_tree(params, grads, accums, lr: float, g_th: float):
         new_w.append(nw.reshape(shape))
         new_a.append(na.reshape(shape))
     return rebuild(new_w), rebuild(new_a)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadTrainSpec:
+    """The constants one ``head_train_rows`` launch shares across its rows
+    (``core.onchip_training.head_train_spec`` makes it from a train
+    config): the activation, error and gradient formats as (scale, qmin,
+    qmax) with power-of-two scales; the weight grid and clip (``w_scale``,
+    ``w_max``) and the bank grid ``a_scale``; the step-halving learning
+    rate; the error scale (a fixed factor, 1.0 without scaling, or None
+    for Eq (2)'s dynamic exponent with its mode and clamp); the softmax
+    LUT's first point and step."""
+
+    act: Tuple[float, int, int]
+    error: Tuple[float, int, int]
+    grad: Tuple[float, int, int]
+    w_scale: float
+    w_max: float
+    a_scale: float
+    lr_init: float
+    lr_min: float
+    lr_halve_every: int
+    error_scale: Optional[float]
+    error_scale_mode: str
+    error_scale_max_exponent: Optional[int]
+    lut_min: float
+    lut_step: float
+
+    def lr(self, epoch: int) -> np.float32:
+        """The learning rate at ``epoch``, in float32 as
+        ``onchip_training.lr_schedule`` computes it."""
+        lr = np.float32(self.lr_init) * np.float32(0.5) ** np.float32(
+            int(epoch) // self.lr_halve_every)
+        return np.maximum(lr, np.float32(self.lr_min))
+
+    def threshold(self, lr: np.float32) -> np.float32:
+        """Eq (3)'s G_th = (w_scale / 2) / lr, one float32 division."""
+        return np.float32(self.w_scale / 2.0) / np.float32(lr)
+
+
+def head_train_smem(d: int, c: int, n: int) -> int:
+    """Shared-memory bytes a ``head_train_rows`` block of an (n, d)
+    feature buffer and a (d, c) head needs at least: the state and its
+    banks, the 256-entry LUT, the (n, c) logits and a block maximum (the
+    features then read from L2)."""
+    return 4 * (2 * (d * c + c) + 256 + n * c + 16)
+
+
+def _fmts(spec: HeadTrainSpec):
+    vals = []
+    for scale, qmin, qmax in (spec.act, spec.error, spec.grad):
+        vals += [scale, 1.0 / scale, qmin, qmax]
+    return (ctypes.c_float * 12)(*vals)
+
+
+def head_train_rows(w: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
+                    accum_w: Sequence[torch.Tensor],
+                    accum_b: Sequence[torch.Tensor],
+                    feats: Sequence[torch.Tensor],
+                    onehot: Sequence[torch.Tensor], start: Sequence[int],
+                    epochs: Sequence[int], lut: torch.Tensor,
+                    spec: HeadTrainSpec) -> None:
+    """Launch the fused head training on CUDA tensors: row r runs epochs
+    ``start[r] .. start[r] + epochs[r] - 1`` on its head w[r] (D, C),
+    b[r] (C,) and banks accum_w[r], accum_b[r], with features feats[r]
+    (N_r, D) on the activation grid and one-hot labels onehot[r] (N_r, C),
+    all float32 and contiguous; ``lut`` is the (256,) softmax table.  The
+    state is updated in place on PyTorch's current stream, without
+    synchronising: one launch per ``HEAD_MAX_ROWS`` rows."""
+    rows = len(w)
+    if not rows:
+        return
+    dev = w[0].device
+    d, c = w[0].shape
+    lut = _state("lut", lut, (256,), dev)
+    args = []
+    for r in range(rows):
+        n = feats[r].shape[0]
+        for name, v, shape in (("w", w[r], (d, c)), ("b", b[r], (c,)),
+                               ("accum_w", accum_w[r], (d, c)),
+                               ("accum_b", accum_b[r], (c,)),
+                               ("feats", feats[r], (n, d)),
+                               ("onehot", onehot[r], (n, c))):
+            if _state(name, v, shape, dev) is not v:
+                raise ValueError(f"head_train_rows: {name} of row {r} must "
+                                 f"be contiguous (it is updated in place)")
+        if epochs[r] < 0 or start[r] < 0:
+            raise ValueError(f"head_train_rows: row {r} has start "
+                             f"{start[r]} and {epochs[r]} epochs")
+        args.append((w[r].data_ptr(), b[r].data_ptr(),
+                     accum_w[r].data_ptr(), accum_b[r].data_ptr(),
+                     feats[r].data_ptr(), onehot[r].data_ptr(), n,
+                     int(start[r]), int(epochs[r]), 0))
+    lo, hi = _bounds(spec.w_scale, spec.w_max)
+    if spec.error_scale is None:
+        mode = 2 if spec.error_scale_mode == "floor" else 1
+        fixed = 1.0
+    else:
+        mode, fixed = 0, float(np.float32(spec.error_scale))
+    max_exp = (2 ** 31 - 1 if spec.error_scale_max_exponent is None
+               else int(spec.error_scale_max_exponent))
+    fmts = _fmts(spec)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo_row in range(0, rows, HEAD_MAX_ROWS):
+            chunk = args[lo_row:lo_row + HEAD_MAX_ROWS]
+            table = (_HeadRow * len(chunk))(*[_HeadRow(*a) for a in chunk])
+            status = lib.head_train_rows_launch(
+                ctypes.addressof(table), len(chunk), lut.data_ptr(), d, c,
+                ctypes.addressof(fmts), spec.lut_min, 1.0 / spec.lut_step,
+                spec.w_scale, lo, hi, spec.a_scale, spec.lr_init,
+                spec.lr_min, spec.lr_halve_every, mode, fixed, max_exp,
+                stream)
+            if status == -1:
+                raise ValueError(
+                    f"head_train_rows: a ({d}, {c}) head with up to "
+                    f"{max(a[6] for a in chunk)} utterances does not fit "
+                    f"the shared memory of a block of the card")
+            kernels.check_launch(lib, "head_train_rows", status)
+            COUNTS_HEAD.launches += 1
+
+
+def head_error_exponent(m: torch.Tensor, mode: str = "ceil",
+                        max_exponent: Optional[int] = None) -> torch.Tensor:
+    """Eq (2)'s exponent of each max|err| in ``m`` (float32, >= 0, on a
+    card) as the fused kernel computes it, int32: the card check of that
+    arithmetic (``chip_smoke.py`` holds it against the exact exponent on
+    every value the loop can meet)."""
+    m = _state("m", m, tuple(m.shape), m.device).reshape(-1)
+    out = torch.empty(m.shape, dtype=torch.int32, device=m.device)
+    lib = library()
+    with torch.cuda.device(m.device):
+        status = lib.head_error_exponent_launch(
+            m.data_ptr(), out.data_ptr(), m.numel(),
+            2 if mode == "floor" else 1,
+            2 ** 31 - 1 if max_exponent is None else int(max_exponent),
+            torch.cuda.current_stream(m.device).cuda_stream)
+    kernels.check_launch(lib, "head_error_exponent", status)
+    return out
+
+
+def head_train_batch(w, b, accum_w, accum_b, feats, onehot, start, epochs,
+                     lut: torch.Tensor, spec: HeadTrainSpec) -> None:
+    """A training tick's head-training budget for every session row, in
+    place: the kernel (one launch) for CUDA tensors, the plain version
+    for CPU tensors.  Arguments as ``head_train_rows``."""
+    if not len(w):
+        return
+    if w[0].device.type == "cuda":
+        return head_train_rows(w, b, accum_w, accum_b, feats, onehot,
+                               start, epochs, lut, spec)
+    if w[0].device.type != "cpu":
+        raise ValueError(f"head_train_batch: no kernel for {w[0].device}")
+    return head_train_rows_ref(w, b, accum_w, accum_b, feats, onehot,
+                               start, epochs, lut, spec)

@@ -18,11 +18,15 @@ pipeline as scheduler-ticked background jobs:
    the scheduler, in the same batched launches as the inference streams
    (their bias deltas ride the per-slot pre-sign operand);
 4. **fine-tuning** (§III) — the quantized last-layer loop (error scaling
-   + SGA), a bounded number of epochs per tick; in every round, the
-   optimizer transitions of all training sessions are stacked into ONE
-   launch of the ``sga_update`` kernel (``kernels.sga_update.ops
-   .sga_update_batch``, a learning rate per row, since sessions sit at
-   different points of the schedule);
+   + SGA), a bounded number of epochs per tick.  Every tick runs the
+   whole budget of all its training sessions that share a configuration
+   in ONE launch of the fused head-training kernel
+   (``kernels.sga_update.ops.head_train_batch``: each session row its own
+   epochs from its own point of the schedule).  Sessions that draw RGP
+   noise, or lie outside the kernel's exactness bound
+   (``core.onchip_training.fused_head_route``), run epoch by epoch, the
+   optimizer transitions of each round stacked into one launch of the
+   ``sga_update`` kernel (``sga_update_batch``, a learning rate per row);
 5. **hot swap** — the finished profile (compensated biases + fine-tuned
    head) is written into the attached stream's per-slot rider rows (bias
    delta, FC head, silence fill); other slots are untouched.
@@ -49,8 +53,10 @@ import torch
 from repro_torch.core import energy, jaxrand
 from repro_torch.core.onchip_training import (HeadState, OnChipTrainConfig,
                                               apply_update, epoch_grads,
-                                              finetune_init, head_accuracy,
-                                              sga_threshold)
+                                              finetune_init,
+                                              fused_head_route,
+                                              head_accuracy, head_train_spec,
+                                              sga_threshold, train_lut)
 from repro_torch.core.quantize import ACT_Q
 from repro_torch.core.sa_noise import SANoiseField
 from repro_torch.kernels.sga_update import ops as sga_ops
@@ -69,10 +75,11 @@ class CustomizeConfig:
     this session; ``compensate`` runs the §IV-B test-mode bias
     compensation before fine-tuning (off: fine-tune on the enrollment
     features); ``calib_sa_noise_std``/``calib_seed`` are the test mode's
-    read-noise std and key chain seed; ``use_kernel`` routes the optimizer
-    transition through the batched ``sga_update`` kernel (off: the plain
-    ``apply_update``, bit-identical); ``auto_swap`` hot-swaps the result
-    into the attached stream the tick fine-tuning finishes."""
+    read-noise std and key chain seed; ``use_kernel`` routes the tick's
+    epochs through the kernels, the fused head training or the batched
+    ``sga_update`` (off: ``epoch_grads`` and the plain ``apply_update``,
+    bit-identical); ``auto_swap`` hot-swaps the result into the attached
+    stream the tick fine-tuning finishes."""
 
     train: OnChipTrainConfig = OnChipTrainConfig(epochs=200,
                                                  fixed_error_scale=1.375)
@@ -411,8 +418,12 @@ class CustomizationManager:
 
     def _train_round(self) -> None:
         """Run each training session's bounded epoch budget for this tick.
-        Within every round, the optimizer transitions of all kernel-routed
-        sessions sharing a weight/accumulator format are stacked into ONE
+        Kernel sessions on the fused route (``fused_head_route``) run
+        their whole budget in ONE ``head_train_batch`` launch per launch
+        spec (configuration and head shape), each row from its own epoch,
+        the state updated in place.  The others run round by round: in
+        every round the optimizer transitions of all kernel sessions
+        sharing a weight/accumulator format are stacked into ONE
         ``sga_update`` launch (a learning rate and threshold per row)."""
         active = [s for s in self.sessions if s.phase == "training"]
         if not active:
@@ -420,7 +431,44 @@ class CustomizationManager:
         budget = {s.sid: min(s.ccfg.epochs_per_tick,
                              s.ccfg.train.epochs - s._epoch)
                   for s in active}
-        for r in range(max(budget.values())):
+        fused: Dict[tuple, List[CustomizationSession]] = {}
+        stepwise = []
+        for s in active:
+            d, c = s._head.w.shape
+            if s.ccfg.use_kernel and fused_head_route(
+                    s.ccfg.train, s._featsq.shape[0], d, c):
+                key = (head_train_spec(s.ccfg.train), d, c)
+                fused.setdefault(key, []).append(s)
+            else:
+                stepwise.append(s)
+        for (spec, _, _), group in fused.items():
+            heads = [s._head for s in group]
+            sga_ops.head_train_batch(
+                [h.w for h in heads], [h.b for h in heads],
+                [h.accum_w for h in heads], [h.accum_b for h in heads],
+                [s._featsq for s in group], [s._onehot for s in group],
+                [s._epoch for s in group], [budget[s.sid] for s in group],
+                train_lut(self.srv.device), spec)
+            for s in group:
+                s._epoch += budget[s.sid]
+            self.srv._metrics.inc("customize.epochs",
+                                  sum(budget[s.sid] for s in group))
+        if stepwise:
+            self._step_rounds(stepwise, budget)
+        for s in active:
+            if budget[s.sid] > 0:
+                acc = float(head_accuracy(s._featsq, s._labels_t, s._head.w,
+                                          s._head.b, s.ccfg.train))
+                s.history.append({"epoch": s._epoch,
+                                  "train_accuracy": acc})
+            if s._epoch >= s.ccfg.train.epochs:
+                self._finish(s)
+
+    def _step_rounds(self, active, budget) -> None:
+        """The per-epoch route: ``epoch_grads`` for every session of a
+        round, then one ``sga_update`` launch per (weight, accum) format
+        group of kernel sessions and ``apply_update`` for the rest."""
+        for r in range(max(budget[s.sid] for s in active)):
             batch = [s for s in active if r < budget[s.sid]]
             if not batch:
                 break
@@ -448,14 +496,6 @@ class CustomizationManager:
             for s in batch:
                 s._epoch += 1
             self.srv._metrics.inc("customize.epochs", len(batch))
-        for s in active:
-            if budget[s.sid] > 0:
-                acc = float(head_accuracy(s._featsq, s._labels_t, s._head.w,
-                                          s._head.b, s.ccfg.train))
-                s.history.append({"epoch": s._epoch,
-                                  "train_accuracy": acc})
-            if s._epoch >= s.ccfg.train.epochs:
-                self._finish(s)
 
     def _kernel_update(self, sessions, grads) -> None:
         """One fused ``sga_update`` launch for every session row: flatten

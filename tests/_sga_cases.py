@@ -56,3 +56,33 @@ def sga_rows(seed, lrs, n=N_HEAD):
         g[r, idx] = 0.0
         a[r, next(i)] = 0.0
     return w, g, a, lr, g_th
+
+
+# logits (times -1/16) of an utterance with zero features: the LUT codes
+# of the softmax sum to 1536, so classes 4 and 9 sit at p * 256 = 21.5, a
+# tie of the 8-bit division's rounding
+TIE_KS = [0, 15, 1, 10, 11, 6, 8, 15, 13, 11]
+
+
+def head_rows(seed, ns, d=576, c=10):
+    """One session row per entry of ``ns`` (utterances): features on the
+    Q1.3.4 grid in [-1, 1], one-hot labels, a Q1.7 head and Q1.15 banks,
+    float32 numpy; row 0's first utterance has zero features and biases
+    that put its softmax on a tie (``TIE_KS``)."""
+    rng = np.random.default_rng(seed)
+    q7 = lambda x: (np.clip(np.round(x * 128), -128, 127) / 128).astype(
+        np.float32)
+    rows = []
+    for r, n in enumerate(ns):
+        f = (rng.integers(-16, 17, (n, d)) / 16).astype(np.float32)
+        labels = rng.integers(0, c, n)
+        w = q7(rng.normal(size=(d, c)) / np.sqrt(d))
+        b = q7(rng.normal(size=c) * 0.05)
+        if r == 0 and c == len(TIE_KS):
+            f[0] = 0.0
+            b = (-np.asarray(TIE_KS) / 16).astype(np.float32)
+        aw = (rng.integers(-3000, 3001, (d, c)) * LSB_A).astype(np.float32)
+        ab = (rng.integers(-3000, 3001, c) * LSB_A).astype(np.float32)
+        onehot = np.eye(c, dtype=np.float32)[labels]
+        rows.append(dict(f=f, onehot=onehot, w=w, b=b, aw=aw, ab=ab))
+    return rows

@@ -1,11 +1,14 @@
 """The port's Hopper kernels on a card: ``imc_fused`` (on ±1 and on
-{-1, 0, +1} activations, at every kind of block tile its launch plans), the fused SGA
-update (``sga_update_rows``, ``sga_update``), the per-group product tile
-``imc_mav`` and ``int8_matmul`` against their plain PyTorch versions, bit
-for bit; one ``imc_fused`` launch per IMC layer on the served paths (SA
-noise on too), one ``imc_mav`` launch per conv group, one
-``sga_update_rows`` launch per training round of the customization
-sessions; and the SA-noise field made on the card equal to the CPU's.
+{-1, 0, +1} activations, at every kind of block tile its launch plans and
+at group widths off the paper's), the fused SGA update
+(``sga_update_rows``, ``sga_update``), the fused head training
+(``head_train_rows``), the per-group product tile ``imc_mav`` and
+``int8_matmul`` against their plain PyTorch versions, bit for bit; one
+``imc_fused`` launch per IMC layer on the served paths (SA noise on too,
+and at cpg 6 and 48), one ``imc_mav`` launch per conv group, one
+``head_train_rows`` launch per training tick of the customization
+sessions and one ``sga_update_rows`` launch per epoch of an RGP session;
+and the SA-noise field made on the card equal to the CPU's.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -19,20 +22,21 @@ import pytest
 import torch
 
 from repro_torch.core import imc, jaxrand, sa_noise
+from repro_torch.core import onchip_training as ot
 from repro_torch.core.onchip_training import OnChipTrainConfig
 from repro_torch.kernels.imc_mav import ops, ref
 from repro_torch.kernels.int8_matmul import ops as i8_ops
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.sga_update import ops as sga_ops
+from repro_torch.kernels.sga_update import ref as sga_ref
 from repro_torch.kernels.sga_update.ref import sga_update_ref
 from repro_torch.models import kws
 from repro_torch.serving import CustomizeConfig
-from repro_torch.serving import customize as cz
 from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
 
-from _sga_cases import sga_rows
+from _sga_cases import head_rows, sga_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -186,21 +190,65 @@ def test_block_tiles_fill_the_card(dev, hop):
                 assert blocks >= sms
 
 
+# (c_in, c_out, groups): group widths off the paper's cpg 24 (cpg 6, 18,
+# 40, 48: two int8 k-steps a tap; cog 9, 18, 48), and the IMC layers of
+# KWSConfig(channels_per_group=6) and of the cpg-48 net
+GROUP_WIDTHS = [
+    pytest.param(24, 36, 4, id="cpg6-cog9"),
+    pytest.param(36, 48, 2, id="cpg18"),
+    pytest.param(96, 72, 4, id="cog18"),
+    pytest.param(80, 96, 2, id="cpg40"),
+    pytest.param(80, 36, 2, id="cpg40-cog18"),
+    pytest.param(96, 18, 2, id="cpg48-cog9"),
+    pytest.param(24, 96, 4, id="cpg6-L2"), pytest.param(96, 192, 16,
+                                                        id="cpg6-L3"),
+    pytest.param(192, 288, 32, id="cpg6-L4"),
+    pytest.param(288, 384, 48, id="cpg6-L5"),
+    pytest.param(384, 576, 64, id="cpg6-L6"),
+    pytest.param(48, 96, 1, id="cpg48-L2"), pytest.param(96, 192, 2,
+                                                         id="cpg48-L3"),
+    pytest.param(192, 288, 4, id="cpg48-L4"),
+    pytest.param(288, 384, 6, id="cpg48-L5"),
+    pytest.param(384, 576, 8, id="cpg48-L6"),
+]
+
+
+@pytest.mark.parametrize("kind", ["pm1", "zero_streams", "ternary"])
+@pytest.mark.parametrize("c_in,c_out,groups", GROUP_WIDTHS)
+def test_kernel_matches_plain_version_at_group_widths(dev, c_in, c_out,
+                                                      groups, kind):
+    """Any cpg and cog that divide the layer: one launch, the plain
+    version's result, on ±1, zero-stream and ternary rows, without and
+    with offsets and noise, on a full-window and a hop-tail length."""
+    for t in (301, 9):
+        x, w, bias, flip, off, noise = _inputs(c_out + t, 4, t, c_in, c_out,
+                                               groups, 1, dev, kind)
+        for o, n in ((None, None), (off, None), (off, noise)):
+            ops.COUNTS.reset()
+            got = ops.fused_conv_mav(x, w, bias, flip, groups=groups, pool=2,
+                                     chip_offset=o, sa_noise=n)
+            want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=groups,
+                                          pool=2, chip_offset=o, sa_noise=n)
+            torch.cuda.synchronize()
+            assert ops.COUNTS.launches == 1
+            assert torch.equal(got, want), (t, o is None, n is None)
+
+
 def test_kernel_rejects_group_widths_it_does_not_take(dev):
-    for c_in, c_out, groups in ((80, 96, 2), (96, 72, 4), (36, 48, 2)):
-        x, w, bias, flip, _, _ = _inputs(1, 2, 40, c_in, c_out, groups, 1,
-                                         dev)
-        rows = torch.zeros((groups, 3, c_out // groups, 32),
-                           dtype=torch.int8, device=dev)
-        with pytest.raises(ValueError, match="multiples of 4"):
-            ops.fused_conv_mav(x, w, bias, flip, groups=groups, packed=rows)
-    # a group of 1024 outputs: its int8 rows alone pass the shared-memory
-    # budget of any block tile
-    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 32, 1024, 1, 1, dev)
+    """The wrapper refuses only a layer whose smallest block tile needs
+    more shared memory than a block of the card has: here a group of 4096
+    outputs, whose int8 rows alone pass it; wide groups that fit the card
+    but not the planner's 72 KB budget launch."""
+    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 32, 4096, 1, 1, dev)
     ops.COUNTS.reset()
     with pytest.raises(ValueError, match="no block tile"):
         ops.fused_conv_mav(x, w, bias, flip, groups=1)
     assert ops.COUNTS.launches == 0
+    x, w, bias, flip, _, _ = _inputs(1, 2, 40, 32, 1024, 1, 1, dev)
+    assert ops.block_tile(2, 19, 1, 1024, 3, 1, 2, dev)[2] > 72 * 1024
+    got = ops.fused_conv_mav(x, w, bias, flip, groups=1, pool=2)
+    assert torch.equal(got, ref.fused_conv_mav_ref(x, w, bias, flip,
+                                                   groups=1, pool=2))
 
 
 def test_kernel_rejects_mismatched_operands(dev):
@@ -284,6 +332,44 @@ def test_server_kernel_equals_plain_version(dev):
     assert n_p == 0
 
 
+@pytest.mark.parametrize("kw", [
+    dict(channels_per_group=6),
+    dict(channels=(48, 96, 192, 288, 384, 576), channels_per_group=48)],
+    ids=["cpg6", "cpg48"])
+def test_server_kernel_equals_plain_version_at_group_widths(dev, kw):
+    """The nets of cpg 6 and 48 serve on the card: the kernel and plain
+    routes give the same events and state leaves, one ``imc_fused`` launch
+    per IMC layer and batched call."""
+    cfg = kws.KWSConfig(sample_len=L, **kw)
+    hw = _hw(dev, cfg)
+    rng = np.random.default_rng(13)
+    auds = []
+    for _ in range(3):
+        x = rng.uniform(-1, 1, L + 12 * HOP).astype(np.float32)
+        x[L + 2 * HOP:L + 7 * HOP] *= 1e-4
+        auds.append(x)
+    runs = []
+    for use_kernel in (True, False):
+        srv = StreamServer(hw, cfg, hop=HOP, slots=2, vad=VADConfig(),
+                           use_kernel=use_kernel, device=dev)
+        for i, x in enumerate(auds):
+            srv.submit(f"s{i}", x)
+            srv.finish(f"s{i}")
+        ops.COUNTS.reset()
+        events = srv.drain()
+        runs.append((events, srv.stats(), ops.COUNTS.launches, srv))
+    (ev_k, st_k, n_k, srv_k), (ev_p, _, n_p, srv_p) = runs
+    assert ev_k == ev_p and ev_k
+    st_a, st_b = srv_k._state, srv_p._state
+    for a, b in zip([st_a.audio_carry, *st_a.carries, st_a.ring, st_a.hop],
+                    [st_b.audio_carry, *st_b.carries, st_b.ring, st_b.hop]):
+        assert torch.equal(a, b)
+    calls = st_k["batched_calls"]
+    assert st_k["gated_hops"] > 0 and calls["replay"] > 0
+    assert n_k == 5 * (calls["init"] + calls["hop"] + calls["replay"])
+    assert n_p == 0
+
+
 @pytest.mark.parametrize("lrs", [[1 / 16], [1 / 16, 1 / 128],
                                  [1 / 16, 0.05, 1 / 32, 1 / 128, 0.03,
                                   1 / 64, 0.1, 1 / 8]],
@@ -328,24 +414,25 @@ def test_sga_kernel_rejects_mismatched_operands(dev):
 
 
 def test_sessions_launch_one_sga_update_per_round(dev, monkeypatch):
-    """Two concurrent sessions on the card: one ``sga_update_rows``
-    launch per training round, ``imc_fused`` still once per IMC layer and
-    batched call, and the same results and events as the plain route and
-    as the CPU path (``score`` within 1e-6 there)."""
+    """Two concurrent sessions on the card: one ``head_train_rows`` launch
+    per training tick for both rows, no per-epoch ``sga_update_rows``,
+    ``imc_fused`` still once per IMC layer and batched call, and the same
+    results and events as the plain route and as the CPU path (``score``
+    within 1e-6 there)."""
     cfg = kws.KWSConfig(sample_len=L)
     hw = _hw(dev, cfg)
     rng = np.random.default_rng(4)
     live = rng.uniform(-1, 1, L + 50 * HOP).astype(np.float32)
     utts = [rng.uniform(-1, 1, L).astype(np.float32) for _ in range(6)]
     labels = [int(v) for v in rng.integers(0, cfg.num_classes, 6)]
-    rounds = []
-    update = cz.CustomizationManager._kernel_update
+    ticks = []
+    fused = sga_ops.head_train_batch
 
-    def counted(self, sessions, grads):
-        rounds.append(len(sessions))
-        return update(self, sessions, grads)
+    def counted(w, *args):
+        ticks.append(len(w))
+        return fused(w, *args)
 
-    monkeypatch.setattr(cz.CustomizationManager, "_kernel_update", counted)
+    monkeypatch.setattr(sga_ops, "head_train_batch", counted)
 
     def run(device, use_kernel):
         hw_d = hw if device == dev else _to_cpu(hw)
@@ -361,9 +448,10 @@ def test_sessions_launch_one_sga_update_per_round(dev, monkeypatch):
             sess.finish_enrollment()
             sessions.append(sess)
         srv.submit("live", live[:L])
-        rounds.clear()
+        ticks.clear()
         ops.COUNTS.reset()
         sga_ops.COUNTS_ROWS.reset()
+        sga_ops.COUNTS_HEAD.reset()
         events, pos = [], L
         for _ in range(200):
             if pos < len(live):
@@ -373,16 +461,18 @@ def test_sessions_launch_one_sga_update_per_round(dev, monkeypatch):
             if all(s.phase == "swapped" for s in sessions):
                 break
         assert all(s.phase == "swapped" for s in sessions)
-        return dict(events=events, stats=srv.stats(), rounds=list(rounds),
-                    sga=sga_ops.COUNTS_ROWS.launches,
+        return dict(events=events, stats=srv.stats(), ticks=list(ticks),
+                    head=sga_ops.COUNTS_HEAD.launches,
+                    rows=sga_ops.COUNTS_ROWS.launches,
                     imc=ops.COUNTS.launches,
                     results=[s.result for s in sessions])
 
     kern, plain = run(dev, True), run(dev, False)
     cpu = run(torch.device("cpu"), True)
-    assert kern["sga"] == len(kern["rounds"]) == len(cpu["rounds"])
-    assert 23 <= kern["sga"] < 46 and 2 in kern["rounds"]
-    assert plain["sga"] == 0 and plain["rounds"] == []
+    assert kern["head"] == len(kern["ticks"]) == len(cpu["ticks"])
+    assert kern["rows"] == 0 and 2 in kern["ticks"]
+    assert 23 // 5 <= kern["head"] < 23
+    assert plain["head"] == plain["rows"] == 0 and plain["ticks"] == []
     calls = kern["stats"]["batched_calls"]
     assert kern["imc"] == 5 * (calls["init"] + calls["hop"]
                                + calls["replay"])
@@ -403,6 +493,126 @@ def test_sessions_launch_one_sga_update_per_round(dev, monkeypatch):
             assert r_k.history == r.history
             for name in cfg.imc_layer_names():
                 assert np.array_equal(r_k.bias[name], r.bias[name])
+
+
+def test_rgp_session_takes_one_sga_update_per_epoch(dev):
+    """An RGP session on the card trains epoch by epoch: one
+    ``sga_update_rows`` launch per epoch and no fused launch; its head
+    equals the plain route's and the CPU path's (the noise drawn through
+    ``core.jaxrand`` on the card equals the CPU's)."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    rng = np.random.default_rng(8)
+    utts = [rng.uniform(-1, 1, L).astype(np.float32) for _ in range(3)]
+    labels = [int(v) for v in rng.integers(0, cfg.num_classes, 3)]
+    results = []
+    for device, use_kernel in ((dev, True), (dev, False), ("cpu", True)):
+        srv = StreamServer(hw if device == dev else _to_cpu(hw), cfg,
+                           hop=HOP, slots=2, device=device)
+        sess = srv.customize("user", CustomizeConfig(
+            train=OnChipTrainConfig(epochs=12, rgp=True, seed=3),
+            epochs_per_tick=5, compensate=False, use_kernel=use_kernel))
+        for lab, u in zip(labels, utts):
+            sess.enroll(lab, u)
+        sess.finish_enrollment()
+        sga_ops.COUNTS_ROWS.reset()
+        sga_ops.COUNTS_HEAD.reset()
+        for _ in range(60):
+            srv.step()
+            if sess.phase == "swapped":
+                break
+        assert sess.phase == "swapped"
+        results.append((sess.result, sga_ops.COUNTS_ROWS.launches,
+                        sga_ops.COUNTS_HEAD.launches))
+    (r_k, n_k, h_k), (r_p, n_p, h_p), (r_c, _, _) = results
+    assert (n_k, h_k, n_p, h_p) == (12, 0, 0, 0)
+    for r in (r_p, r_c):
+        assert np.array_equal(r_k.fc_w, r.fc_w)
+        assert np.array_equal(r_k.fc_b, r.fc_b)
+
+
+@pytest.mark.parametrize("mode,max_exponent", [("ceil", None),
+                                               ("floor", None),
+                                               ("ceil", 2)])
+def test_head_train_exponent_on_every_grid_value(dev, mode, max_exponent):
+    """The fused kernel's Eq (2) exponent, read from the quotient's bits,
+    equals the CPU's ``error_scale_exponent`` on all 257 values k / 256."""
+    grid = torch.arange(257, dtype=torch.float32) / 256.0
+    got = sga_ops.head_error_exponent(grid.to(dev), mode, max_exponent)
+    from repro_torch.core import quantize
+    want = [int(quantize.error_scale_exponent(v[None], mode, max_exponent))
+            for v in grid]
+    assert got.tolist() == want
+
+
+def _head_inputs(dev, ns, seed):
+    rows = head_rows(seed, ns)
+    return {k: [torch.tensor(r[k], device=dev) for r in rows]
+            for k in ("w", "b", "aw", "ab", "f", "onehot")}
+
+
+@pytest.mark.parametrize("scaling", [
+    dict(fixed_error_scale=1.375), dict(), dict(error_scale_mode="floor",
+                                                error_scale_max_exponent=3),
+    dict(error_scaling=False)], ids=["fixed", "ceil", "floor-max3", "none"])
+@pytest.mark.parametrize("b", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", [1, 10, 64])
+def test_head_train_kernel_matches_plain_version(dev, b, n, scaling):
+    """B session rows of N utterances at the paper head (576 x 10), each
+    from its own epoch with its own budget, in one launch: the state the
+    plain version reaches, bitwise (row 0 holds a softmax tie)."""
+    starts = [(0, 13, 35, 190, 7, 99, 41, 3)[i] for i in range(b)]
+    budgets = [(10, 7, 10, 10, 1, 4, 0, 9)[i] for i in range(b)]
+    ns = [n if i % 2 == 0 else max(1, n - 3) for i in range(b)]
+    spec = ot.head_train_spec(OnChipTrainConfig(**scaling))
+    got, want = (_head_inputs(dev, ns, 100 * b + n) for _ in range(2))
+    args = lambda t: (t["w"], t["b"], t["aw"], t["ab"], t["f"], t["onehot"],
+                      starts, budgets, ot.train_lut(dev), spec)
+    sga_ops.COUNTS_HEAD.reset()
+    sga_ops.head_train_batch(*args(got))
+    assert sga_ops.COUNTS_HEAD.launches == 1
+    sga_ref.head_train_rows_ref(*args(want))
+    torch.cuda.synchronize()
+    for k in ("w", "b", "aw", "ab"):
+        for x, y in zip(got[k], want[k]):
+            assert torch.equal(x, y), k
+
+
+def test_head_train_launches_per_row_chunk(dev):
+    """More rows than one launch's parameters hold: one launch per
+    ``HEAD_MAX_ROWS`` rows, each row still the plain version's; the
+    Python constants agree with the source."""
+    lib = sga_ops.library()
+    assert lib.head_train_max_rows() == sga_ops.HEAD_MAX_ROWS
+    assert lib.head_train_smem(576, 10, 64) == sga_ops.head_train_smem(
+        576, 10, 64)
+    b = sga_ops.HEAD_MAX_ROWS + 3
+    spec = ot.head_train_spec(OnChipTrainConfig())
+    got, want = (_head_inputs(dev, [4] * b, 7) for _ in range(2))
+    args = lambda t: (t["w"], t["b"], t["aw"], t["ab"], t["f"], t["onehot"],
+                      list(range(b)), [2] * b, ot.train_lut(dev), spec)
+    sga_ops.COUNTS_HEAD.reset()
+    sga_ops.head_train_batch(*args(got))
+    assert sga_ops.COUNTS_HEAD.launches == 2
+    sga_ref.head_train_rows_ref(*args(want))
+    torch.cuda.synchronize()
+    for k in ("w", "b", "aw", "ab"):
+        for x, y in zip(got[k], want[k]):
+            assert torch.equal(x, y), k
+
+
+def test_head_train_rejects_what_it_cannot_update_in_place(dev):
+    t = _head_inputs(dev, [3], 1)
+    spec = ot.head_train_spec(OnChipTrainConfig())
+    lut = ot.train_lut(dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        sga_ops.head_train_batch([t["w"][0].t().contiguous().t()], t["b"],
+                                 t["aw"], t["ab"], t["f"], t["onehot"], [0],
+                                 [1], lut, spec)
+    with pytest.raises(ValueError, match="float32"):
+        sga_ops.head_train_batch([t["w"][0].double()], t["b"], t["aw"],
+                                 t["ab"], t["f"], t["onehot"], [0], [1], lut,
+                                 spec)
 
 
 def _to_cpu(hw):

@@ -1,7 +1,7 @@
 """The port's customization path against the JAX package's offline loop,
 on the CPU: the offline pieces themselves, a session without
-compensation, two concurrent sessions sharing one optimizer launch per
-round, ``install_custom`` against a server on the refolded net, and the
+compensation, two concurrent sessions sharing one fused head-training
+launch per tick, ``install_custom`` against a server on the refolded net, and the
 calibration read noise (held bitwise: the port draws JAX's numbers).
 
 Bitwise throughout: compensated biases, features and fine-tuned heads.
@@ -164,18 +164,25 @@ def test_session_without_compensation_matches_jax(nets):
 def test_two_sessions_share_one_optimizer_launch_per_round(nets,
                                                            monkeypatch):
     """Two concurrent sessions at different epochs_per_tick sit at
-    different points of the LR schedule; every round in which either
-    trains stacks both (or the one left) into ONE batched update, and each
-    session still lands on its own offline loop."""
+    different points of the LR schedule; every tick in which either
+    trains runs both budgets (or the one left) in ONE fused head-training
+    call, each row from its own epoch, and each session still lands on
+    its own offline loop (dynamic error scaling: ``fixed_error_scale``
+    is None)."""
     hw_j, hw_t, chip = nets
-    calls = []
-    batch = sga_ops.sga_update_batch
+    calls, per_epoch = [], []
+    fused, batch = sga_ops.head_train_batch, sga_ops.sga_update_batch
 
-    def counted(w, g, a, lr, g_th, **kw):
-        calls.append(tuple(lr.tolist()))
-        return batch(w, g, a, lr, g_th, **kw)
+    def counted(w, b, aw, ab, feats, onehot, start, epochs, lut, spec):
+        calls.append((tuple(start), tuple(epochs)))
+        return fused(w, b, aw, ab, feats, onehot, start, epochs, lut, spec)
 
-    monkeypatch.setattr(sga_ops, "sga_update_batch", counted)
+    def counted_rows(*args, **kw):
+        per_epoch.append(1)
+        return batch(*args, **kw)
+
+    monkeypatch.setattr(sga_ops, "head_train_batch", counted)
+    monkeypatch.setattr(sga_ops, "sga_update_batch", counted_rows)
     srv = StreamServer(hw_t, CFG, hop=HOP, slots=9, chip_offsets=chip,
                        vad=VADConfig(), device="cpu")
     data = [_utterances(3, 10), _utterances(3, 11)]
@@ -194,11 +201,13 @@ def test_two_sessions_share_one_optimizer_launch_per_round(nets,
     for sess, (_, labels) in zip(sessions, data):
         _assert_result(sess.result, *_jax_offline(
             hw_j, chip, np.stack(sess.windows), labels))
-    # one launch per round; both rows while both train, at differing lrs
+    # one call per tick; both rows while both train, at differing epochs
+    assert per_epoch == []
     assert len(calls) < 2 * EPOCHS
-    assert sum(len(c) for c in calls) == 2 * EPOCHS
-    two = [c for c in calls if len(c) == 2]
-    assert two and any(c[0] != c[1] for c in two)
+    assert sum(sum(e) for _, e in calls) == 2 * EPOCHS
+    two = [c for c in calls if len(c[0]) == 2]
+    assert two and any(s[0] != s[1] for s, _ in two)
+    assert all(e <= 5 for _, es in calls for e in es)
     st = srv.stats()["customization"]
     assert st["epochs_total"] == 2 * EPOCHS and st["swaps"] == 2
 

@@ -6,13 +6,15 @@ On the CPU the port's wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas ``imc_fused`` kernel in interpret mode and its
 count-exact oracle.  Cases: the five paper IMC layer shapes, no offset /
 chip offset / chip offset plus an explicit pre-sign noise operand, the
-streaming ``_step`` entry, and a stride-2 layer whose conv length leaves a
-pool remainder.  The kernel's input contract is pinned here too: the
-plain version on activations in {-1, 0, +1} (and with whole streams of
-zeros, as free slots carry them) equals the JAX oracle, and a served run
-sends the fused layer nothing else.  The fold-time int8 weights and the
-wrapper's refusals are checked as far as a CPU reaches.  tests/test_torch_cuda.py holds the Hopper kernel itself
-against the plain version on a card.
+streaming ``_step`` entry, and a stride-2 layer whose conv length leaves
+a pool remainder (group widths off the paper's are in
+tests/test_torch_group_widths.py).  The kernel's input contract is pinned here too: the plain
+version on activations in {-1, 0, +1} (and with whole streams of zeros,
+as free slots carry them) equals the JAX oracle, and a served run sends
+the fused layer nothing else.  The fold-time int8 weights and the
+wrapper's checks are tested as far as a CPU reaches.
+tests/test_torch_cuda.py holds the Hopper kernel itself against the plain
+version on a card.
 """
 
 import jax.numpy as jnp
@@ -242,18 +244,22 @@ def test_served_activations_are_ternary_and_hold_zeros(monkeypatch):
 
 def test_pack_weights_s8_rows():
     """The fold-time int8 B rows: row (g, j, n) holds w[j, :, g*cog + n]
-    in its first cpg bytes and zeros after."""
+    in its first cpg bytes and zeros after, in whole 32-byte k-steps: one
+    for cpg 24, two for cpg 40 (s = 2), one for cpg 6."""
     rng = np.random.default_rng(8)
-    w = torch.tensor(_pm1(rng, (3, 24, 96)))
-    q = ops.pack_weights_s8(w, 4)
-    assert q.shape == (4, 3, 24, 32) and q.dtype == torch.int8
-    assert q.is_contiguous()
-    for g in range(4):
-        assert torch.equal(q[g, :, :, :24].float(),
-                           w[:, :, g * 24:(g + 1) * 24].permute(0, 2, 1))
-    assert not q[..., 24:].any()
-    with pytest.raises(ValueError, match="at most 32"):
-        ops.pack_weights_s8(torch.ones(3, 40, 80), 2)
+    for (cpg, c_out, groups), slot in (((24, 96, 4), 32), ((40, 36, 2), 64),
+                                       ((6, 36, 4), 32)):
+        w = torch.tensor(_pm1(rng, (3, cpg, c_out)))
+        q = ops.pack_weights_s8(w, groups)
+        cog = c_out // groups
+        assert q.shape == (groups, 3, cog, slot) and q.dtype == torch.int8
+        assert q.is_contiguous() and ops.slot_bytes(cpg) == slot
+        for g in range(groups):
+            assert torch.equal(q[g, :, :, :cpg].float(),
+                               w[:, :, g * cog:(g + 1) * cog].permute(0, 2, 1))
+        assert not q[..., cpg:].any()
+    with pytest.raises(ValueError, match="do not split"):
+        ops.pack_weights_s8(torch.ones(3, 40, 81), 2)
 
 
 def test_hw_params_pack_int8_rows():
@@ -265,23 +271,6 @@ def test_hw_params_pack_int8_rows():
     for i, name in enumerate(cfg.imc_layer_names(), start=1):
         assert torch.equal(hw.packed[name], ops.pack_weights_s8(
             hw.hw.w_bin[name], cfg.groups(i)))
-
-
-@pytest.mark.parametrize("c_in,c_out,groups", [(80, 96, 2), (96, 72, 4),
-                                              (36, 48, 2)],
-                         ids=["cpg40", "cog18", "cpg18"])
-def test_kernel_wrapper_refuses_group_widths_it_does_not_take(c_in, c_out,
-                                                              groups):
-    """The kernel takes a group's input channels as one int8 k-step moved
-    four at a time: the wrapper raises before any launch (here on CPU
-    tensors, which never reach a kernel)."""
-    x, _, bias, flip, _, _ = _layer_inputs(2, 1, 12, c_in, c_out, groups, 1,
-                                           "clean")
-    rows = torch.zeros((groups, 3, c_out // groups, 32), dtype=torch.int8)
-    t = torch.as_tensor
-    with pytest.raises(ValueError, match="multiples of 4"):
-        ops.imc_fused(t(x), rows, t(bias), t(flip), None, None, k=3,
-                      groups=groups, stride=1, pool=1)
 
 
 @pytest.mark.parametrize("form", ["fp32-group-major", "fp32-rows",
