@@ -62,11 +62,12 @@ result line):
    arithmetic, against the exact one for all 257 values the quantized
    loop can meet;
 5. ``imc_mav`` (K5) on the per-group patch shapes of conv1..conv5 at a
-   full window (B = 8), float32 and bfloat16, clean and with a noise
-   operand, and ``int8_matmul`` (K4) at 512 x 128 x 128 (shifts 0, 4, 7)
-   and at the FC head's 8 x 576 x 10, bitwise against their plain
-   versions, with their times, bounds, the float32 matmul of K5's product
-   alone and ``torch._int_mm`` (K4's product alone);
+   full window (B = 8), on ±1 and on {-1, 0, +1} operands, float32 and
+   bfloat16, clean and with a noise operand, and ``int8_matmul`` (K4) at
+   512 x 128 x 128 (shifts 0, 4, 7; its tiled plan) and at the FC head's
+   8 x 576 x 10 (its split-K plan), bitwise against their plain versions,
+   with their planned tiles, times, bounds, the float32 matmul of K5's
+   product alone and ``torch._int_mm`` (K4's product alone);
 6. the per-group hardware forward at full width (``grouploop_forward``:
    ``conv_mav`` per IMC layer, 41 K5 launches, and the FC through
    ``quantized_fc``, one K4 launch, both counted): clean logits equal to
@@ -93,10 +94,12 @@ least time the card could take for the same bytes and operations.
 ``head_train_rows`` row is one launch at the customization path's shape
 (three session rows of 10 utterances, budgets 10, 7, 10) with its
 launches in phase 4's run; the ``sga_update_rows`` row counts the RGP
-run's launches.  The ``imc_mav`` row is one per-group forward's 41 launches at a full window
-(its launches counted in phase 6), the ``int8_matmul`` row the FC head's
-shape (its ``library_ms`` is ``torch._int_mm`` on the operands
-zero-padded to 32 x 576 x 16, the product alone).  Without a CUDA device,
+run's launches.  The ``imc_mav`` row is one per-group forward's 41
+launches at a full window (its launches counted in phase 6; its
+``library_ms`` is the float32 ``torch.matmul`` of the 41 products alone),
+the ``int8_matmul`` row the FC head's shape (its ``library_ms`` is
+``torch._int_mm`` on the operands zero-padded to 32 x 576 x 16, the
+product alone).  Without a CUDA device,
 or outside a checkout, the script exits non-zero.
 
     python3 chip_smoke.py --layers [DIR]
@@ -104,6 +107,11 @@ or outside a checkout, the script exits non-zero.
 runs phase 2 alone, against the port in the checkout DIR (default: this
 one), and prints no result line: run it on an unpacked older commit and
 on this one in turns, in one chip call, to compare two versions of K1.
+
+    python3 chip_smoke.py --tiles [DIR]
+
+runs phase 5 alone (K5 and K4: checks, planned tiles, times) against the
+port in DIR in the same way, to compare two versions of K5 and K4.
 """
 
 from __future__ import annotations
@@ -902,11 +910,13 @@ def _group_shapes(cfg):
 
 def phase_mav_kernels(torch, dev):
     """K5 on the per-group patch shapes of conv1..conv5 at a full window
-    (B = 8), float32 and bfloat16, clean and with a noise operand, bitwise
-    against the plain version; its times beside the bound and the float32
-    ``torch.matmul`` of the product alone.  K4 at 512 x 128 x 128 (shifts
-    0, 4, 7) and at the FC head's 8 x 576 x 10, bitwise; times beside the
-    bound and ``torch._int_mm`` (the int8 product alone)."""
+    (B = 8), float32 and bfloat16, clean and with a noise operand, on ±1
+    and on {-1, 0, +1} operands, bitwise against the plain version; its
+    times beside the bound and the float32 ``torch.matmul`` of the product
+    alone.  K4 at 512 x 128 x 128 (shifts 0, 4, 7) and at the FC head's
+    8 x 576 x 10, bitwise; times beside the bound and ``torch._int_mm``
+    (the int8 product alone).  Each kernel's planned tile where the port
+    reports it (an older checkout, ``--tiles DIR``, may not)."""
     from repro_torch.kernels.imc_mav import ops, ref
     from repro_torch.kernels.int8_matmul import ops as i8_ops
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
@@ -919,25 +929,33 @@ def phase_mav_kernels(torch, dev):
         return (torch.randint(0, 2, shape, generator=gen, device=dev)
                 .float() * 2 - 1)
 
+    def ternary(*shape):
+        return torch.randint(-1, 2, shape, generator=gen, device=dev).float()
+
     mav = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "matmul_ms": 0.0,
            "max_abs_err": 0.0, "bytes": 0, "ops": 0, "rows": []}
     for i, g, m, k, n, _, _ in _group_shapes(cfg):
-        x, w, flip = pm1(m, k), pm1(k, n), pm1(n)
+        flip = pm1(n)
         bias = torch.round(torch.randn(n, generator=gen, device=dev) * 8) * 2
         noise = torch.randn((m, n), generator=gen, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            for nz in (None, noise):
-                got = ops.mav_matmul(x.to(dtype), w.to(dtype), bias, flip, nz)
-                want = ref.imc_mav_ref(x.to(dtype), w.to(dtype), bias, flip,
-                                       nz)
-                torch.cuda.synchronize()
-                mav["max_abs_err"] = max(mav["max_abs_err"], float(
-                    (got.float() - want.float()).abs().max()))
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"imc_mav conv{i} {dtype} noise={nz is not None}: "
-                        f"kernel differs from the plain version on "
-                        f"{(got != want).sum().item()} of {got.numel()}")
+        for kind, make in (("pm1", pm1), ("ternary", ternary)):
+            x, w = make(m, k), make(k, n)
+            for dtype in (torch.float32, torch.bfloat16):
+                for nz in (None, noise):
+                    got = ops.mav_matmul(x.to(dtype), w.to(dtype), bias,
+                                         flip, nz)
+                    want = ref.imc_mav_ref(x.to(dtype), w.to(dtype), bias,
+                                           flip, nz)
+                    torch.cuda.synchronize()
+                    mav["max_abs_err"] = max(mav["max_abs_err"], float(
+                        (got.float() - want.float()).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"imc_mav conv{i} {kind} {dtype} noise="
+                            f"{nz is not None}: kernel differs from the "
+                            f"plain version on "
+                            f"{(got != want).sum().item()} of {got.numel()}")
+        x, w = pm1(m, k), pm1(k, n)
         kernel = lambda: ops.imc_mav(x, w, bias, flip)
         plain = lambda: ref.imc_mav_ref(x, w, bias, flip)
         product = lambda: torch.matmul(x, w)
@@ -947,7 +965,10 @@ def phase_mav_kernels(torch, dev):
         k_call = cuda_ms(torch, kernel)
         nbytes = 4 * (m * k + k * n + 2 * n + m * n)
         nops = 2 * m * k * n
-        b_ms, b_by = bound_ms(nbytes, nops)
+        # the kernel's products are int8 (ternary operands are exact)
+        b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
+        tile = (ops.mav_tile(m, k, n, dev) if hasattr(ops, "mav_tile")
+                else None)
         # a layer is ``g`` launches of this shape
         mav["ms"] += g * k_ms
         mav["plain_ms"] += g * p_ms
@@ -955,18 +976,21 @@ def phase_mav_kernels(torch, dev):
         mav["bytes"] += g * nbytes
         mav["ops"] += g * nops
         mav["rows"].append(dict(layer=f"conv{i}", groups=g, M=m, K=k, N=n,
-                                kernel_ms=k_ms, kernel_call_ms=k_call,
-                                plain_ms=p_ms, matmul_ms=mm_ms,
-                                bound_ms=b_ms, bound_by=b_by))
+                                tile=tile, kernel_ms=k_ms,
+                                kernel_call_ms=k_call, plain_ms=p_ms,
+                                matmul_ms=mm_ms, bound_ms=b_ms,
+                                bound_by=b_by))
         log(f"[imc_mav] conv{i} per group M={m} K={k} N={n} (x{g} "
-            f"launches): device time kernel {k_ms:.5f} ms, plain "
-            f"{p_ms:.5f} ms, float32 matmul alone {mm_ms:.5f} ms; per call "
-            f"(CUDA events) {k_call:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
-            f"bitwise equal (f32/bf16, clean/noise)")
-    mav["bound_ms"], mav["bound_by"] = bound_ms(mav["bytes"], mav["ops"])
+            f"launches), tile (rows, column chunks, smem) {tile}: device "
+            f"time kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, float32 "
+            f"matmul (product only) {mm_ms:.5f} ms; per call (CUDA events) "
+            f"{k_call:.4f} ms; bound {b_ms:.5f} ms ({b_by}); bitwise equal "
+            f"(pm1/ternary x f32/bf16 x clean/noise)")
+    mav["bound_ms"], mav["bound_by"] = bound_ms(mav["bytes"], mav["ops"],
+                                                H100_INT8_OPS_PER_S)
     log(f"[imc_mav] one per-group forward's 41 launches: kernel "
         f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, float32 "
-        f"matmul alone {mav['matmul_ms']:.4f} ms, bound "
+        f"matmul (product only) {mav['matmul_ms']:.4f} ms, bound "
         f"{mav['bound_ms']:.5f} ms ({mav['bound_by']}) (device time)")
 
     i8 = {"max_abs_err": 0.0, "rows": []}
@@ -1006,11 +1030,15 @@ def phase_mav_kernels(torch, dev):
         nops = 2 * m * k * n
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = nops / H100_INT8_OPS_PER_S * 1e3
-        row = dict(M=m, K=k, N=n, ms=k_ms, call_ms=k_call, plain_ms=p_ms,
-                   library_ms=l_ms, bound_ms=max(t_bytes, t_ops),
+        plan = (("split-K" if i8_ops.split_k(m, k, n) else "tiled")
+                if hasattr(i8_ops, "split_k") else None)
+        row = dict(M=m, K=k, N=n, plan=plan, ms=k_ms, call_ms=k_call,
+                   plain_ms=p_ms, library_ms=l_ms,
+                   bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         i8["rows"].append(row)
-        log(f"[int8] {m}x{k}x{n} shifts {shifts} bitwise equal; device time "
+        log(f"[int8] {m}x{k}x{n} plan {plan}, shifts {shifts} bitwise "
+            f"equal; device time "
             f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, torch._int_mm "
             f"(product only{', padded' if m < 32 else ''}) {l_ms:.5f} ms; "
             f"per call (CUDA events) {k_call:.4f} ms; bound "
@@ -1631,8 +1659,14 @@ def main() -> int:
     ap.add_argument("--layers", nargs="?", const=ROOT, default=None,
                     metavar="DIR", help="run phase 2 alone, against the "
                     "port in the checkout DIR (default: this one)")
+    ap.add_argument("--tiles", nargs="?", const=ROOT, default=None,
+                    metavar="DIR", help="run phase 5 alone (K5, K4), "
+                    "against the port in the checkout DIR (default: this "
+                    "one)")
     args = ap.parse_args()
-    root = os.path.abspath(args.layers or ROOT)
+    if args.layers is not None and args.tiles is not None:
+        ap.error("--layers and --tiles are separate runs")
+    root = os.path.abspath(args.layers or args.tiles or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
@@ -1653,6 +1687,13 @@ def main() -> int:
         rows, totals, _ = phase_layers(torch, dev)
         print(json.dumps({"card": smi, "root": root, "layers": rows,
                           "totals": totals}), flush=True)
+        return 0
+    if args.tiles is not None:
+        log(f"[tiles] the port at {root}")
+        smi = card()
+        mav, i8 = phase_mav_kernels(torch, dev)
+        print(json.dumps({"card": smi, "root": root, "imc_mav": mav,
+                          "int8_matmul": i8}), flush=True)
         return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
@@ -1711,7 +1752,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None})
     log(f"[summary] {smi}: imc_mav, one per-group forward's "
         f"{group['launches']['imc_mav']} launches (B={B}): kernel "
-        f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, bound "
+        f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, float32 "
+        f"torch.matmul (product only) {mav['matmul_ms']:.4f} ms, bound "
         f"{mav['bound_ms']:.5f} ms (device time)")
     head = i8["rows"][1]
     log(f"[summary] {smi}: int8_matmul at the head shape 8x576x10: kernel "
@@ -1724,7 +1766,7 @@ def main() -> int:
         "launches": group["launches"]["imc_mav"],
         "max_abs_err": mav["max_abs_err"], "ms": mav["ms"],
         "plain_ms": mav["plain_ms"], "bound_ms": mav["bound_ms"],
-        "bound_by": mav["bound_by"], "library_ms": None})
+        "bound_by": mav["bound_by"], "library_ms": mav["matmul_ms"]})
     kernels.append({
         "name": "int8_matmul", "route": "cuda", "source": I8_SOURCE,
         "replaces": I8_REPLACES,

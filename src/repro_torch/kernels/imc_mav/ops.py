@@ -15,10 +15,12 @@ an explicit pre-sign operand; the kernels draw nothing.
 
 For a CUDA tensor a wrapper launches the hand-written kernel
 (``csrc/imc_fused.cu``, ``csrc/imc_mav.cu``) and raises if it cannot; for
-a CPU tensor it runs the plain version (``ref.py``).  K1 takes its
-weights as int8 B rows packed at fold time (``pack_weights_s8``) and its
-activations in {-1, 0, +1}; its launch picks its own block tile
-(``block_tile`` reports it).
+a CPU tensor it runs the plain version (``ref.py``).  Both kernels take
+activations in {-1, 0, +1} and compute in int8 on the tensor cores.  K1
+takes its weights as int8 B rows packed at fold time
+(``pack_weights_s8``); K5 takes ternary float32 or bfloat16 operands and
+converts them as it stages them.  Each launch picks its own block tile
+(``block_tile``, ``mav_tile`` report them).
 ``COUNTS`` (K1) and ``COUNTS_MAV`` (K5) count kernel launches, and
 nothing else: they take the place of the JAX package's launch auditor,
 which patched ``pl.pallas_call``.
@@ -97,8 +99,10 @@ def library() -> ctypes.CDLL:
 
 def _declare_mav(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.imc_mav_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.imc_mav_launch.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.imc_mav_launch.restype = i
+    lib.imc_mav_plan.argtypes = [i] * 4 + [p]
+    lib.imc_mav_plan.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -201,10 +205,12 @@ def _sm_count(dev: torch.device) -> int:
 def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             flip: torch.Tensor,
             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K5 on CUDA tensors: x (M, K), w (K, N) ±1, both float32 or
-    both bfloat16; bias/flip (N,) and noise (M, N) float32.  Returns
-    (M, N) ±1 in x's dtype on PyTorch's current stream, without
-    synchronising."""
+    """Launch K5 on CUDA tensors: x (M, K), w (K, N) with values in
+    {-1, 0, +1}, both float32 or both bfloat16 (the kernel converts them
+    to int8 for its tensor-core products, exact for those values only);
+    bias/flip (N,) and noise (M, N) float32.  Returns (M, N) ±1 in x's
+    dtype on PyTorch's current stream, without synchronising.  The launch
+    plans its own row tile (``mav_tile`` reports it)."""
     dev = x.device
     m, k = x.shape
     k2, n = w.shape
@@ -219,6 +225,8 @@ def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     flip = _operand("flip", flip, (n,), dev)
     if noise is not None:
         noise = _operand("noise", noise, (m, n), dev)
+        if noise.data_ptr() % 16:      # read with 16-byte loads
+            noise = noise.clone()
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     lib = mav_library()
     with torch.cuda.device(dev):
@@ -226,18 +234,30 @@ def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         status = lib.imc_mav_launch(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), flip.data_ptr(),
             None if noise is None else noise.data_ptr(), out.data_ptr(),
-            m, k, n, int(x.dtype == torch.bfloat16), stream)
+            m, k, n, int(x.dtype == torch.bfloat16), _sm_count(dev), stream)
     kernels.check_launch(lib, "imc_mav", status)
     COUNTS_MAV.launches += 1
     return out
 
 
+def mav_tile(m: int, k: int, n: int,
+             device: torch.device) -> Tuple[int, int, int]:
+    """The block tile K5's launch takes for an (m, k) x (k, n) product on
+    ``device``: (rows per block, column chunks of 128, shared-memory bytes
+    per block)."""
+    tile = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        nbytes = mav_library().imc_mav_plan(m, k, n, _sm_count(device), tile)
+    return tile[0], tile[1], nbytes
+
+
 def mav_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                flip: torch.Tensor,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One ±1 product tile with the SA epilogue: x (M, K), w (K, N) ->
-    (M, N) ±1 in x's dtype.  The reference pads to its TPU tiles; the
-    kernel guards its ragged edges instead, with the same result."""
+    """One product tile with the SA epilogue: x (M, K), w (K, N) in
+    {-1, 0, +1} -> (M, N) ±1 in x's dtype.  The reference pads to its TPU
+    tiles; the kernel guards its ragged edges instead, with the same
+    result."""
     if x.device.type == "cuda":
         return imc_mav(x, w, bias, flip, noise)
     if x.device.type != "cpu":

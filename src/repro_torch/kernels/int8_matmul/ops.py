@@ -9,7 +9,9 @@ grid, ``shift = w_fmt.frac_bits``.  The reference pads to its TPU tiles;
 the kernel guards its ragged edges instead, with the same result.
 
 For a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/int8_matmul.cu``) and raises if it cannot; for a CPU tensor it
+(``csrc/int8_matmul.cu``: int8 tensor-core products, a split-K plan for
+the FC head's few outputs and a tiled one for the rest) and raises if it
+cannot; for a CPU tensor it
 runs the plain version (``ref.int8_matmul_ref``).  ``COUNTS`` counts
 kernel launches and nothing else.
 """
@@ -33,6 +35,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.int8_matmul_launch.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.int8_matmul_launch.restype = i
+    lib.int8_matmul_plan.argtypes = [i] * 3
+    lib.int8_matmul_plan.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -46,7 +50,9 @@ def int8_matmul_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        shift: int = 7, out_max: int = 127) -> torch.Tensor:
     """Launch K4 on CUDA tensors: x (M, K) int8, w (K, N) int8, bias (N,)
     int32.  Returns (M, N) int8 on PyTorch's current stream, without
-    synchronising."""
+    synchronising.  The launch picks its plan by shape (``split_k``): K
+    split across the warps of a block for a few outputs over a long
+    fan-in (the FC head), else 64 x 64 tensor-core tiles."""
     dev = x.device
     m, k = x.shape
     k2, n = w.shape
@@ -73,6 +79,12 @@ def int8_matmul_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     kernels.check_launch(lib, "int8_matmul", status)
     COUNTS.launches += 1
     return out
+
+
+def split_k(m: int, k: int, n: int) -> bool:
+    """Whether K4's launch takes its split-K plan for an (m, k) x (k, n)
+    product (else the tiled one)."""
+    return bool(library().int8_matmul_plan(m, k, n))
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,

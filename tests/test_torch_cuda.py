@@ -2,8 +2,10 @@
 {-1, 0, +1} activations, at every kind of block tile its launch plans and
 at group widths off the paper's), the fused SGA update
 (``sga_update_rows``, ``sga_update``), the fused head training
-(``head_train_rows``), the per-group product tile ``imc_mav`` and
-``int8_matmul`` against their plain PyTorch versions, bit for bit; one
+(``head_train_rows``), the per-group product tile ``imc_mav`` (on ±1 and
+{-1, 0, +1} operands, from unaligned bases, in K chunks) and
+``int8_matmul`` (both of its plans, at the rails) against their plain
+PyTorch versions, bit for bit; one
 ``imc_fused`` launch per IMC layer on the served paths (SA noise on too,
 and at cpg 6 and 48), one ``imc_mav`` launch per conv group, one
 ``head_train_rows`` launch per training tick of the customization
@@ -649,6 +651,86 @@ def test_imc_mav_kernel_matches_plain_version(dev, m, k, n, dtype, noisy):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+def _ternary(gen, shape, dtype, dev):
+    return (torch.randint(-1, 2, shape, generator=gen, device=dev)
+            .to(dtype))
+
+
+def _mav_operands(gen, m, k, n, dtype, dev, noisy):
+    x, w = _ternary(gen, (m, k), dtype, dev), _ternary(gen, (k, n), dtype,
+                                                         dev)
+    flip = _ternary(gen, (n,), torch.float32, dev).sign()
+    flip[flip == 0] = 1.0
+    bias = torch.round(torch.randn(n, generator=gen, device=dev) * 4) * 2
+    noise = (4.0 * torch.randn((m, n), generator=gen, device=dev)
+             if noisy else None)
+    return x, w, bias, flip, noise
+
+
+def _mav_check(x, w, bias, flip, noise):
+    ops.COUNTS_MAV.reset()
+    got = ops.mav_matmul(x, w, bias, flip, noise)
+    want = ref.imc_mav_ref(x, w, bias, flip, noise)
+    torch.cuda.synchronize()
+    assert ops.COUNTS_MAV.launches == 1
+    assert got.dtype == x.dtype and torch.equal(got, want), (
+        f"{(got != want).sum().item()} of {got.numel()} outputs differ")
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noise"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 36, 96, 129, 576])
+@pytest.mark.parametrize("k", [5, 33, 72, 128, 200])
+@pytest.mark.parametrize("m", [1, 17, 3952, 31960])
+def test_imc_mav_kernel_matches_plain_version_on_ternary(dev, m, k, n, dtype,
+                                                         noisy):
+    """x and w in {-1, 0, +1} (the kernel's int8 contract) at ragged and
+    full-width shapes, noise with N % 4 != 0 included."""
+    gen = torch.Generator(device=dev).manual_seed(m * 1009 + k * 31 + n)
+    _mav_check(*_mav_operands(gen, m, k, n, dtype, dev, noisy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(3952, 72, 36), (257, 5, 96),
+                                   (31960, 72, 96)])
+def test_imc_mav_kernel_on_an_unaligned_base(dev, m, k, n, dtype):
+    """x as rows of a larger tensor starting one value past a 16-byte
+    boundary: contiguous, so the wrapper passes it as it is."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    x, w, bias, flip, noise = _mav_operands(gen, m, k, n, dtype, dev, True)
+    base = torch.empty(m * k + 1, dtype=dtype, device=dev)
+    base[1:] = x.reshape(-1)
+    xu = base[1:].view(m, k)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    _mav_check(xu, w, bias, flip, noise)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(300, 257, 40), (64, 1000, 129),
+                                   (17, 600, 576)])
+def test_imc_mav_kernel_stages_long_fan_ins_in_chunks(dev, m, k, n, dtype):
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    _mav_check(*_mav_operands(gen, m, k, n, dtype, dev, True))
+
+
+@pytest.mark.parametrize("m,k,n", [(31960, 72, 96), (15960, 72, 48),
+                                   (7960, 72, 36), (7944, 72, 32),
+                                   (3952, 72, 36), (1, 5, 1),
+                                   (31960, 200, 576), (64, 1000, 129)])
+def test_imc_mav_row_tiles_follow_the_plan(dev, m, k, n):
+    """The per-group shapes of the paper net (B = 8, full window) and wide
+    ones: the planned grid has a block for at least every other SM, or the
+    smallest row tile, and two blocks fit an SM's shared memory."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, chunks, nbytes = ops.mav_tile(m, k, n, dev)
+    assert rows in (16, 32, 64, 128) and chunks == -(-n // 128)
+    assert 2 * -(-m // rows) * chunks >= sms or rows == 16
+    assert 0 < nbytes <= 110 * 1024
+
+
 @pytest.mark.parametrize("std", [0.0, 1.0])
 def test_conv_mav_launches_once_per_group(dev, std):
     x, w, bias, flip, _, _ = _inputs(7, 2, 80, 192, 288, 8, 1, dev)
@@ -700,6 +782,65 @@ def test_int8_kernel_saturates_and_wraps(dev, shift):
     for out_max in (127, 63):
         got = i8_ops.int8_matmul(x, w, b, shift=shift, out_max=out_max)
         assert torch.equal(got, int8_matmul_ref(x, w, b, shift, out_max))
+
+
+def _int8_operands(gen, m, k, n, dev):
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-2 ** 16, 2 ** 16, (n,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shift", [0, 7])
+@pytest.mark.parametrize("n", [1, 10, 129])
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("k", [1, 3, 50, 576, 4096])
+def test_int8_kernel_matches_plain_version_on_both_plans(dev, m, k, n,
+                                                         shift):
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + k * 13 + n)
+    x, w, b = _int8_operands(gen, m, k, n, dev)
+    i8_ops.COUNTS.reset()
+    got = i8_ops.int8_matmul(x, w, b, shift=shift)
+    want = int8_matmul_ref(x, w, b, shift=shift)
+    torch.cuda.synchronize()
+    assert i8_ops.COUNTS.launches == 1
+    assert torch.equal(got, want)
+
+
+def test_int8_plans_by_shape(dev):
+    """The FC head splits K; the tiled shapes and short fan-ins do not;
+    the shapes above take both plans."""
+    assert i8_ops.split_k(8, 576, 10)
+    assert i8_ops.split_k(8, 4096, 129) and i8_ops.split_k(1, 576, 1)
+    assert not i8_ops.split_k(512, 128, 128)
+    assert not i8_ops.split_k(256, 576, 128)
+    assert not i8_ops.split_k(8, 50, 10)
+    assert not i8_ops.split_k(512, 4096, 10)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 576, 10), (8, 4096, 129),
+                                   (512, 128, 128), (37, 50, 11)])
+def test_int8_kernel_rails_and_wrapping_biases_on_both_plans(dev, m, k, n):
+    """x and w at -128 (the largest products) and mixed rails, biases near
+    the int32 ends (the adds wrap), out_max 127 and 63, every shift."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+    w = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+    x[m // 2:] = torch.where(
+        torch.rand((m - m // 2, k), generator=gen, device=dev) < 0.5,
+        -128, 127).to(torch.int8)
+    ends = torch.tensor([2 ** 31 - 1, -2 ** 31, 2 ** 31 - 51, -2 ** 31 + 7],
+                        dtype=torch.int32, device=dev)
+    b = ends[torch.arange(n, device=dev) % 4]
+    for shift in (0, 4, 7, 31):
+        for out_max in (127, 63):
+            got = i8_ops.int8_matmul(x, w, b, shift=shift, out_max=out_max)
+            want = int8_matmul_ref(x, w, b, shift, out_max)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shift, out_max)
 
 
 def test_quantized_fc_on_the_card_equals_the_cpu(dev):

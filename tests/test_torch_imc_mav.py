@@ -2,7 +2,8 @@
 interpret-mode Pallas kernel, on the CPU.
 
 ``mav_matmul`` at the shapes of ``tests/test_kernels.py`` in float32 and
-bfloat16, with and without a noise operand; ``conv_mav`` with 2 and 4
+bfloat16, with and without a noise operand, and on {-1, 0, +1} operands
+(K5's int8 contract); ``conv_mav`` with 2 and 4
 groups, stride 1 and 2, clean and with ``sa_key`` noise at std 1.0 and
 4.0 (the per-group ``split`` chain).  Tolerance: none, the ±1 outputs are
 compared bitwise.  Inputs are made with numpy from a seed; noise keys are
@@ -57,6 +58,27 @@ def test_mav_matmul_matches_jax(m, k, n, dtype, noisy):
         clean = ops.mav_matmul(torch.tensor(x), torch.tensor(w),
                                torch.tensor(bias), torch.tensor(flip))
         assert (clean != got.float()).float().mean() > 0.01
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_mav_matmul_matches_jax_on_ternary(dtype):
+    """x and w in {-1, 0, +1}: the contract K5's int8 products rest on.
+    The plain version counts a zero as a zero product, as JAX does."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(72)
+    m, k, n = 96, 72, 36
+    x = rng.integers(-1, 2, (m, k)).astype(np.float32)
+    w = rng.integers(-1, 2, (k, n)).astype(np.float32)
+    _, _, bias, flip, noise = _inputs(73, m, k, n)
+    want = jops.mav_matmul(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                           jnp.asarray(bias), jnp.asarray(flip),
+                           jnp.asarray(noise))
+    got = ops.mav_matmul(torch.tensor(x).to(tdt), torch.tensor(w).to(tdt),
+                         torch.tensor(bias), torch.tensor(flip),
+                         torch.tensor(noise))
+    assert (x == 0).mean() > 0.2 and (w == 0).mean() > 0.2
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
 
 
 @pytest.mark.parametrize("std", [0.0, 1.0, 4.0])
