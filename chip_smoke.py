@@ -13,15 +13,18 @@ result line):
    (``.../sga_update/csrc/``) and ``int8_matmul`` (``.../int8_matmul/
    csrc/``), one nvcc (sm_90a) for each, started together, and print the
    card's name and power limit;
-2. per IMC layer of the paper net at full width (B = 8 streams, a full
-   16 000-sample window, and the per-hop tail shapes of hop 1024): the
-   fused kernel against its plain PyTorch version on the card, on random
+2. per IMC layer of the paper net at full width, at every shape of
+   ``K1_SHAPES`` (B = 8 streams at a full 16 000-sample window and at the
+   per-hop tail shapes of hops 1024, 2048 and 4096, and B = 16 at the
+   hop-1024 tails): the fused kernel, one launch a call, against its
+   plain PyTorch version on the card, on random
    ±1 activations, on ±1 activations with two of the eight streams all
    zero (the carries of free slots) and on activations in {-1, 0, +1};
    each without offset, with chip offsets, and with chip offsets plus a
    pre-sign noise operand — bitwise; then the kernel's and the plain
-   version's median device times beside the least time the card could
-   take, the kernel's ratio to it, and the host time a call of the
+   version's median device times (with the profiler's device records per
+   call) and CUDA-event times per call beside the least time the card
+   could take, the kernel's ratio to it, and the host time a call of the
    kernel's wrapper takes.  Then the same bitwise checks, one launch a
    call, at every IMC layer of two nets off the paper's group width,
    ``KWSConfig(channels_per_group=6)`` and the cpg-48 net (``WIDTH_NETS``),
@@ -80,7 +83,22 @@ result line):
    every state leaf, ``imc_fused`` 5 x (batched calls) launches; the noise
    field on the card equal to the CPU's; streamed logits equal to the
    offline ``hw_forward(sa_noise_field=...)``; decisions/s beside the
-   noise-free run and the noise field's share of a tick.
+   noise-free run and the noise field's share of a tick;
+8. the front door (``phase_front_door``), each run on the kernel and the
+   plain route with identical events, placements and counters and
+   ``imc_fused`` launched 5 x ``stats()["imc_passes"]`` times: (a) the
+   recompute server (``streaming=False``) against the streaming one on
+   the served traffic, events identical with every hop computed (VAD
+   forced to speech; also on a short noisy run), decisions/s of each
+   over three runs, and with VAD gating K1's device time per recompute
+   forward beside the five full-window layers' bound; (b) the dynamic
+   hop (x4) on calm-then-loud traffic, the multiplier reaching 4 and
+   coming back to 1 (phase 2 holds and times K1 at its hop-2048 and
+   hop-4096 tails); (c) admission control from 4 to 16 slots for 20
+   streams: rejections, sheds past the latency SLO, growth to 16 and the
+   shrink back (phase 2 holds and times K1 at B = 16); (d) a customization
+   session's result in a ``ProfileStore``, served through
+   ``submit(user_id=)`` exactly as through ``install_custom``.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -90,7 +108,10 @@ for the work of one steady-state hop tick (the five IMC layers at the
 hop-1024 tail shapes, B = 8): median device time from ``torch.profiler`` (CUDA-event
 time per call where the profiler records no device activity), and the
 least time the card could take for the same bytes and operations.
-``launches`` is the count from the main path's served run.  The
+``launches`` is the count from the main path's served run, and
+``launches_front_door`` K1's counts on the front door's paths; phase 2's
+totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
+JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
 (three session rows of 10 utterances, budgets 10, 7, 10) with its
 launches in phase 4's run; the ``sga_update_rows`` row counts the RGP
@@ -192,13 +213,15 @@ def host_ms(torch, fn, reps=7, iters=50):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=7, iters=20):
+def device_ms(torch, fn, reps=7, iters=20, records=None):
     """Median device time per call of ``fn``: in each of ``reps`` profiled
     runs of ``iters`` calls, the summed own time of the device activities
     (kernels, copies) that ``torch.profiler`` records, over ``iters``; a
     run in which the profiler recorded no device activity is left out.
     None when no run recorded any (then only the CUDA-event times
-    stand)."""
+    stand).  ``records``, when given, receives each counted run's device
+    activities per call (fewer than ``fn`` launches means dropped
+    records)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -209,9 +232,11 @@ def device_ms(torch, fn, reps=7, iters=20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us, _ = device_time(torch, prof)
+        total_us, rows = device_time(torch, prof)
         if total_us > 0:
             per_call.append(total_us / iters / 1e3)
+            if records is not None:
+                records.append(sum(n for _, n in rows.values()) / iters)
     return statistics.median(per_call) if per_call else None
 
 
@@ -322,49 +347,68 @@ def _layer_inputs(torch, gen, dev, b, t, c_in, c_out, groups, stride,
     return x, w, bias.clamp(-64, 64), flip, off, noise
 
 
+# K1's timed shapes, (name, streams, hop): the full window, the per-hop
+# tails of hop 1024 (the steady served tick), of the dynamic hop's widened
+# hops 2048 and 4096, and of hop 1024 at the admission run's 16 slots
+# (``CROWD_MAX``)
+K1_SHAPES = (("window", B, HOP), ("hop", B, HOP), ("hop2048", B, 2 * HOP),
+             ("hop4096", B, 4 * HOP), ("hop_b16", 16, HOP))
+
+
 def phase_layers(torch, dev):
-    """Kernel vs plain version per IMC layer at the served shapes, on ±1,
-    zero-stream and ternary activations, bitwise; then times."""
+    """Kernel vs plain version per IMC layer at every shape of
+    ``K1_SHAPES``, on ±1, zero-stream and ternary activations, bitwise and
+    one launch a call; then times, all in this one phase so the shapes
+    are timed alike."""
     from repro_torch.kernels.imc_mav import ops, ref
     from repro_torch.models import kws
     from repro_torch.serving import stream as sv
 
     cfg = kws.PAPER_KWS
-    geom = sv.make_stream_geometry(cfg, HOP)
+    geoms = {hop: sv.make_stream_geometry(cfg, hop)
+             for hop in {hop for _, _, hop in K1_SHAPES}}
     gen = torch.Generator(device=dev).manual_seed(1234)
     # an older checkout (``--layers DIR``) may pack fp32 group-major
     # weights and plan no tile
     pack = getattr(ops, "pack_weights_s8", None) or ops.pack_weights
+    counts = getattr(ops, "COUNTS", None)
     max_err = 0.0
     rows = []
-    totals = {shape: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
-                      "host_ms": 0.0} for shape in ("window", "hop")}
+    totals = {shape: {"B": b, "hop": hop, "ms": 0.0, "plain_ms": 0.0,
+                      "call_ms": 0.0, "plain_call_ms": 0.0, "bytes": 0,
+                      "ops": 0, "host_ms": 0.0}
+              for shape, b, hop in K1_SHAPES}
     for i in range(1, cfg.num_conv_layers):
         c_in, c_out = cfg.channels[i - 1], cfg.channels[i]
         groups, pool, stride = cfg.groups(i), cfg.pools[i], cfg.strides[i]
-        lg = geom.layers[i]
-        for shape, t in (("window", lg.t_in), ("hop", lg.tail_in)):
+        for shape, b, hop in K1_SHAPES:
+            lg = geoms[hop].layers[i]
+            t = lg.t_in if shape == "window" else lg.tail_in
             for kind in ("pm1", "zero_streams", "ternary"):
                 x, w, bias, flip, off, noise = _layer_inputs(
-                    torch, gen, dev, B, t, c_in, c_out, groups, stride, kind)
+                    torch, gen, dev, b, t, c_in, c_out, groups, stride, kind)
                 packed = pack(w, groups)
                 for case, o, n in (("clean", None, None),
                                    ("chip", off, None),
                                    ("noise", off, noise)):
+                    if counts is not None:
+                        counts.reset()
                     got = ops.fused_conv_mav(x, w, bias, flip, groups=groups,
                                              stride=stride, pool=pool,
                                              chip_offset=o, sa_noise=n,
                                              packed=packed)
+                    launched = counts.launches if counts is not None else 1
                     want = ref.fused_conv_mav_ref(x, w, bias, flip,
                                                   groups=groups,
                                                   stride=stride, pool=pool,
                                                   chip_offset=o, sa_noise=n)
                     torch.cuda.synchronize()
                     max_err = max(max_err, float((got - want).abs().max()))
-                    if not torch.equal(got, want):
+                    if launched != 1 or not torch.equal(got, want):
                         raise AssertionError(
-                            f"conv{i} {shape} {kind} {case}: kernel differs "
-                            f"from the plain version on "
+                            f"conv{i} {shape} B={b} {kind} {case}: "
+                            f"{launched} launches, kernel differs from the "
+                            f"plain version on "
                             f"{(got != want).sum().item()} of "
                             f"{got.numel()} outputs")
             # time the served configuration through the entry the path
@@ -377,45 +421,54 @@ def phase_layers(torch, dev):
                 x, w, bias, flip, groups=groups, stride=stride, pool=pool,
                 chip_offset=off)
             k_call, p_call = cuda_ms(torch, kernel), cuda_ms(torch, plain)
-            k_dev, p_dev = device_ms(torch, kernel), device_ms(torch, plain)
+            records = []
+            k_dev = device_ms(torch, kernel, records=records)
+            p_dev = device_ms(torch, plain)
             k_host = host_ms(torch, kernel)
             k_ms = k_dev if k_dev is not None else k_call
             p_ms = p_dev if p_dev is not None else p_call
-            nbytes, nops = layer_work(B, t, c_in, c_out, groups, stride,
+            nbytes, nops = layer_work(b, t, c_in, c_out, groups, stride,
                                       pool, chip=True, noise=False)
             b_ms, b_by = bound_ms(nbytes, nops, H100_INT8_OPS_PER_S)
             tot = totals[shape]
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
+            tot["call_ms"] += k_call
+            tot["plain_call_ms"] += p_call
             tot["bytes"] += nbytes
             tot["ops"] += nops
             tot["host_ms"] += k_host
             t_pool = ((t - 3) // stride + 1) // pool
-            tile = (ops.block_tile(B, t_pool, groups, c_out // groups, 3,
+            tile = (ops.block_tile(b, t_pool, groups, c_out // groups, 3,
                                    stride, pool, dev)[:2]
                     if hasattr(ops, "block_tile") else None)
-            rows.append(dict(layer=f"conv{i}", shape=shape, B=B, T=t,
-                             c_in=c_in, c_out=c_out, groups=groups,
+            rec = statistics.median(records) if records else None
+            rows.append(dict(layer=f"conv{i}", shape=shape, B=b, hop=hop,
+                             T=t, c_in=c_in, c_out=c_out, groups=groups,
                              tile=tile, kernel_device_ms=k_dev,
                              plain_device_ms=p_dev, kernel_call_ms=k_call,
                              plain_call_ms=p_call, kernel_host_ms=k_host,
+                             kernel_records_per_call=rec,
                              bound_ms=b_ms, bound_by=b_by,
                              over_bound=k_ms / b_ms))
-            log(f"[layer] conv{i} {shape:6s} B={B} T={t:5d} "
+            log(f"[layer] conv{i} {shape:7s} B={b:2d} T={t:5d} "
                 f"{c_in:3d}->{c_out:3d} g={groups:2d} tile {tile}: device "
-                f"time kernel {k_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"{k_ms / b_ms:.2f}x the bound; plain {p_dev} ms; per call "
-                f"(CUDA events) kernel {k_call:.4f} ms, plain "
-                f"{p_call:.4f} ms; wrapper host time {k_host:.4f} ms; "
-                f"bitwise equal (pm1/zero streams/ternary x "
-                f"clean/chip/noise)")
+                f"time kernel {k_ms:.5f} ms ({rec} profiler records a "
+                f"call), bound {b_ms:.5f} ms ({b_by}), {k_ms / b_ms:.2f}x "
+                f"the bound; plain {p_dev} ms; per call (CUDA events) "
+                f"kernel {k_call:.4f} ms, plain {p_call:.4f} ms; wrapper "
+                f"host time {k_host:.4f} ms; bitwise equal, one launch a "
+                f"call (pm1/zero streams/ternary x clean/chip/noise)")
     for shape, tot in totals.items():
         b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], H100_INT8_OPS_PER_S)
         tot["bound_ms"], tot["bound_by"] = b_ms, b_by
-        log(f"[layer] five layers, {shape} shapes: kernel {tot['ms']:.5f} "
-            f"ms, plain {tot['plain_ms']:.4f} ms (device time), bound "
-            f"{b_ms:.5f} ms ({b_by}), {tot['ms'] / b_ms:.2f}x the bound; "
-            f"wrapper host time {tot['host_ms']:.4f} ms")
+        log(f"[layer] five layers, {shape} shapes (B={tot['B']}, hop "
+            f"{tot['hop']}): kernel {tot['ms']:.5f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms (device time), bound {b_ms:.6f} ms "
+            f"({b_by}), {tot['ms'] / b_ms:.2f}x the bound; per call (CUDA "
+            f"events) kernel {tot['call_ms']:.4f} ms, plain "
+            f"{tot['plain_call_ms']:.4f} ms; wrapper host time "
+            f"{tot['host_ms']:.4f} ms")
     return rows, totals, max_err
 
 
@@ -499,16 +552,18 @@ def phase_widths(torch, dev):
     return dict(rows=rows, max_abs_err=max_err)
 
 
-def _traffic(cfg):
-    """8 streams of keyword audio: utterance, 6 silent hops, utterance."""
+def _traffic(cfg, n_streams=SLOTS, gap_hops=6, hops=HOPS):
+    """Streams of keyword audio: utterance, ``gap_hops`` silent hops,
+    utterance, cut to a window and ``hops`` hops (the served phase's: 8
+    streams, 6 silent hops, 24 hops)."""
     import numpy as np
     from repro_torch.data import audio
     utts, _ = audio.make_dataset(seed=0, n_per_class=1, n_speakers=4,
                                  augment=False, length=cfg.sample_len)
-    gap = np.random.default_rng(1).uniform(-1e-4, 1e-4, 6 * HOP)
-    n = cfg.sample_len + HOPS * HOP
+    gap = np.random.default_rng(1).uniform(-1e-4, 1e-4, gap_hops * HOP)
+    n = cfg.sample_len + hops * HOP
     streams = []
-    for s in range(SLOTS):
+    for s in range(n_streams):
         x = np.concatenate([utts[s % 10], gap, utts[(s + 3) % 10], gap])
         streams.append(x[:n].astype(np.float32))
     return streams
@@ -1653,6 +1708,341 @@ def phase_customize_rgp(torch, dev):
                 ticks=ticks, wall_s=wall)
 
 
+# the front door: timed runs per serving mode, the crowd of the admission
+# run and its bursty producers (they upload their whole stream at once)
+FRONT_RUNS = 3
+CROWD, CROWD_MIN, CROWD_MAX, BURSTY = 20, 4, 16, (3, 11)
+CROWD_LAG_S = 1.1                 # the admission run's latency SLO
+PROFILE_EPOCHS = 40
+
+
+def phase_front_door(torch, dev, window):
+    """StreamServer's front door at full width (``PAPER_KWS``, hop 1024,
+    chip offsets of std 4, VAD on), every run on the kernel route and on
+    the plain route with identical events, placements and counters, and
+    ``imc_fused`` launched 5 x ``stats()["imc_passes"]`` times:
+
+    (a) the recompute path (``streaming=False``) against the streaming
+        one on the served traffic at 8 slots: with every hop computed
+        (VAD forced to speech) their events are identical, and so on a
+        short noisy run (SA noise 1.0, 2 streams, 6 hops); decisions/s of
+        each from ``FRONT_RUNS`` runs; with VAD gating the recompute
+        server's K1 device time per IMC forward beside the five
+        full-window layers' bound and phase 2's time of them
+        (``window``, phase 2's full-window totals);
+    (b) the dynamic hop (``max_multiplier=4``) on calm-then-loud traffic:
+        the multiplier reaches 4 and returns to 1;
+    (c) admission at 4 to 16 slots: 20 streams whose producers retry a
+        rejected submit every tick and feed a hop a tick (two upload all
+        at once): rejections, growth to 16 slots, sheds, and the shrink
+        back to 4 once they drain;
+    (d) profiles: one customization session on the card stored in a
+        ``ProfileStore``; ``submit(user_id=)`` on a server built with
+        ``profiles=`` serves exactly like ``install_custom``."""
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import ProfileStore
+    from repro_torch.core.onchip_training import OnChipTrainConfig
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.serving import (AdmissionConfig, CustomizeConfig,
+                                     DynamicHopConfig, StreamServer,
+                                     VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    chip = _noisy_chip(torch, cfg)
+    keys = ("steps", "decisions", "speech_hops", "gated_hops", "learn_hops",
+            "batched_calls", "imc_passes", "slots", "rejected_streams",
+            "shed", "hop_retargets", "hop_multiplier")
+
+    def run(feed, use_kernel, profiled=False, **kw):
+        srv = StreamServer(hw, cfg, hop=HOP, chip_offsets=chip,
+                           use_kernel=use_kernel, device=dev, **kw)
+        torch.cuda.synchronize()
+        prof = None
+        ops.COUNTS.reset()                  # the path's run starts
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = feed(srv)
+                torch.cuda.synchronize()
+        else:
+            out = feed(srv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        out.update(srv=srv, stats=st, launches=ops.COUNTS.launches,
+                   wall=wall, prof=prof, kernel=use_kernel,
+                   counters={k: st[k] for k in keys},
+                   per_stream={sid: {k: v for k, v in p.items()
+                                     if k != "wall_s"}
+                               for sid, p in st["per_stream"].items()})
+        want = 5 * st["imc_passes"] if use_kernel else 0
+        if out["launches"] != want:         # ... and ends: read the count
+            raise AssertionError(f"imc_fused launched {out['launches']} "
+                                 f"times for {st['imc_passes']} IMC "
+                                 f"forwards (expected {want})")
+        return out
+
+    def same(a, b, what):
+        for k in ("events", "places", "trace", "counters", "per_stream"):
+            if a.get(k) != b.get(k):
+                raise AssertionError(f"{what}: {k} differ between the "
+                                     f"runs")
+
+    def served(streams):
+        def feed(srv):
+            for s, x in enumerate(streams):
+                srv.submit(f"s{s}", x)
+                srv.finish(f"s{s}")
+            return dict(events=srv.drain())
+        return feed
+
+    def stepped(streams, cap=2000):
+        # step until every stream retired (``drain`` stops at a tick that
+        # moves no buffer, which a hop retarget can make)
+        def feed(srv):
+            for s, x in enumerate(streams):
+                srv.submit(f"s{s}", x)
+                srv.finish(f"s{s}")
+            events, trace = [], []
+            while srv.active_streams():
+                if len(trace) > cap:
+                    raise AssertionError("dynamic-hop run stuck")
+                events.extend(srv.step())
+                trace.append(srv.hop_multiplier)
+            return dict(events=events, trace=trace)
+        return feed
+
+    out = {}
+    # (a) recompute against streaming
+    streams = _traffic(cfg)
+    forced = VADConfig(force="speech")
+    for streaming in (True, False):                  # warm-up
+        run(served(streams), True, slots=SLOTS, vad=forced,
+            streaming=streaming)
+    timed = {True: [], False: []}
+    for _ in range(FRONT_RUNS):
+        for streaming in (True, False):
+            timed[streaming].append(run(served(streams), True, slots=SLOTS,
+                                        vad=forced, streaming=streaming))
+    plain = {streaming: run(served(streams), False, slots=SLOTS, vad=forced,
+                            streaming=streaming)
+             for streaming in (True, False)}
+    first = timed[True][0]
+    for streaming in (True, False):
+        for r in timed[streaming] + [plain[streaming]]:
+            if r["events"] != first["events"]:
+                raise AssertionError(f"streaming={streaming}: events differ "
+                                     f"from the streaming kernel run")
+            same(r, timed[streaming][0], f"streaming={streaming}")
+    if not first["events"] or first["stats"]["gated_hops"]:
+        raise AssertionError(f"forced run did not serve: {first['stats']}")
+    dps = {("streaming" if k else "recompute"):
+           [r["stats"]["decisions"] / r["wall"] for r in v]
+           for k, v in timed.items()}
+    rc = timed[False][0]
+    per_tick = rc["launches"] / rc["stats"]["steps"]
+    log(f"[front] (a) {first['stats']['decisions']} decisions in "
+        f"{first['stats']['steps']} ticks (VAD forced to speech): events "
+        f"equal on streaming and recompute, kernel and plain; wall "
+        f"decisions/s streaming {[round(v, 1) for v in dps['streaming']]}, "
+        f"recompute {[round(v, 1) for v in dps['recompute']]}; imc_fused "
+        f"launches per tick {per_tick:.2f} in both modes "
+        f"({rc['launches']} recompute, {first['launches']} streaming)")
+    short = [x[:cfg.sample_len + 6 * HOP] for x in streams[:2]]
+    noisy = {(streaming, k): run(served(short), k, slots=2, vad=forced,
+                                 streaming=streaming, sa_noise_std=SA_STD,
+                                 seed=0)
+             for streaming in (True, False) for k in (True, False)}
+    base = noisy[(True, True)]
+    for key, r in noisy.items():
+        if r["events"] != base["events"]:
+            raise AssertionError(f"noisy run {key}: events differ")
+    gk = run(served(streams), True, profiled=True, slots=SLOTS,
+             vad=VADConfig(), streaming=False)
+    gp = run(served(streams), False, slots=SLOTS, vad=VADConfig(),
+             streaming=False)
+    same(gk, gp, "recompute with VAD gating")
+    gst = gk["stats"]
+    if not gst["gated_hops"] or not gst["batched_calls"]["replay"]:
+        raise AssertionError(f"gated recompute run did not gate: {gst}")
+    busy_us, rows = device_time(torch, gk["prof"])
+    k1_us = sum(us for name, (us, _) in rows.items() if "imc_fused" in name)
+    per_pass = k1_us / 1e3 / gst["imc_passes"]
+    log(f"[front] (a) noisy (SA {SA_STD}, 2 streams, 6 hops): events equal "
+        f"on both modes and routes; recompute with VAD gating: "
+        f"{gst['decisions']} decisions, gated hops {gst['gated_hops']}, "
+        f"batched calls {gst['batched_calls']}, {gst['imc_passes']} IMC "
+        f"forwards, kernel and plain equal; K1 per recompute forward (five "
+        f"full-window layers, B={SLOTS}) {per_pass:.5f} ms device time, "
+        f"bound {window['bound_ms']:.5f} ms "
+        f"({per_pass / window['bound_ms']:.2f}x; phase 2 times these "
+        f"launches at {window['ms']:.5f} ms)"
+        f"; device busy share {busy_us / 1e6 / gk['wall']:.4f} (profiled)")
+    out["recompute"] = dict(
+        decisions=first["stats"]["decisions"], ticks=first["stats"]["steps"],
+        wall_dps_streaming=dps["streaming"],
+        wall_dps_recompute=dps["recompute"],
+        launches_recompute=rc["launches"], launches_streaming=first[
+            "launches"], launches_per_tick=per_tick,
+        gated_launches=gk["launches"], k1_ms_per_forward=per_pass,
+        bound_ms=window["bound_ms"], noisy_decisions=len(base["events"]))
+
+    # (b) the dynamic hop
+    calm = _traffic(cfg, gap_hops=30, hops=50)
+    hop_cfg = DynamicHopConfig(max_multiplier=4, widen_after=3)
+    dk = run(stepped(calm), True, slots=SLOTS, vad=VADConfig(),
+             dynamic_hop=hop_cfg)
+    dp = run(stepped(calm), False, slots=SLOTS, vad=VADConfig(),
+             dynamic_hop=hop_cfg)
+    same(dk, dp, "dynamic hop")
+    trace, dst = dk["trace"], dk["stats"]
+    if (4 not in trace or 1 not in trace[trace.index(4):]
+            or dst["hop_retargets"] < 2):
+        raise AssertionError(f"the hop did not widen to 4 and come back: "
+                             f"{trace}")
+    log(f"[front] (b) dynamic hop: multiplier per tick {trace}; "
+        f"{dst['hop_retargets']} retargets, {dst['decisions']} decisions, "
+        f"imc_fused launches {dk['launches']} (= 5 x {dst['imc_passes']} "
+        f"IMC forwards, re-inits included); kernel and plain equal")
+    out["dynamic_hop"] = dict(trace=trace, retargets=dst["hop_retargets"],
+                              launches=dk["launches"])
+
+    # (c) admission, SLO shedding, autoscaling past 8 slots
+    crowd = _traffic(cfg, n_streams=CROWD)
+    adm = AdmissionConfig(max_queue=4, max_lag_s=CROWD_LAG_S,
+                          min_slots=CROWD_MIN,
+                          max_slots=CROWD_MAX, scale_up_after=1,
+                          scale_down_after=2)
+
+    def admission(srv):
+        pos, places, events, trace = {}, [], [], []
+        for _ in range(600):
+            for s, x in enumerate(crowd):
+                sid = f"s{s}"
+                if sid not in pos:          # (re)try with its first window
+                    places.append(srv.submit(sid, x[:cfg.sample_len]))
+                    if places[-1] != "rejected":
+                        pos[sid] = cfg.sample_len
+                    continue
+                if pos[sid] >= len(x):
+                    continue
+                n = len(x) if s in BURSTY else HOP
+                srv.submit(sid, x[pos[sid]:pos[sid] + n])
+                pos[sid] += n
+                if pos[sid] >= len(x):
+                    srv.finish(sid)
+            events.extend(srv.step())
+            trace.append(srv.slots)
+            if (len(pos) == CROWD and not srv.active_streams()
+                    and srv.slots == CROWD_MIN):
+                return dict(events=events, places=places, trace=trace)
+        raise AssertionError(f"admission run did not drain: {trace[-20:]}")
+
+    ak = run(admission, True, slots=CROWD_MIN, vad=VADConfig(),
+             admission=adm)
+    ap = run(admission, False, slots=CROWD_MIN, vad=VADConfig(),
+             admission=adm)
+    same(ak, ap, "admission")
+    ast, atrace = ak["stats"], ak["trace"]
+    if (not ast["rejected_streams"] or max(atrace) != CROWD_MAX
+            or not ast["shed"]["events"] or atrace[-1] != CROWD_MIN):
+        raise AssertionError(f"admission run: rejected "
+                             f"{ast['rejected_streams']}, slots {atrace}, "
+                             f"shed {ast['shed']}")
+    log(f"[front] (c) admission: {ast['rejected_streams']} rejected "
+        f"submits, sheds {ast['shed']}, slots per tick {atrace}; "
+        f"{ast['decisions']} decisions, imc_fused launches "
+        f"{ak['launches']} for {ast['imc_passes']} batched IMC forwards "
+        f"({ak['launches'] / ast['imc_passes']:.0f} a call, B up to "
+        f"{CROWD_MAX}); kernel and plain equal")
+    out["admission"] = dict(rejected=ast["rejected_streams"],
+                            shed=ast["shed"], slots_max=max(atrace),
+                            ticks=ast["steps"], launches=ak["launches"],
+                            imc_passes=ast["imc_passes"])
+
+    # (d) profiles at admission
+    live, enroll, labels, after = _session_audio(cfg)
+    srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, chip_offsets=chip,
+                       vad=VADConfig(), device=dev)
+    sess = srv.customize("alice-enroll", CustomizeConfig(
+        train=OnChipTrainConfig(epochs=PROFILE_EPOCHS,
+                                fixed_error_scale=1.375),
+        epochs_per_tick=10))
+    for j in range(N_UTTS):
+        sess.enroll(labels[j], enroll[j])
+    sess.finish_enrollment()
+    for _ in range(500):
+        if sess.phase == "swapped":
+            break
+        srv.step()
+    if sess.phase != "swapped":
+        raise AssertionError(f"profile session stuck in {sess.phase}")
+    result = sess.result
+    user = [after[0], streams[1]]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="profiles-",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        store = ProfileStore(store_dir)
+        store.save("alice", result)
+
+        def serve_user(srv, user_id=None):
+            srv.submit("mic", user[0], user_id=user_id)
+            srv.submit("other", user[1])
+            for sid in ("mic", "other"):
+                srv.finish(sid)
+            return dict(events=srv.drain())
+
+        def by_user(srv):
+            return serve_user(srv, "alice")
+
+        def by_install(srv):
+            srv.install_custom("mic", result)
+            return serve_user(srv)
+
+        prof_runs = {(name, k): run(feed, k, slots=SLOTS, vad=VADConfig(),
+                                    profiles=store if name == "user"
+                                    else None)
+                     for name, feed in (("user", by_user),
+                                        ("install", by_install))
+                     for k in (True, False)}
+        base = run(serve_user, True, slots=SLOTS, vad=VADConfig())
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    ref = prof_runs[("install", True)]
+    for key, r in prof_runs.items():
+        if r["events"] != ref["events"]:
+            raise AssertionError(f"profile run {key}: events differ from "
+                                 f"install_custom's")
+    mic = lambda evs: [e for e in evs if e["stream"] == "mic"]
+    if not mic(ref["events"]) or mic(ref["events"]) == mic(base["events"]):
+        raise AssertionError("the stored profile changed nothing")
+    log(f"[front] (d) profiles: a {PROFILE_EPOCHS}-epoch session on the "
+        f"card, stored and served through submit(user_id=): "
+        f"{len(ref['events'])} events equal to install_custom's on the "
+        f"kernel and plain routes (and unlike the base model's); "
+        f"imc_fused launches {prof_runs[('user', True)]['launches']}")
+    out["profiles"] = dict(events=len(ref["events"]),
+                           launches=prof_runs[("user", True)]["launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[front] the front-door phase took {out['wall_s']:.1f} s of wall")
+    out["launches"] = {"recompute": rc["launches"],
+                       "recompute_gated": gk["launches"],
+                       "dynamic_hop": dk["launches"],
+                       "admission": ak["launches"],
+                       "profiles": prof_runs[("user", True)]["launches"]}
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1707,15 +2097,17 @@ def main() -> int:
     mav, i8 = phase_mav_kernels(torch, dev)
     group = phase_grouploop(torch, dev)
     noisy = phase_noisy_served(torch, dev)
+    front = phase_front_door(torch, dev, totals["window"])
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
                               hop["bound_by"])
-    print(json.dumps({"card": smi, "layers": rows, "widths": widths,
+    print(json.dumps({"card": smi, "layers": rows, "layers_totals": totals,
+                      "widths": widths,
                       "served": served, "customize": custom, "rgp": rgp,
                       "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
-                      "noisy": noisy}), flush=True)
+                      "noisy": noisy, "front_door": front}), flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
@@ -1723,6 +2115,18 @@ def main() -> int:
         f"(device time); at a full window: kernel {w_ms:.4f} ms, plain "
         f"{wp_ms:.4f} ms, bound {wb_ms:.5f} ms; {launches} launches on the "
         f"served path")
+    fr = front["recompute"]
+    k1_shapes = "; ".join(
+        f"{name} (B={t['B']}, hop {t['hop']}) {t['ms']:.5f} ms, CUDA events "
+        f"{t['call_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms"
+        for name, t in totals.items())
+    log(f"[summary] {smi}: front door: decisions/s streaming "
+        f"{[round(v, 1) for v in fr['wall_dps_streaming']]}, recompute "
+        f"{[round(v, 1) for v in fr['wall_dps_recompute']]}; K1 per "
+        f"recompute forward {fr['k1_ms_per_forward']:.5f} ms (bound "
+        f"{fr['bound_ms']:.5f}); launches {front['launches']}")
+    log(f"[summary] {smi}: K1 five layers per shape (phase 2, device time): "
+        f"{k1_shapes}")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -1739,7 +2143,7 @@ def main() -> int:
         "name": "imc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
+        "library_ms": None, "launches_front_door": front["launches"]}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):

@@ -5,8 +5,9 @@ Own copy of the serving and customization half of ``repro/core/energy.py``
 (constants and formulas unchanged): per-event energies fitted to the
 paper's anchors (14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k
 cycles/decision, 765k cycles per training epoch), the streaming
-per-decision report, the duty-cycled VAD-gated summary and the on-chip
-fine-tuning energy.  These are modelled chip numbers, not measurements of
+per-decision report and its side-by-side with the offline (recompute)
+one, the duty-cycled VAD-gated summary and the on-chip fine-tuning
+energy.  These are modelled chip numbers, not measurements of
 any device.
 """
 
@@ -90,6 +91,24 @@ def kws_streaming_report(streaming_stats: List[dict],
     rep.cycles_per_decision = max(1, sum(int(s.get("cycles", 0))
                                          for s in streaming_stats))
     return rep
+
+
+def streaming_energy_summary(offline_stats: List[dict],
+                             streaming_stats: List[dict],
+                             freq_hz: float = 1e6) -> dict:
+    """Offline (recompute) vs streaming energy per decision side by
+    side."""
+    off = kws_chip_report(offline_stats, freq_hz)
+    strm = kws_streaming_report(streaming_stats, freq_hz)
+    return {
+        "freq_hz": freq_hz,
+        "offline_uj_per_decision": off.energy_j_per_decision * 1e6,
+        "streaming_uj_per_decision": strm.energy_j_per_decision * 1e6,
+        "energy_ratio": (strm.energy_j_per_decision
+                         / off.energy_j_per_decision),
+        "offline_dynamic_uj": off.dynamic_j_per_decision * 1e6,
+        "streaming_dynamic_uj": strm.dynamic_j_per_decision * 1e6,
+    }
 
 
 def vad_stats(hop_samples: int) -> dict:

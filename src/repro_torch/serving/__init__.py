@@ -2,14 +2,17 @@
 
   stream.py     — hop geometry, per-stream ring state and noise-field
                   key, init/step (+ the multi-hop step and the
-                  per-stream bias-delta / head riders), the SA-noise
-                  field in hop geometry, the gated (no-IMC) advance and
-                  its constant or retention fills
+                  per-stream bias-delta / head riders), the recompute
+                  path over the raw window (``WindowState``,
+                  ``window_*``), the SA-noise field in hop geometry, the
+                  gated (no-IMC) advance and its constant or retention
+                  fills
   vad.py        — log-energy EMA + hysteresis voice-activity detector
   decision.py   — posterior smoothing + hysteresis + refractory triggers
-  scheduler.py  — StreamServer: slots, admission queue, batched hops,
-                  VAD gating + wake replay, eviction, customization
-                  riders, stats
+  scheduler.py  — StreamServer: slots, admission queue with rejection,
+                  SLO shedding and autoscaling, batched hops, VAD gating
+                  + wake replay, dynamic hop, eviction, customization
+                  riders, profiles at admission, stats
   customize.py  — on-device customization as a serving workload:
                   enrollment sessions, scheduler-ticked bias compensation
                   + SGA fine-tuning, hot-swapped per-stream profiles
@@ -19,22 +22,29 @@ from repro_torch.serving.customize import (CustomizationResult,
                                            CustomizationSession,
                                            CustomizeConfig)
 from repro_torch.serving.decision import DecisionConfig
-from repro_torch.serving.scheduler import StreamServer
+from repro_torch.serving.scheduler import (AdmissionConfig,
+                                           DynamicHopConfig, StreamServer)
 from repro_torch.serving.stream import (StreamEngine, StreamGeometry,
-                                        StreamState, gated_step,
+                                        StreamState, WindowState,
+                                        gated_step, gated_window_step,
                                         hop_alignment, hop_sa_noise_fields,
                                         make_stream_geometry,
                                         retention_fills, silence_fills,
                                         stream_init, stream_multi_step,
                                         stream_step, streaming_layer_stats,
-                                        window_sa_noise)
+                                        window_init, window_multi_step,
+                                        window_sa_noise, window_step,
+                                        zeros_window_state)
 from repro_torch.serving.vad import VADConfig
 
 __all__ = [
-    "CustomizationResult", "CustomizationSession", "CustomizeConfig",
-    "DecisionConfig", "StreamEngine", "StreamGeometry", "StreamServer",
-    "StreamState", "VADConfig", "gated_step", "hop_alignment",
-    "hop_sa_noise_fields", "make_stream_geometry", "retention_fills",
-    "silence_fills", "stream_init", "stream_multi_step", "stream_step",
-    "streaming_layer_stats", "window_sa_noise",
+    "AdmissionConfig", "CustomizationResult", "CustomizationSession",
+    "CustomizeConfig", "DecisionConfig", "DynamicHopConfig",
+    "StreamEngine", "StreamGeometry", "StreamServer", "StreamState",
+    "VADConfig", "WindowState", "gated_step", "gated_window_step",
+    "hop_alignment", "hop_sa_noise_fields", "make_stream_geometry",
+    "retention_fills", "silence_fills", "stream_init", "stream_multi_step",
+    "stream_step", "streaming_layer_stats", "window_init",
+    "window_multi_step", "window_sa_noise", "window_step",
+    "zeros_window_state",
 ]

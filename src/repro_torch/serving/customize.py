@@ -262,6 +262,9 @@ class CustomizationManager:
     fine-tune rounds, hot swaps)."""
 
     def __init__(self, srv):
+        if not srv.streaming:
+            raise ValueError("customization requires streaming=True (the "
+                             "feature captures read the GAP ring)")
         self.srv = srv
         self.sessions: List[CustomizationSession] = []
         self._next_sid = 0
@@ -278,7 +281,12 @@ class CustomizationManager:
         srv = self.srv
         rec = srv._streams.get(stream_id)
         if rec is None:
-            srv.submit(stream_id, np.zeros((0,), np.float32))
+            if srv.submit(stream_id, np.zeros((0,), np.float32)) \
+                    == "rejected":
+                raise RuntimeError(
+                    f"cannot open a session for {stream_id}: the "
+                    f"admission queue is full (backpressure); retry "
+                    f"when a slot frees")
             rec = srv._streams[stream_id]
         rec.force_compute = True           # enrollment hops never gate
         sess = CustomizationSession(self, self._next_sid, stream_id, ccfg)

@@ -1,20 +1,31 @@
 """Multi-stream batched scheduler for always-on KWS serving.
 
-Port of the core of ``repro/serving/scheduler.py::StreamServer``: a fixed
-pool of stream slots, each holding one live stream's incremental
-``StreamState``, an admission queue, and per tick:
+Port of ``repro/serving/scheduler.py::StreamServer``: a pool of stream
+slots, each holding one live stream's incremental ``StreamState``, an
+admission queue, and per tick:
 
+* **the front door** — the profile staleness sweep, then latency-SLO
+  shedding and slot autoscaling (``admission=AdmissionConfig(...)``):
+  ``submit`` returns ``'rejected'`` (and buffers nothing) once every slot
+  is taken and the wait queue holds ``max_queue`` streams; a stream whose
+  backlog exceeds ``max_lag_s`` of audio is shed to the low-water mark
+  (half the SLO, never below one window) and re-initializes from its
+  freshest window; the pool grows after ``scale_up_after`` ticks with a
+  waiting stream and shrinks after ``scale_down_after`` ticks with idle
+  trailing slots, between ``min_slots`` and ``max_slots`` (the state, the
+  decision and VAD state and the customization rider rows are padded or
+  cropped with it);
 * **admission** — every slotted stream whose buffer holds a full window
   initializes; with ``batch_init`` (default) the whole wave runs in ONE
-  masked batched ``stream_init`` (one fused launch per IMC layer), else
-  one B=1 init per stream;
+  masked batched init (one fused launch per IMC layer), else one B=1
+  init per stream;
 * **SA noise** (``sa_noise_std > 0``) — every stream draws its read
   noise from its own per-absolute-column field, keyed by
   ``fold_in(PRNGKey(seed), uid)`` (``uid`` the stream's submission
-  order, internal replay streams included), so a stream's noise does not
-  depend on its slot or its batch mates; ``silence_fill="retention"``
-  replaces the constant silence fill by the retained noisy read
-  (``stream.retention_fills``);
+  order, internal replay streams included, or the one ``submit(uid=)``
+  pins), so a stream's noise does not depend on its slot or its batch
+  mates; ``silence_fill="retention"`` replaces the constant silence fill
+  by the retained noisy read (``stream.retention_fills``);
 * **voice-activity gating** (``vad=VADConfig(...)``) — each ready hop is
   classified speech/silence.  The last ``wake_margin`` silent hops are
   deferred (buffered host-side, state untouched); a speech onset replays
@@ -24,11 +35,20 @@ pool of stream slots, each holding one live stream's incremental
   fill (``stream.gated_step``) with no kernel launch, and emit no
   decision;
 * **one batched hop** — every speech-ready slot's fresh frame rides ONE
-  ``stream_step`` call, i.e. exactly one fused-kernel launch per IMC
-  layer for the whole fleet; slots that are not ready ride along masked
-  (their state is restored verbatim);
+  step call, i.e. exactly one fused-kernel launch per IMC layer for the
+  whole fleet; slots that are not ready ride along masked (their state
+  is restored verbatim);
 * **the decision head** (``serving.decision``) — smoothing, hysteresis and
   refractory triggers, batched and mask-aware;
+* **dynamic hop** (``dynamic_hop=DynamicHopConfig(...)``) — after
+  ``widen_after`` calm ticks (no posterior reaching ``calm_score``;
+  ``calm_silence`` ticks when the tick was all VAD silence) the effective
+  hop doubles, up to ``max_multiplier`` x the base hop; a hot posterior
+  or a VAD wake narrows it back.  The stream geometry depends on the hop,
+  so a retarget rebuilds every live slot's state from its last consumed
+  window on that multiplier's engine (with the SA field restarting at
+  window 0: a re-init reprograms the array), and deferred hops go back
+  into the buffer;
 * **customization** (``customize(stream_id)`` / ``install_custom``) — an
   enrollment and fine-tuning session (``serving.customize``) rides the
   same batched calls: enrollment hops are the stream's own hops (forced
@@ -38,17 +58,32 @@ pool of stream slots, each holding one live stream's incremental
   fused kernel's pre-sign operand, a per-slot FC head), so a mixed
   serving + learning tick still launches the fused kernel once per IMC
   layer and call.  The session's background work runs at the end of each
-  tick.
+  tick;
+* **profiles at admission** (``profiles=ProfileStore(...)``) —
+  ``submit(stream_id, chunk, user_id=...)`` installs the user's stored
+  profile onto the stream's riders; the sweep at the top of each tick
+  re-installs a profile whose file changed and resets a stream whose
+  profile was deleted.
+
+``streaming=False`` serves on the recompute path (``hw_forward`` over the
+whole window every hop, ``stream.window_step``) with ~window/hop times
+the IMC work: the streaming server's events bit for bit while no hop is
+gated (a gated hop slides zeros into the window where the streaming path
+shifts in the silence fill); a wake replay of n hops launches n times per
+layer.  It keeps no silence fills and takes no customization session.
 
 Streams are evicted when their producer calls ``finish()`` and their
 buffer drains, or at once by ``evict()``.  ``stats()`` reports the tick,
 decision and hop counters, the batched-call counts by cause (each init /
-hop / replay call costs one launch per IMC layer, a gate call none), the
-learning hops and sessions, and the modelled gated energy per decision.
+hop / replay call costs one launch per IMC layer, a gate call none;
+``imc_passes`` counts the batched IMC forwards that actually ran, hop
+retarget re-inits and recompute replay hops included), rejections and
+sheds, the hop multiplier and its retargets, the learning hops and
+sessions, and the modelled gated energy per decision; ``_tick_uj`` gives
+a tick's modelled energy from its hop composition.
 
-Not in this port yet: dynamic hop, admission control and autoscaling,
-the recompute fallback, faults and health, profiles, compiled ticks,
-snapshots, the flight recorder and the trace.
+Not in this port yet: faults and health, compiled ticks, snapshots, the
+flight recorder and the trace.
 """
 
 from __future__ import annotations
@@ -70,11 +105,66 @@ from repro_torch.serving import stream as sv
 from repro_torch.serving import vad as vd
 
 
+@dataclasses.dataclass(frozen=True)
+class DynamicHopConfig:
+    """Widen the hop when nothing interesting is happening.
+
+    A tick is *calm* when no decided hop's smoothed posterior reaches
+    ``calm_score``.  After ``widen_after`` consecutive calm ticks the
+    effective hop doubles, capped at ``max_multiplier`` x the base hop and
+    at what the stream geometry admits; a hot posterior or a VAD wake
+    narrows back to the base hop at once.  ``calm_silence`` (None: one
+    threshold for both) is the calm-tick count used instead when the whole
+    tick was VAD silence; streams that bypass the VAD never count as
+    silent."""
+
+    max_multiplier: int = 4
+    widen_after: int = 6
+    calm_score: float = 0.35
+    calm_silence: Optional[int] = None
+
+    def __post_init__(self):
+        if self.max_multiplier < 1:
+            raise ValueError("max_multiplier must be >= 1")
+        if self.widen_after < 1:
+            raise ValueError("widen_after must be >= 1")
+        if self.calm_silence is not None and self.calm_silence < 1:
+            raise ValueError("calm_silence must be >= 1 (or None)")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionConfig:
+    """Admission control, latency SLO and slot autoscaling.
+
+    ``max_queue``: streams allowed to wait for a slot; a further new
+    stream's ``submit`` returns ``'rejected'``.  ``max_lag_s``: per-stream
+    backlog SLO in seconds of audio; a stream over it is shed to the
+    low-water mark (half the SLO, never below one window) and re-admitted
+    from its freshest window.  ``min_slots``/``max_slots`` bound the pool
+    (both default to the constructor's ``slots``: no autoscaling); it
+    grows after ``scale_up_after`` consecutive ticks with a non-empty
+    queue and shrinks after ``scale_down_after`` consecutive ticks with
+    idle trailing slots."""
+
+    max_queue: Optional[int] = 8
+    max_lag_s: Optional[float] = None
+    min_slots: Optional[int] = None
+    max_slots: Optional[int] = None
+    scale_up_after: int = 2
+    scale_down_after: int = 6
+
+    def __post_init__(self):
+        if self.max_queue is not None and self.max_queue < 0:
+            raise ValueError("max_queue must be >= 0 (or None)")
+        if self.scale_up_after < 1 or self.scale_down_after < 1:
+            raise ValueError("scale_up/down_after must be >= 1")
+
+
 @dataclasses.dataclass
 class _Stream:
     stream_id: str
-    uid: int                              # submission order; a capture's
-    #                                       origin names it
+    uid: int                              # noise-field identity: submission
+    #                                       order, or pinned by submit(uid=)
     buf: np.ndarray                       # pending samples (host ring tail)
     slot: Optional[int] = None
     initialized: bool = False
@@ -82,14 +172,19 @@ class _Stream:
     hops: int = 0                         # decisions made (incl. window 0)
     triggers: List[dict] = dataclasses.field(default_factory=list)
     wall_s: float = 0.0                   # server time attributed to it
+    recent: np.ndarray = dataclasses.field(     # last consumed window: the
+        default_factory=lambda: np.zeros((0,), np.float32))  # re-init
+    #                                       source of a hop retarget
     pending: List[np.ndarray] = dataclasses.field(   # deferred silent hops
         default_factory=list)                        # (<= wake_margin)
+    silent_run: int = 0                   # consecutive silent hops
     gated_hops: int = 0                   # fill-advanced (no-compute) hops
-    recent: np.ndarray = dataclasses.field(     # last consumed window
-        default_factory=lambda: np.zeros((0,), np.float32))
+    sheds: int = 0
+    shed_samples: int = 0
     # -- customization (serving.customize) ---------------------------------
     internal: bool = False                # session-owned replay stream: no
-    #                                       decision events, not in stats
+    #                                       decision events, not in stats,
+    #                                       exempt from the SLO
     force_compute: bool = False           # bypass VAD gating (enrollment /
     #                                       replay hops must run the IMC
     #                                       path so captures stay exact)
@@ -98,6 +193,10 @@ class _Stream:
     custom: Optional[dict] = None         # per-stream riders: {"delta":
     #                                       {conv_i: (C_i,)}, "head":
     #                                       (fc_w, fc_b), "fills": tuple}
+    # -- profile store (checkpoint.profiles) -------------------------------
+    user_id: Optional[str] = None         # owner in the profile store
+    profile_mtime: Optional[int] = None   # installed profile's st_mtime_ns
+    #                                       (None: no profile installed)
 
 
 def _tree_map(fn, tree, *rest):
@@ -127,26 +226,43 @@ def _scatter_slot(state, one, slot: int):
 
 
 class StreamServer:
-    """Admit / batch / gate / decide / evict over a pool of stream slots."""
+    """Admit / batch / gate / decide / evict over an autoscaling pool of
+    stream slots."""
 
     _steps = counter_property("serving.steps")
     _hop_wall_s = counter_property("serving.hop_wall_s")
     _decisions = counter_property("serving.decisions")
     _speech_hops = counter_property("serving.hops", kind="speech")
     _gated_hops = counter_property("serving.hops", kind="gated")
+    _learn_hops = counter_property("serving.hops", kind="learn")
+    _rejected = counter_property("serving.rejected_streams")
+    _shed_events = counter_property("serving.shed", what="events")
+    _shed_samples = counter_property("serving.shed", what="samples")
+    _calm_ticks = counter_property("serving.dynhop.calm_ticks")
+    _pressure_ticks = counter_property("serving.autoscale.pressure_ticks")
+    _idle_ticks = counter_property("serving.autoscale.idle_ticks")
+    _hop_retargets = counter_property("serving.hop_retargets")
     _init_calls = counter_property("serving.batched_calls", cause="init")
     _hop_calls = counter_property("serving.batched_calls", cause="hop")
     _replay_calls = counter_property("serving.batched_calls",
                                      cause="replay")
     _gate_calls = counter_property("serving.batched_calls", cause="gate")
-    _learn_hops = counter_property("serving.hops", kind="learn")
+    # batched IMC forwards that ran (one fused launch per IMC layer each):
+    # init, hop and replay calls, hop-retarget re-inits, and one per hop
+    # of a recompute replay
+    _imc_passes = counter_property("serving.imc_passes")
+    _profile_swaps = counter_property("serving.profile_swaps")
 
     def __init__(self, hw, cfg: kws.KWSConfig, *, hop: int, slots: int = 4,
                  chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
                  sa_noise_std: float = 0.0, use_kernel: bool = True,
+                 streaming: bool = True,
                  decision: dec.DecisionConfig = dec.DecisionConfig(),
                  vad: Optional[vd.VADConfig] = None,
+                 dynamic_hop: Optional[DynamicHopConfig] = None,
+                 admission: Optional[AdmissionConfig] = None,
                  batch_init: bool = True,
+                 profiles=None,
                  silence_fill: str = "constant",
                  seed: int = 0, device=None):
         if silence_fill not in ("constant", "retention"):
@@ -155,23 +271,41 @@ class StreamServer:
         self.device = resolve_device(device)
         self._metrics = MetricsRegistry()
         self.cfg = cfg
+        self.streaming = streaming
+        self.base_hop = hop
         self.batch_init = batch_init
         self.dcfg = decision
         self.vcfg = vad
+        self.hcfg = dynamic_hop
+        self.acfg = admission
         self.seed = seed
         self.silence_fill = silence_fill
+        self.min_slots = self.max_slots = slots
+        if admission is not None:
+            if admission.min_slots is not None:
+                self.min_slots = admission.min_slots
+            if admission.max_slots is not None:
+                self.max_slots = admission.max_slots
+            if not 1 <= self.min_slots <= slots <= self.max_slots:
+                raise ValueError(
+                    f"need 1 <= min_slots ({self.min_slots}) <= slots "
+                    f"({slots}) <= max_slots ({self.max_slots})")
         self.slots = slots
-        self.engine = sv.StreamEngine(hw, cfg, hop,
-                                      chip_offsets=chip_offsets,
-                                      sa_noise_std=sa_noise_std,
-                                      use_kernel=use_kernel,
-                                      device=self.device)
-        self.geom = self.engine.geom
+        self._hw = hw
+        self._engine_kw = dict(chip_offsets=chip_offsets,
+                               sa_noise_std=sa_noise_std,
+                               use_kernel=use_kernel, streaming=streaming,
+                               device=self.device)
+        # the hop-multiplier engine table: one engine per multiple of the
+        # base hop, built at first use
+        self._mult = 1
+        self._engines: Dict[int, sv.StreamEngine] = {}
+        self._uj_consts: Dict[int, tuple] = {}   # mult -> (speech, gated)
         # the per-stream noise-field keys are derived on the host, as the
         # reference does: fold_in(base_key, uid)
         self._base_key = jaxrand.PRNGKey(seed, device="cpu")
         self._fills = None
-        if vad is not None:
+        if vad is not None and streaming:
             if silence_fill == "retention":
                 # chip-accurate gated fill: one retained noisy SA read per
                 # layer instead of the noiseless silence response
@@ -199,6 +333,7 @@ class StreamServer:
         self._slot_head_w = None          # (slots, D, num_classes)
         self._slot_head_b = None          # (slots, num_classes)
         self._slot_fills = None           # per-layer (slots, C_i) if VAD
+        self._profiles = profiles         # checkpoint.ProfileStore or None
 
         self._slots: List[Optional[_Stream]] = [None] * slots
         self._queue: collections.deque[_Stream] = collections.deque()
@@ -210,17 +345,47 @@ class StreamServer:
         self._speech_hops = 0
         self._gated_hops = 0
         self._learn_hops = 0
+        self._rejected = 0
+        self._shed_events = 0
+        self._shed_samples = 0
+        self._calm_ticks = 0
+        self._pressure_ticks = 0
+        self._idle_ticks = 0
+        self._hop_retargets = 0
         # batched-compute accounting: each init/hop/replay call is one
-        # fused-kernel launch per IMC layer however many slots ride it;
-        # gate calls launch nothing
+        # fused-kernel launch per IMC layer however many slots ride it
+        # (a recompute replay: one per hop); gate calls launch nothing
         self._init_calls = 0
         self._hop_calls = 0
         self._replay_calls = 0
         self._gate_calls = 0
+        self._imc_passes = 0
+        self._profile_swaps = 0
+
+    # -- hop-multiplier engine table ----------------------------------------
+
+    def _engine_for(self, mult: int) -> sv.StreamEngine:
+        if mult not in self._engines:
+            self._engines[mult] = sv.StreamEngine(
+                self._hw, self.cfg, self.base_hop * mult, **self._engine_kw)
+        return self._engines[mult]
+
+    @property
+    def engine(self) -> sv.StreamEngine:
+        return self._engine_for(self._mult)
+
+    @property
+    def geom(self) -> sv.StreamGeometry:
+        return self.engine.geom
 
     @property
     def hop(self) -> int:
-        return self.geom.hop
+        """The effective hop: base hop x the dynamic multiplier."""
+        return self.base_hop * self._mult
+
+    @property
+    def hop_multiplier(self) -> int:
+        return self._mult
 
     @property
     def metrics(self) -> MetricsRegistry:
@@ -317,8 +482,13 @@ class StreamServer:
         ``session.enroll`` ride the stream's normal batched hops, then the
         paper's on-chip loop (bias compensation -> error-scaled + SGA
         fine-tune) runs as bounded background jobs inside ``step()``.  See
-        ``serving.customize``.  Returns the CustomizationSession."""
+        ``serving.customize``.  Needs a fixed hop and the streaming path.
+        Returns the CustomizationSession."""
         from repro_torch.serving import customize as cz
+        if self.hcfg is not None:
+            raise ValueError("customization requires a fixed hop "
+                             "(dynamic_hop retargets would break the "
+                             "enrollment capture alignment)")
         if self._cust is None:
             self._cust = cz.CustomizationManager(self)
         self._enable_customization()
@@ -364,27 +534,107 @@ class StreamServer:
 
     # -- stream lifecycle ---------------------------------------------------
 
-    def submit(self, stream_id: str, chunk: np.ndarray) -> str:
-        """Append audio to a stream (created on first submit).  Returns
-        'slot' (live) or 'queued' (awaiting a slot)."""
+    def submit(self, stream_id: str, chunk: np.ndarray,
+               user_id: Optional[str] = None,
+               uid: Optional[int] = None) -> str:
+        """Append audio to a stream (created on first submit).  Returns the
+        stream's placement: 'slot' (live), 'queued' (awaiting a slot) or
+        'rejected' (admission queue full: nothing was buffered, the
+        caller may retry later).
+
+        ``user_id`` (needs ``profiles=``) ties the stream to a profile-store
+        user: their stored customization is installed on the stream's
+        riders, and the per-tick staleness sweep re-installs it when the
+        store's copy changes (or resets to base when it is deleted).
+
+        ``uid`` pins the stream's noise-field identity instead of taking
+        the next submission number; the counter jumps past a pinned uid,
+        so later streams never collide with it."""
         rec = self._streams.get(stream_id)
         if rec is None:
-            rec = self._new_stream(stream_id, np.zeros((0,), np.float32))
+            if (self.acfg is not None and self.acfg.max_queue is not None
+                    and all(r is not None for r in self._slots)
+                    and len(self._queue) >= self.acfg.max_queue):
+                self._rejected += 1
+                return "rejected"
+            rec = self._new_stream(stream_id, np.zeros((0,), np.float32),
+                                   uid=uid)
         if rec.finished:
             raise ValueError(f"stream {stream_id} already finished")
+        if user_id is not None and user_id != rec.user_id:
+            if self._profiles is None:
+                raise ValueError("submit(user_id=...) needs a profile "
+                                 "store: construct with profiles=")
+            self._attach_profile(rec, user_id)
         rec.buf = np.concatenate([rec.buf, np.asarray(chunk, np.float32)])
         return "slot" if rec.slot is not None else "queued"
 
     def _new_stream(self, stream_id: str, buf: np.ndarray,
-                    **kw) -> _Stream:
-        """Register a stream (next uid), queue it and admit it if a slot
-        is free."""
-        rec = _Stream(stream_id=stream_id, uid=self._uid, buf=buf, **kw)
-        self._uid += 1
+                    uid: Optional[int] = None, **kw) -> _Stream:
+        """Register a stream (the next uid, or a pinned one), queue it and
+        admit it if a slot is free."""
+        rec = _Stream(stream_id=stream_id,
+                      uid=self._uid if uid is None else int(uid), buf=buf,
+                      **kw)
+        self._uid = (self._uid + 1 if uid is None
+                     else max(self._uid, int(uid) + 1))
         self._streams[stream_id] = rec
         self._queue.append(rec)
         self._try_admit()
         return rec
+
+    # -- profile store: install at admission + staleness sweep --------------
+
+    def _attach_profile(self, rec: _Stream, user_id: str) -> None:
+        """Tie ``rec`` to a store user and install their profile if one
+        exists.  A user with no stored profile serves the base model but
+        stays tied: the sweep picks up a later save."""
+        rec.user_id = user_id
+        rec.profile_mtime = None
+        if self._profiles.mtime(user_id) is not None:
+            self._install_profile(rec)
+
+    def _install_profile(self, rec: _Stream) -> None:
+        """(Re)load ``rec.user_id``'s stored profile into its riders.  The
+        mtime is read before the load: a file replaced mid-install leaves
+        a stale stamp, and the next sweep installs again."""
+        from repro_torch.serving import customize as cz
+        rec.profile_mtime = self._profiles.mtime(rec.user_id)
+        result = self._profiles.load(rec.user_id)
+        self._enable_customization()
+        rec.custom = cz.result_riders(result, self.engine.hw, self.cfg,
+                                      chip_offsets=self.engine.chip_offsets,
+                                      with_fills=self._fills is not None)
+        if rec.slot is not None:
+            self._write_slot_custom(rec.slot, rec.custom)
+
+    def _reset_profile(self, rec: _Stream) -> None:
+        rec.custom = None
+        rec.profile_mtime = None
+        if rec.slot is not None:
+            self._write_slot_custom(rec.slot, None)
+
+    def _check_profiles(self) -> None:
+        """The staleness sweep (once per tick): a stream whose stored
+        profile changed under it (``st_mtime_ns`` moved: every save is a
+        new inode) is re-installed from the new file; one whose profile
+        was deleted drops back to the base model."""
+        if self._profiles is None:
+            return
+        for rec in self._streams.values():
+            if rec.user_id is None:
+                continue
+            m = self._profiles.mtime(rec.user_id)
+            if m == rec.profile_mtime:
+                continue
+            self._profile_swaps += 1
+            if m is None:
+                self._reset_profile(rec)
+            else:
+                try:
+                    self._install_profile(rec)
+                except FileNotFoundError:  # deleted between stat and load
+                    self._reset_profile(rec)
 
     def finish(self, stream_id: str) -> None:
         """Producer signals end-of-stream: the slot is freed once the
@@ -418,6 +668,196 @@ class StreamServer:
                 self._slots[s] = rec
                 self._write_slot_custom(s, rec.custom)
 
+    # -- backpressure: latency SLO shedding + slot autoscaling --------------
+
+    def _enforce_slo(self) -> None:
+        """Shed streams whose buffered backlog exceeds the latency SLO:
+        drop the oldest audio down to the low-water mark (half the SLO,
+        never below one window) and re-initialize from the freshest
+        window.  Learning streams (internal, forced) are exempt: shedding
+        an enrollment utterance would corrupt the captured features."""
+        if self.acfg is None or self.acfg.max_lag_s is None:
+            return
+        max_lag = int(self.acfg.max_lag_s * self.cfg.sample_rate)
+        keep = max(self.geom.window, max_lag // 2)
+        for rec in self._streams.values():
+            if rec.finished or rec.internal or rec.force_compute:
+                continue
+            backlog = sum(map(len, rec.pending)) + len(rec.buf)
+            if backlog <= max_lag:
+                continue
+            total = (np.concatenate(rec.pending + [rec.buf])
+                     if rec.pending else rec.buf)
+            dropped = backlog - keep
+            rec.buf = total[-keep:]
+            rec.pending = []
+            rec.silent_run = 0
+            rec.initialized = False
+            rec.sheds += 1
+            rec.shed_samples += dropped
+            self._shed_events += 1
+            self._shed_samples += dropped
+
+    def _autoscale(self) -> None:
+        if self.acfg is None or self.max_slots <= self.min_slots:
+            return
+        if self._queue and self.slots < self.max_slots:
+            self._idle_ticks = 0
+            self._pressure_ticks += 1
+            if self._pressure_ticks >= self.acfg.scale_up_after:
+                self._resize(min(self.max_slots,
+                                 self.slots + len(self._queue)))
+                self._pressure_ticks = 0
+            return
+        self._pressure_ticks = 0
+        free_tail = 0
+        for rec in reversed(self._slots):
+            if rec is not None:
+                break
+            free_tail += 1
+        if free_tail and not self._queue and self.slots > self.min_slots:
+            self._idle_ticks += 1
+            if self._idle_ticks >= self.acfg.scale_down_after:
+                self._resize(max(self.min_slots, self.slots - free_tail))
+                self._idle_ticks = 0
+        else:
+            self._idle_ticks = 0
+
+    def _resize(self, n: int) -> None:
+        """Grow (append zero rows; base rider rows) or shrink (crop
+        trailing free slots) the batched stream, decision and VAD state
+        and the customization rider rows."""
+        if n == self.slots:
+            return
+        if n > self.slots:
+            grow = n - self.slots
+
+            def pad(a):
+                return torch.cat([a, a.new_zeros((grow,) + a.shape[1:])])
+
+            def pad_rows(a, row):
+                return torch.cat([a, row.expand((grow,) + row.shape)])
+
+            self._state = _tree_map(pad, self._state)
+            self._dstate = _tree_map(pad, self._dstate)
+            if self._vstate is not None:
+                self._vstate = _tree_map(pad, self._vstate)
+            if self._cust_on:
+                fw, fb = self._base_head()
+                self._slot_delta = {k: pad(v)
+                                    for k, v in self._slot_delta.items()}
+                self._slot_head_w = pad_rows(self._slot_head_w, fw)
+                self._slot_head_b = pad_rows(self._slot_head_b, fb)
+                if self._slot_fills is not None:
+                    self._slot_fills = tuple(
+                        pad_rows(t, f) for t, f in zip(self._slot_fills,
+                                                       self._fills))
+            self._slots.extend([None] * grow)
+        else:
+            if any(r is not None for r in self._slots[n:]):
+                raise AssertionError("only trailing free slots can be "
+                                     "cropped")
+            crop = lambda a: a[:n]
+            self._state = _tree_map(crop, self._state)
+            self._dstate = _tree_map(crop, self._dstate)
+            if self._vstate is not None:
+                self._vstate = _tree_map(crop, self._vstate)
+            if self._cust_on:
+                self._slot_delta = {k: crop(v)
+                                    for k, v in self._slot_delta.items()}
+                self._slot_head_w = crop(self._slot_head_w)
+                self._slot_head_b = crop(self._slot_head_b)
+                if self._slot_fills is not None:
+                    self._slot_fills = tuple(crop(t)
+                                             for t in self._slot_fills)
+            self._slots = self._slots[:n]
+        self.slots = n
+        self._try_admit()
+
+    # -- dynamic hop ----------------------------------------------------------
+
+    def _feasible_mult(self, mult: int) -> bool:
+        try:
+            sv.make_stream_geometry(self.cfg, self.base_hop * mult)
+            return True
+        except ValueError:
+            return False
+
+    def _set_mult(self, mult: int) -> None:
+        """Retarget the effective hop.  The stream geometry (carry sizes,
+        fresh-column counts) depends on the hop, so every live slot's
+        state is rebuilt from its last consumed window through ``init`` on
+        the new multiplier's engine, with the slot's customization riders;
+        deferred silent hops go back into the buffer, to be consumed at
+        the new hop.  With SA noise a rebuilt stream's field restarts at
+        window 0 (a re-init is a fresh programming of the array)."""
+        if mult == self._mult:
+            return
+        eng = self._engine_for(mult)
+        window = self.geom.window
+        new_state = eng.zeros_state(self.slots)
+        for s, rec in enumerate(self._slots):
+            if rec is None or not rec.initialized:
+                continue
+            if rec.pending:
+                rec.buf = np.concatenate(rec.pending + [rec.buf])
+                rec.pending = []
+            rec.silent_run = 0
+            if len(rec.recent) >= window:
+                t0 = time.perf_counter()
+                _, one = eng.init(
+                    self._tensor(rec.recent[None, -window:]),
+                    self.stream_key(rec.uid)[None].to(self.device),
+                    *self._row_custom(rec))
+                new_state = _scatter_slot(new_state, one, s)
+                self._sync()
+                dt = time.perf_counter() - t0
+                rec.wall_s += dt
+                self._hop_wall_s += dt
+                self._imc_passes += 1
+            else:
+                rec.initialized = False     # re-admit from the buffer
+        self._state = new_state
+        self._mult = mult
+        self._hop_retargets += 1
+
+    def _retarget_hop(self, events: List[dict], woke: bool,
+                      silent: bool = False) -> None:
+        if self.hcfg is None:
+            return
+        max_score = max((e["score"] for e in events), default=0.0)
+        if woke or max_score >= self.hcfg.calm_score:
+            self._calm_ticks = 0
+            if self._mult != 1:
+                self._set_mult(1)
+            return
+        self._calm_ticks += 1
+        after = self.hcfg.widen_after
+        if silent and self.hcfg.calm_silence is not None:
+            after = self.hcfg.calm_silence
+        if self._calm_ticks >= after:
+            self._calm_ticks = 0
+            # clamped to the cap, so a max_multiplier that is no power of
+            # two is still reached
+            nxt = min(self._mult * 2, self.hcfg.max_multiplier)
+            if nxt != self._mult and self._feasible_mult(nxt):
+                self._set_mult(nxt)
+
+    def _tick_uj(self, computed: int, gated: int) -> float:
+        """Modelled uJ of one tick's hop composition at the current hop:
+        a computed hop is charged the ungated per-decision energy, a gated
+        fill the VAD and leakage only.  The two constants are computed once
+        per hop multiplier."""
+        consts = self._uj_consts.get(self._mult)
+        if consts is None:
+            g = energy.gated_energy_summary(
+                kws.layer_stats(self.cfg),
+                sv.streaming_layer_stats(self.cfg, self.geom),
+                hop_samples=self.hop, duty_cycle=1.0)
+            consts = (g["ungated_uj_per_decision"], g["idle_uj_per_hop"])
+            self._uj_consts[self._mult] = consts
+        return computed * consts[0] + gated * consts[1]
+
     # -- the batched tick ---------------------------------------------------
 
     def _admit_ready(self):
@@ -440,6 +880,7 @@ class StreamServer:
             rec.consumed += window
             rec.recent = first.copy()
             rec.pending = []
+            rec.silent_run = 0
             self._dstate = dec.reset_slot(self._dstate, s)
             if self._vstate is not None:
                 self._vstate = vd.vad_reset_slot(self._vstate, s)
@@ -464,6 +905,7 @@ class StreamServer:
             dt = time.perf_counter() - t0
             self._hop_wall_s += dt
             self._init_calls += 1
+            self._imc_passes += 1
             for s, rec in todo:
                 _book(rec, s, windows[s], dt / len(todo))
                 init_logits[s] = logits[s]
@@ -482,6 +924,7 @@ class StreamServer:
             dt = time.perf_counter() - t0
             self._hop_wall_s += dt
             self._init_calls += 1
+            self._imc_passes += 1
             _book(rec, s, first, dt)
         return init_mask, init_logits
 
@@ -494,11 +937,16 @@ class StreamServer:
         return ev
 
     def step(self) -> List[dict]:
-        """One scheduler tick: admissions, VAD classification, wake
-        replays, ONE batched hop over every speech-ready slot, ONE masked
-        no-op fill over every gated slot, then the batched decision
-        update.  Returns this tick's decision events (gated hops emit
-        none)."""
+        """One scheduler tick: the profile sweep, SLO shedding and
+        autoscaling, admissions, VAD classification, wake replays, ONE
+        batched hop over every speech-ready slot, ONE masked no-op fill
+        over every gated slot, the batched decision update, retirements,
+        the hop retarget and the sessions' background work.  Returns this
+        tick's decision events (gated hops emit none)."""
+        self._check_profiles()
+        self._enforce_slo()
+        self._autoscale()
+        eng = self.engine
         hop = self.geom.hop
         window = self.geom.window
         init_mask, init_logits = self._admit_ready()
@@ -524,6 +972,9 @@ class StreamServer:
                 # a gated hop would corrupt the captured feature buffer
                 if ready[s] and rec is not None and rec.force_compute:
                     speech[s] = True
+        # a tick is silent when hops ran and none carried speech: the
+        # dynamic hop may widen faster on these
+        silent_tick = bool(ready.any()) and not bool((speech & ready).any())
 
         compute_mask = np.zeros((self.slots,), bool)
         fill_mask = np.zeros((self.slots,), bool)
@@ -532,12 +983,14 @@ class StreamServer:
             if not ready[s]:
                 continue
             if speech[s]:
+                rec.silent_run = 0
                 if rec.pending:           # wake: replay the deferred hops
                     replays.append((s, rec.pending + [audio[s]]))
                     rec.pending = []
                 else:
                     compute_mask[s] = True
             else:
+                rec.silent_run += 1
                 rec.pending.append(audio[s])
                 if len(rec.pending) > self.vcfg.wake_margin:
                     aged = rec.pending.pop(0)
@@ -551,7 +1004,8 @@ class StreamServer:
         events: List[dict] = []
 
         # wake replays: the deferred silent hops plus the onset hop in ONE
-        # multi-hop launch per IMC layer for this slot
+        # multi-hop launch per IMC layer for this slot (one per hop on the
+        # recompute path)
         for s, chunks in replays:
             rec = self._slots[s]
             n = len(chunks)
@@ -561,11 +1015,11 @@ class StreamServer:
             a = np.zeros((self.slots, n * hop), np.float32)
             a[s] = np.concatenate(chunks)
             t0 = time.perf_counter()
-            lg, new_state = self.engine.multi_step(self._state,
-                                                   self._tensor(a), n,
-                                                   *self._riders())
+            lg, new_state = eng.multi_step(self._state, self._tensor(a), n,
+                                           *self._riders())
             self._state = _select_state(mask_t, new_state, self._state)
             self._replay_calls += 1
+            self._imc_passes += 1 if self.streaming else n
             outs = []
             for j in range(n):
                 self._dstate, out = dec.decision_step(
@@ -586,7 +1040,7 @@ class StreamServer:
         logits = init_logits
         if compute_mask.any():
             t0 = time.perf_counter()
-            hop_logits, new_state = self.engine.step(
+            hop_logits, new_state = eng.step(
                 self._state, self._tensor(audio), *self._riders())
             self._state = _select_state(self._tensor(compute_mask),
                                         new_state, self._state)
@@ -594,6 +1048,7 @@ class StreamServer:
             dt = time.perf_counter() - t0
             self._hop_wall_s += dt
             self._hop_calls += 1
+            self._imc_passes += 1
             n_active = int(compute_mask.sum())
             for s, rec in enumerate(self._slots):
                 if compute_mask[s]:
@@ -610,10 +1065,13 @@ class StreamServer:
 
         if fill_mask.any():
             t0 = time.perf_counter()
-            fills = (self._slot_fills if self._slot_fills is not None
-                     else self._fills)
-            new_state = sv.gated_step(self._state, self.cfg, self.geom,
-                                      fills)
+            if self.streaming:
+                fills = (self._slot_fills if self._slot_fills is not None
+                         else self._fills)
+                new_state = sv.gated_step(self._state, self.cfg, self.geom,
+                                          fills)
+            else:
+                new_state = sv.gated_window_step(self._state, self.geom)
             self._state = _select_state(self._tensor(fill_mask), new_state,
                                         self._state)
             self._sync()
@@ -644,6 +1102,7 @@ class StreamServer:
                                         else window)):
                 self._free_slot(rec)
         self._steps += 1
+        self._retarget_hop(events, woke=bool(replays), silent=silent_tick)
         # background learning jobs: calibration layers, feature-replay
         # spawns, bounded fine-tune rounds, hot swaps
         if self._cust is not None:
@@ -678,13 +1137,21 @@ class StreamServer:
         total_hops = self._speech_hops + self._gated_hops
         duty = (self._speech_hops / total_hops) if total_hops else None
         out = {
-            "mode": "streaming",
+            "mode": "streaming" if self.streaming else "recompute",
             "device": str(self.device),
+            "silence_fill": self.silence_fill,
             "slots": self.slots,
+            "slot_range": [self.min_slots, self.max_slots],
             "queue_depth": len(self._queue),
+            "rejected_streams": self._rejected,
+            "shed": {"events": self._shed_events,
+                     "samples": self._shed_samples},
             "steps": self._steps,
             "decisions": self._decisions,
+            "base_hop": self.base_hop,
             "hop": self.hop,
+            "hop_multiplier": self._mult,
+            "hop_retargets": self._hop_retargets,
             "speech_hops": self._speech_hops,
             "gated_hops": self._gated_hops,
             "learn_hops": self._learn_hops,
@@ -694,6 +1161,10 @@ class StreamServer:
                 "replay": self._replay_calls,
                 "gate": self._gate_calls,
             },
+            # batched IMC forwards run: one fused-kernel launch per IMC
+            # layer each (retarget re-inits and recompute replay hops
+            # included)
+            "imc_passes": self._imc_passes,
             "duty_cycle": round(duty, 4) if duty is not None else None,
             "hop_wall_s": round(self._hop_wall_s, 4),
             "decisions_per_sec": round(
@@ -708,10 +1179,13 @@ class StreamServer:
                 rec.stream_id: {"hops": rec.hops,
                                 "gated_hops": rec.gated_hops,
                                 "triggers": len(rec.triggers),
+                                "sheds": rec.sheds,
                                 "wall_s": round(rec.wall_s, 4)}
                 for rec in self._streams.values() if not rec.internal
             },
         }
+        if self._profiles is not None:
+            out["profile_swaps"] = self._profile_swaps
         if self._cust is not None:
             out["customization"] = self._cust.stats()
         if self.vcfg is not None:

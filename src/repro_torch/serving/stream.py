@@ -1,15 +1,14 @@
 """Frame-incremental streaming inference over the folded KWS model.
 
-Port of ``repro/serving/stream.py`` (the streaming path; the recompute
-fallback ``streaming=False`` is not ported).  The accelerator is
-always-on: one decision per hop of a sliding window.  Every layer's
-activation columns are indexed by absolute time; when the hop is a
-multiple of ``hop_alignment(cfg)`` (the product of all strides and pool
-windows, 64 samples for the paper net), consecutive windows' overlapping
-columns are identical at every layer, so per hop each layer computes only
-its tail: the hop's fresh columns plus a small carry (the k-1 conv overlap
-and, where a layer's conv length is odd, the one column the previous
-window's OR-maxpool truncated).
+Port of ``repro/serving/stream.py``.  The accelerator is always-on: one
+decision per hop of a sliding window.  Every layer's activation columns
+are indexed by absolute time; when the hop is a multiple of
+``hop_alignment(cfg)`` (the product of all strides and pool windows, 64
+samples for the paper net), consecutive windows' overlapping columns are
+identical at every layer, so per hop each layer computes only its tail:
+the hop's fresh columns plus a small carry (the k-1 conv overlap and,
+where a layer's conv length is odd, the one column the previous window's
+OR-maxpool truncated).
 
 SA noise is drawn from the per-absolute-column field of
 ``core.sa_noise``: ``fold_in(fold_in(stream_key, layer), abs_col)``, each
@@ -37,6 +36,14 @@ layers run in the same batched launch as every other stream;
 ``head_w``/``head_b`` ((B, D, C), (B, C)) replace the shared FC per
 stream.  Both are exact on the fixed-point grids, so a row holding the
 base values gives the base logits bit for bit.
+
+``streaming=False`` selects the recompute path (``window_init``,
+``window_step``, ``window_multi_step``, ``gated_window_step`` over a
+``WindowState`` that holds the raw window): every hop is one
+``hw_forward`` over the B full windows, one fused-kernel launch per IMC
+layer, equal to the streaming path bit for bit with ~window/hop times
+its work.  Its multi-hop step loops over the hops, so a run of n hops
+launches n times per layer.
 """
 
 from __future__ import annotations
@@ -209,6 +216,21 @@ class StreamState(NamedTuple):
     ring: torch.Tensor                      # (B, t_feat, C_last)
     hop: torch.Tensor                       # (B,) int32
     key: torch.Tensor                       # (B, 2) int64
+
+
+class WindowState(NamedTuple):
+    """Recompute-path state: the raw audio window only."""
+
+    window: torch.Tensor                    # (B, window)
+    hop: torch.Tensor                       # (B,) int32
+    key: torch.Tensor                       # (B, 2) int64
+
+
+def zeros_window_state(cfg: kws.KWSConfig, n: int, device) -> WindowState:
+    return WindowState(
+        window=torch.zeros((n, cfg.sample_len), device=device),
+        hop=torch.zeros((n,), dtype=torch.int32, device=device),
+        key=torch.zeros((n, 2), dtype=torch.int64, device=device))
 
 
 def zeros_state(cfg: kws.KWSConfig, geom: StreamGeometry, n: int,
@@ -396,6 +418,101 @@ def stream_multi_step(hw, state: StreamState, audio: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The recompute path: hw_forward over the whole window every hop
+# ---------------------------------------------------------------------------
+
+
+def _window_forward(hw, window: torch.Tensor, keys: torch.Tensor,
+                    hops: torch.Tensor, cfg: kws.KWSConfig,
+                    geom: StreamGeometry, *, chip_offsets, sa_noise_std,
+                    use_kernel, bias_delta=None, head_w=None, head_b=None):
+    """One ``hw_forward`` over B full windows (one fused-kernel launch per
+    IMC layer): window ``hops`` of each stream's noise field, the bias
+    deltas merged over every conv column, the per-stream head applied per
+    row.  Returns (logits (B, C), the advanced ``WindowState``)."""
+    noise = None
+    if sa_noise_std > 0.0:
+        noise = field_window_noise(SANoiseField(keys, hops, sa_noise_std,
+                                                geom.hop), cfg)
+    if bias_delta is not None:
+        noise = dict(noise) if noise is not None else {}
+        for i in range(1, cfg.num_conv_layers):
+            name = f"conv{i}"
+            noise[name] = _merge_bias_delta(noise.get(name),
+                                            bias_delta[name],
+                                            geom.layers[i].t_conv)
+    logits, feats = kws.hw_forward(hw, window, cfg,
+                                   chip_offsets=chip_offsets, sa_noise=noise,
+                                   use_kernel=use_kernel,
+                                   device=window.device)
+    if head_w is not None:
+        logits = torch.bmm(feats[:, None, :], head_w)[:, 0] + head_b
+    return logits, WindowState(window=window, hop=hops + 1, key=keys)
+
+
+def window_init(hw, window: torch.Tensor, cfg: kws.KWSConfig,
+                geom: StreamGeometry, *, keys: Optional[torch.Tensor] = None,
+                chip_offsets=None, sa_noise_std: float = 0.0,
+                use_kernel: bool = True, bias_delta=None, head_w=None,
+                head_b=None):
+    """Recompute-path init: ``hw_forward`` on the first windows (B,
+    window), window 0 of each stream's noise field."""
+    b = window.shape[0]
+    return _window_forward(
+        hw, window, _keys_or_zeros(keys, b, window.device),
+        torch.zeros((b,), dtype=torch.int32, device=window.device), cfg,
+        geom, chip_offsets=chip_offsets, sa_noise_std=sa_noise_std,
+        use_kernel=use_kernel, bias_delta=bias_delta, head_w=head_w,
+        head_b=head_b)
+
+
+def window_step(hw, state: WindowState, audio: torch.Tensor,
+                cfg: kws.KWSConfig, geom: StreamGeometry, *,
+                chip_offsets=None, sa_noise_std: float = 0.0,
+                use_kernel: bool = True, bias_delta=None, head_w=None,
+                head_b=None):
+    """Recompute-path hop: slide each window by the hop's audio (B, hop)
+    and rerun ``hw_forward`` on all of it.  Bit-identical to
+    ``stream_step`` (same noise field), ~window/hop times the work."""
+    window = torch.cat([state.window[:, geom.hop:], audio], dim=1)
+    return _window_forward(hw, window, state.key, state.hop, cfg, geom,
+                           chip_offsets=chip_offsets,
+                           sa_noise_std=sa_noise_std, use_kernel=use_kernel,
+                           bias_delta=bias_delta, head_w=head_w,
+                           head_b=head_b)
+
+
+def window_multi_step(hw, state: WindowState, audio: torch.Tensor,
+                      cfg: kws.KWSConfig, geom: StreamGeometry,
+                      n_hops: int, *, chip_offsets=None,
+                      sa_noise_std: float = 0.0, use_kernel: bool = True,
+                      bias_delta=None, head_w=None, head_b=None):
+    """``n_hops`` sequential ``window_step`` calls over audio (B,
+    n_hops*hop): n launches per IMC layer (the recompute path has no
+    multi-hop tail to share).  Returns (logits (B, n_hops, C), state)."""
+    logits = []
+    for j in range(n_hops):
+        lg, state = window_step(hw, state,
+                                audio[:, j * geom.hop:(j + 1) * geom.hop],
+                                cfg, geom, chip_offsets=chip_offsets,
+                                sa_noise_std=sa_noise_std,
+                                use_kernel=use_kernel, bias_delta=bias_delta,
+                                head_w=head_w, head_b=head_b)
+        logits.append(lg)
+    return torch.stack(logits, dim=1), state
+
+
+def gated_window_step(state: WindowState, geom: StreamGeometry
+                      ) -> WindowState:
+    """Recompute-path twin of ``gated_step``: slide each window by one hop
+    of zeros (silence) without running ``hw_forward``."""
+    b = state.hop.shape[0]
+    window = torch.cat([state.window[:, geom.hop:],
+                        state.window.new_zeros((b, geom.hop))], dim=1)
+    return WindowState(window=window, hop=state.hop + 1, key=state.key)
+
+
+# ---------------------------------------------------------------------------
 # Voice-activity-gated no-op advance (no IMC launch)
 # ---------------------------------------------------------------------------
 
@@ -480,13 +597,15 @@ def gated_step(state: StreamState, cfg: kws.KWSConfig, geom: StreamGeometry,
 class StreamEngine:
     """Init/step over a batch of streams on one device.  The scheduler
     (``serving.scheduler``) owns slots, masking and admission; this class
-    owns the compute.  ``hw`` must already live on ``device``;
-    ``chip_offsets`` are moved there."""
+    owns the compute.  ``streaming=True`` runs the frame-incremental path
+    over ``StreamState``; ``streaming=False`` the recompute path over
+    ``WindowState`` (``hw_forward`` on the full window per hop).  ``hw``
+    must already live on ``device``; ``chip_offsets`` are moved there."""
 
     def __init__(self, hw, cfg: kws.KWSConfig, hop: int, *,
                  chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
                  sa_noise_std: float = 0.0, use_kernel: bool = True,
-                 device=None):
+                 streaming: bool = True, device=None):
         self.device = resolve_device(device)
         if kws.hw_device(hw) != self.device:
             raise ValueError(f"StreamEngine: parameters are on "
@@ -498,41 +617,44 @@ class StreamEngine:
             k: kws.as_tensor(v, self.device) for k, v in chip_offsets.items()}
         self.sa_noise_std = float(sa_noise_std)
         self.use_kernel = use_kernel
+        self.streaming = streaming
 
-    def zeros_state(self, n: int) -> StreamState:
-        return zeros_state(self.cfg, self.geom, n, self.device)
+    def _kw(self, bias_delta, head_w, head_b) -> dict:
+        return dict(chip_offsets=self.chip_offsets,
+                    sa_noise_std=self.sa_noise_std,
+                    use_kernel=self.use_kernel, bias_delta=bias_delta,
+                    head_w=head_w, head_b=head_b)
+
+    def zeros_state(self, n: int):
+        if self.streaming:
+            return zeros_state(self.cfg, self.geom, n, self.device)
+        return zeros_window_state(self.cfg, n, self.device)
 
     def init(self, window: torch.Tensor, keys=None, bias_delta=None,
              head_w=None, head_b=None):
         """First full windows (B, window) of streams with noise-field
         ``keys`` (B, 2) -> (logits, state), with the optional per-stream
         customization riders."""
-        return stream_init(self.hw, window, self.cfg, self.geom, keys=keys,
-                           chip_offsets=self.chip_offsets,
-                           sa_noise_std=self.sa_noise_std,
-                           use_kernel=self.use_kernel, bias_delta=bias_delta,
-                           head_w=head_w, head_b=head_b)
+        fn = stream_init if self.streaming else window_init
+        return fn(self.hw, window, self.cfg, self.geom, keys=keys,
+                  **self._kw(bias_delta, head_w, head_b))
 
-    def step(self, state: StreamState, audio: torch.Tensor,
-             bias_delta=None, head_w=None, head_b=None):
+    def step(self, state, audio: torch.Tensor, bias_delta=None,
+             head_w=None, head_b=None):
         """One hop (B, hop) -> (logits, state), with the optional riders:
-        still one fused-kernel launch per IMC layer for the whole batch."""
-        return stream_step(self.hw, state, audio, self.cfg, self.geom,
-                           chip_offsets=self.chip_offsets,
-                           sa_noise_std=self.sa_noise_std,
-                           use_kernel=self.use_kernel, bias_delta=bias_delta,
-                           head_w=head_w, head_b=head_b)
+        one fused-kernel launch per IMC layer for the whole batch."""
+        fn = stream_step if self.streaming else window_step
+        return fn(self.hw, state, audio, self.cfg, self.geom,
+                  **self._kw(bias_delta, head_w, head_b))
 
-    def multi_step(self, state: StreamState, audio: torch.Tensor,
-                   n_hops: int, bias_delta=None, head_w=None, head_b=None):
-        """``n_hops`` hops (B, n_hops*hop) in one launch per IMC layer ->
-        (logits (B, n_hops, C), state), with optional riders."""
-        return stream_multi_step(self.hw, state, audio, self.cfg, self.geom,
-                                 n_hops, chip_offsets=self.chip_offsets,
-                                 sa_noise_std=self.sa_noise_std,
-                                 use_kernel=self.use_kernel,
-                                 bias_delta=bias_delta, head_w=head_w,
-                                 head_b=head_b)
+    def multi_step(self, state, audio: torch.Tensor, n_hops: int,
+                   bias_delta=None, head_w=None, head_b=None):
+        """``n_hops`` hops (B, n_hops*hop) -> (logits (B, n_hops, C),
+        state), with optional riders: one launch per IMC layer when
+        streaming, ``n_hops`` on the recompute path."""
+        fn = stream_multi_step if self.streaming else window_multi_step
+        return fn(self.hw, state, audio, self.cfg, self.geom, n_hops,
+                  **self._kw(bias_delta, head_w, head_b))
 
 
 # ---------------------------------------------------------------------------

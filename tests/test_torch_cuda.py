@@ -10,7 +10,13 @@ PyTorch versions, bit for bit; one
 and at cpg 6 and 48), one ``imc_mav`` launch per conv group, one
 ``head_train_rows`` launch per training tick of the customization
 sessions and one ``sga_update_rows`` launch per epoch of an RGP session;
-and the SA-noise field made on the card equal to the CPU's.
+the SA-noise field made on the card equal to the CPU's; the front door
+on the card: the recompute server (``streaming=False``), the dynamic hop
+on a noisy chip, autoscaling to 16 slots with a customized slot riding
+the resizes, each kernel route equal to the plain one with one
+``imc_fused`` launch per IMC layer and IMC forward, and K1 at the paper
+net's hop-2048 and hop-4096 tails; and a customization session on a
+noisy chip equal on the kernel route, the plain route and the CPU.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -922,3 +928,220 @@ def test_noisy_server_kernel_equals_plain_version(dev, fill):
     assert strip(ev_k) == strip(ev_c)
     np.testing.assert_allclose([e["score"] for e in ev_k],
                                [e["score"] for e in ev_c], rtol=0, atol=1e-6)
+
+
+# -- the front door: recompute path, dynamic hop, autoscaling --------------
+
+
+def _served_pair(dev, auds, **kw):
+    """The same traffic through the kernel route and the plain route on
+    the card: (events, stats, imc_fused launches, server) for each."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    runs = []
+    for use_kernel in (True, False):
+        srv = StreamServer(hw, cfg, hop=HOP, use_kernel=use_kernel,
+                           device=dev, **kw)
+        for i, x in enumerate(auds):
+            srv.submit(f"s{i}", x)
+            srv.finish(f"s{i}")
+        ops.COUNTS.reset()
+        events = []
+        # step until every stream retired (``drain`` stops at a tick that
+        # moves no buffer, which a hop retarget can make)
+        while srv.active_streams():
+            events.extend(srv.step())
+        runs.append((events, srv.stats(), ops.COUNTS.launches, srv))
+    (ev_k, st_k, n_k, srv_k), (ev_p, _, n_p, srv_p) = runs
+    assert ev_k == ev_p and ev_k
+    for a, b in zip(srv_k._state, srv_p._state):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    assert n_k == 5 * st_k["imc_passes"] and n_p == 0
+    return ev_k, st_k
+
+
+def _gappy(rng, n_streams, hops, gap=(2, 8)):
+    auds = []
+    for _ in range(n_streams):
+        x = rng.uniform(-1, 1, L + hops * HOP).astype(np.float32)
+        x[L + gap[0] * HOP:L + gap[1] * HOP] *= 1e-4
+        auds.append(x)
+    return auds
+
+
+def test_recompute_server_kernel_equals_plain_version(dev):
+    """``streaming=False``: every hop is one ``hw_forward`` over the full
+    windows.  The kernel and plain routes serve the same events and
+    windows with VAD gating and wake replays (one launch per IMC layer
+    and IMC forward); with every hop computed the recompute server's
+    events equal the streaming server's."""
+    rng = np.random.default_rng(31)
+    auds = _gappy(rng, 3, 16)
+    _, st = _served_pair(dev, auds, slots=3, vad=VADConfig(),
+                         streaming=False)
+    calls = st["batched_calls"]
+    assert st["mode"] == "recompute" and st["gated_hops"] > 0
+    assert st["imc_passes"] > calls["init"] + calls["hop"] + calls["replay"]
+    forced = [_served_pair(dev, auds, slots=3, streaming=streaming,
+                           vad=VADConfig(force="speech"))[0]
+              for streaming in (False, True)]
+    assert forced[0] == forced[1]
+
+
+def test_dynamic_hop_noisy_server_kernel_equals_plain_version(dev):
+    """Dynamic hop (x4) on a noisy chip: the kernel runs the hop-128 and
+    hop-256 tails and the retarget re-inits, equal to the plain route."""
+    cfg = kws.KWSConfig(sample_len=L)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(0, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    rng = np.random.default_rng(7)
+    wav = (1e-4 * rng.standard_normal(L + 40 * HOP)).astype(np.float32)
+    wav[:L] = rng.uniform(-1, 1, L)
+    wav[L + 30 * HOP:] = rng.uniform(-1, 1, 10 * HOP)
+    other = rng.uniform(-1, 1, L + 40 * HOP).astype(np.float32)
+    other[L:L + 28 * HOP] *= 1e-4
+    from repro_torch.serving import DynamicHopConfig
+    _, st = _served_pair(
+        dev, [wav, other], slots=2, chip_offsets=chip,
+        sa_noise_std=1.0, seed=4,
+        dynamic_hop=DynamicHopConfig(max_multiplier=4, widen_after=3,
+                                     calm_silence=2),
+        vad=VADConfig(threshold_on_db=-40.0, threshold_off_db=-50.0,
+                      wake_margin=1, hang=0))
+    assert st["hop_retargets"] >= 3
+
+
+def test_autoscale_to_16_slots_with_a_customized_slot(dev):
+    """A pool of 4 slots grows to 16 under queue pressure, rejects past
+    its queue bound and shrinks back; a customized stream rides the
+    resizes.  Kernel and plain routes agree, one launch per IMC layer and
+    batched call at B = 16."""
+    from repro_torch.serving import AdmissionConfig
+    from repro_torch.serving.customize import CustomizationResult
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    bias = {n: hw.hw.bias[n].cpu().numpy() + (2.0 if n == "conv2" else 0.0)
+            for n in cfg.imc_layer_names()}
+    fc_w = hw.hw.fc_w.cpu().numpy().copy()
+    fc_w[:, 2] += 3 / 128
+    result = CustomizationResult(bias=bias, fc_w=fc_w,
+                                 fc_b=hw.hw.fc_b.cpu().numpy(), epochs=1,
+                                 n_utterances=1, history=[], energy={})
+    rng = np.random.default_rng(8)
+    auds = _gappy(rng, 20, 10, gap=(3, 7))
+    runs = []
+    for use_kernel in (True, False):
+        srv = StreamServer(hw, cfg, hop=HOP, slots=4, vad=VADConfig(),
+                           use_kernel=use_kernel, device=dev,
+                           admission=AdmissionConfig(
+                               max_queue=14, min_slots=4, max_slots=16,
+                               scale_up_after=1, scale_down_after=2))
+        srv.install_custom("s1", result)
+        ops.COUNTS.reset()
+        places = [srv.submit(f"s{i}", x) for i, x in enumerate(auds)]
+        for sid in list(srv._streams):
+            srv.finish(sid)
+        events, slots = [], []
+        for _ in range(60):
+            events.extend(srv.step())
+            slots.append(srv.slots)
+        runs.append((places, events, slots, srv.stats(),
+                     ops.COUNTS.launches))
+    (pl_k, ev_k, sl_k, st_k, n_k), (pl_p, ev_p, sl_p, st_p, n_p) = runs
+    assert pl_k == pl_p and "rejected" in pl_k
+    assert ev_k == ev_p and sl_k == sl_p
+    assert max(sl_k) == 16 and sl_k[-1] == 4
+    assert st_k["rejected_streams"] > 0
+    assert n_k == 5 * st_k["imc_passes"] and n_p == 0
+
+
+@pytest.mark.parametrize("hop", [2048, 4096])
+@pytest.mark.parametrize("kind", ["pm1", "zero_streams", "ternary"])
+def test_kernel_matches_plain_version_at_wide_hop_tails(dev, hop, kind):
+    """K1 at the paper net's per-hop tail shapes of the widened hops
+    (B = 8), every IMC layer, clean / chip / noise, bitwise."""
+    cfg = kws.PAPER_KWS
+    geom = sv.make_stream_geometry(cfg, hop)
+    for i in range(1, cfg.num_conv_layers):
+        c_in, c_out, g = cfg.channels[i - 1], cfg.channels[i], cfg.groups(i)
+        x, w, bias, flip, off, noise = _inputs(
+            100 + i, 8, geom.layers[i].tail_in, c_in, c_out, g,
+            cfg.strides[i], dev, kind)
+        for o, n in ((None, None), (off, None), (off, noise)):
+            ops.COUNTS.reset()
+            got = ops.fused_conv_mav(x, w, bias, flip, groups=g,
+                                     stride=cfg.strides[i],
+                                     pool=cfg.pools[i], chip_offset=o,
+                                     sa_noise=n)
+            assert ops.COUNTS.launches == 1
+            want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=g,
+                                          stride=cfg.strides[i],
+                                          pool=cfg.pools[i], chip_offset=o,
+                                          sa_noise=n)
+            assert torch.equal(got, want), (i, o is None, n is None)
+
+
+def test_noisy_customization_session_kernel_equals_plain_version(dev):
+    """One session on a noisy chip (SA noise 1.0, chip offsets, VAD on,
+    the test mode's read noise 1.0): the kernel route's result and events
+    equal the plain route's on the card and the CPU path's (``score``
+    within 1e-6 there); its captures re-extract under the noise field."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(0, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    rng = np.random.default_rng(21)
+    live = rng.uniform(-1, 1, L + 40 * HOP).astype(np.float32)
+    utts = [rng.uniform(-1, 1, L).astype(np.float32) for _ in range(3)]
+    labels = [int(v) for v in rng.integers(0, cfg.num_classes, 3)]
+
+    def run(device, use_kernel):
+        srv = StreamServer(hw if device == dev else _to_cpu(hw), cfg,
+                           hop=HOP, slots=4, chip_offsets=chip,
+                           sa_noise_std=1.0, seed=11, vad=VADConfig(),
+                           use_kernel=use_kernel, device=device)
+        sess = srv.customize("user", CustomizeConfig(
+            train=OnChipTrainConfig(epochs=12), epochs_per_tick=5,
+            calib_sa_noise_std=1.0, calib_seed=4, use_kernel=use_kernel))
+        srv.submit("live", live[:L])
+        for lab, u in zip(labels, utts):
+            sess.enroll(lab, u)
+        sess.finish_enrollment()
+        ops.COUNTS.reset()
+        events, pos = [], L
+        for _ in range(300):
+            if pos < len(live):
+                srv.submit("live", live[pos:pos + HOP])
+                pos += HOP
+            events.extend(srv.step())
+            if sess.phase == "swapped":
+                break
+        assert sess.phase == "swapped"
+        srv.submit("user", live[:L + 4 * HOP])
+        srv.finish("user")
+        events.extend(srv.drain())
+        return dict(events=events, result=sess.result, srv=srv,
+                    imc=ops.COUNTS.launches)
+
+    kern, plain = run(dev, True), run(dev, False)
+    cpu = run(torch.device("cpu"), True)
+    assert kern["events"] == plain["events"]
+    assert kern["imc"] == 5 * kern["srv"].stats()["imc_passes"]
+    assert plain["imc"] == 0
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    assert strip(kern["events"]) == strip(cpu["events"])
+    np.testing.assert_allclose([e["score"] for e in kern["events"]],
+                               [e["score"] for e in cpu["events"]], rtol=0,
+                               atol=1e-6)
+    for r in (plain["result"], cpu["result"]):
+        rk = kern["result"]
+        assert np.array_equal(rk.fc_w, r.fc_w)
+        assert np.array_equal(rk.fc_b, r.fc_b)
+        assert rk.history == r.history
+        for name in cfg.imc_layer_names():
+            assert np.array_equal(rk.bias[name], r.bias[name])
