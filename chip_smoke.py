@@ -98,7 +98,19 @@ result line):
    streams: rejections, sheds past the latency SLO, growth to 16 and the
    shrink back (phase 2 holds and times K1 at B = 16); (d) a customization
    session's result in a ``ProfileStore``, served through
-   ``submit(user_id=)`` exactly as through ``install_custom``.
+   ``submit(user_id=)`` exactly as through ``install_custom``;
+9. the self-healing chip (``phase_reliability``), each run on the kernel
+   and the plain route with identical events (``degraded`` included),
+   states, health and fault stats and ``imc_fused`` launched 5 x
+   ``stats()["imc_passes"]`` times: (a) a faulted server (stuck columns,
+   trim-bit flips) equal to a clean one serving the same integer deltas
+   through installed profiles, at SA noise 0 and 1.0; (b) stuck columns
+   in conv3 on a monitored server until they are masked, and (c) a
+   uniform drift of 40 counts on conv2 until it has healed, with the
+   detection tick, transitions, recoveries and modelled recovery energy;
+   (d) decisions/s and the device busy share with canaries every 8 ticks
+   and without; (e) K1's device time in a tick whose batch carries live
+   hops and a canary hop, against the same tick without health.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -108,8 +120,9 @@ for the work of one steady-state hop tick (the five IMC layers at the
 hop-1024 tail shapes, B = 8): median device time from ``torch.profiler`` (CUDA-event
 time per call where the profiler records no device activity), and the
 least time the card could take for the same bytes and operations.
-``launches`` is the count from the main path's served run, and
-``launches_front_door`` K1's counts on the front door's paths; phase 2's
+``launches`` is the count from the main path's served run,
+``launches_front_door`` K1's counts on the front door's paths and
+``launches_reliability`` those of phase 9's kernel runs; phase 2's
 totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
 JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
@@ -213,7 +226,7 @@ def host_ms(torch, fn, reps=7, iters=50):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=7, iters=20, records=None):
+def device_ms(torch, fn, reps=7, iters=20, records=None, kernel=None):
     """Median device time per call of ``fn``: in each of ``reps`` profiled
     runs of ``iters`` calls, the summed own time of the device activities
     (kernels, copies) that ``torch.profiler`` records, over ``iters``; a
@@ -221,7 +234,8 @@ def device_ms(torch, fn, reps=7, iters=20, records=None):
     None when no run recorded any (then only the CUDA-event times
     stand).  ``records``, when given, receives each counted run's device
     activities per call (fewer than ``fn`` launches means dropped
-    records)."""
+    records).  ``kernel``, when given, counts only the activities whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -233,6 +247,9 @@ def device_ms(torch, fn, reps=7, iters=20, records=None):
                 fn()
             torch.cuda.synchronize()
         total_us, rows = device_time(torch, prof)
+        if kernel is not None:
+            rows = {k: v for k, v in rows.items() if kernel in k}
+            total_us = sum(us for us, _ in rows.values())
         if total_us > 0:
             per_call.append(total_us / iters / 1e3)
             if records is not None:
@@ -2043,6 +2060,374 @@ def phase_front_door(torch, dev, window):
     return out
 
 
+REL_RUNS = 3
+REL_INTERVAL = 8                  # (d): the canary cadence measured
+REL_CAP = 160                     # (b), (c): ticks before giving up
+
+
+def _looped_traffic(cfg, n_streams, hops):
+    """``n_streams`` of the served traffic, each looped to a window and
+    ``hops`` hops (``_traffic`` cuts at about 27 hops)."""
+    import numpy as np
+    n = cfg.sample_len + hops * HOP
+    return [np.resize(x, n) for x in _traffic(cfg, n_streams=n_streams)]
+
+
+def phase_reliability(torch, dev):
+    """The self-healing chip at full width (``PAPER_KWS``, hop 1024, 8
+    slots, chip offsets of std 4, VAD on), every run on the kernel route
+    and on the plain route with identical events (``degraded`` included),
+    states, health stats and histories, fault stats and counters, and
+    ``imc_fused`` launched 5 x ``stats()["imc_passes"]`` times (the
+    canary's expected state included):
+
+    (a) faults as riders: a server whose fault model holds stuck columns
+        and trim-bit flips serves phase 3's traffic bit for bit as a clean
+        server whose 8 streams carry the same integer deltas as installed
+        profiles, at SA noise 0 and 1.0 (VAD forced to speech: an
+        installed profile also carries its own silence fills, which the
+        chip-global fault delta leaves alone);
+    (b) stuck columns 2 and 7 of conv3 on a monitored server
+        (``HealthConfig(interval=4, layers_per_tick=2)``, 7 live streams
+        looped to 150 hops, the eighth slot for the canary), stepped
+        until the columns are masked and the chip is healthy again (at
+        most ``REL_CAP`` ticks): detection tick, each transition,
+        recoveries and ``recovery_energy_uj``;
+    (c) a uniform drift of 40 counts on conv2, the same way, until it has
+        healed back to healthy through the heal rider (``_heal_delta``);
+    (d) decisions/s and the profiled device busy share of phase 3's
+        traffic with ``health=HealthConfig(interval=8)`` and without, on 9
+        slots (one free for the canary) in both, ``REL_RUNS`` runs each
+        in turns, with their spread;
+    (e) K1's device time in the first tick whose one batched call (5
+        launches, no wake replay) carries live hops and a canary's hop,
+        against the same tick of the
+        server without health: the captured call replayed under the
+        profiler.
+
+    Detection and the launch counts are asserted; the other end states
+    are printed (the reference's asserts on them were made at
+    ``sample_len=640``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.serving import (CustomizationResult, FaultConfig,
+                                     FaultModel, HealthConfig, StreamServer,
+                                     VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    gen = torch.Generator().manual_seed(0)
+    params = kws.init_params(gen, cfg, device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    chip = _noisy_chip(torch, cfg)
+    keys = ("steps", "decisions", "speech_hops", "gated_hops", "learn_hops",
+            "batched_calls", "imc_passes", "slots", "faults", "health")
+
+    def run(feed, use_kernel, profiled=False, **kw):
+        srv = StreamServer(hw, cfg, hop=HOP, use_kernel=use_kernel,
+                           device=dev, **kw)
+        torch.cuda.synchronize()
+        prof = None
+        ops.COUNTS.reset()                  # the path's run starts
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = feed(srv)
+                torch.cuda.synchronize()
+        else:
+            out = feed(srv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.COUNTS.launches      # ... and ends: read the count
+        st = srv.stats()
+        want = 5 * st["imc_passes"] if use_kernel else 0
+        if launches != want:
+            raise AssertionError(f"imc_fused launched {launches} times for "
+                                 f"{st['imc_passes']} IMC forwards "
+                                 f"(expected {want})")
+        st_ = srv._state
+        out.update(srv=srv, stats=st, launches=launches, wall=wall,
+                   prof=prof, kernel=use_kernel,
+                   counters={k: st.get(k) for k in keys},
+                   per_stream={sid: {k: v for k, v in p.items()
+                                     if k != "wall_s"}
+                               for sid, p in st["per_stream"].items()},
+                   leaves=[st_.audio_carry, *st_.carries, st_.ring,
+                           st_.hop, st_.key, *srv._dstate,
+                           *srv._vstate],
+                   heal=srv._heal_delta)
+        return out
+
+    def same(a, b, what):
+        for k in ("events", "trace", "counters", "per_stream"):
+            if a.get(k) != b.get(k):
+                raise AssertionError(f"{what}: {k} differ between the runs")
+        for x, y in zip(a["leaves"], b["leaves"]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: state differs between the "
+                                     f"runs")
+        ha, hb = a["heal"] or {}, b["heal"] or {}
+        if sorted(ha) != sorted(hb) or any(
+                not np.array_equal(ha[k], hb[k]) for k in ha):
+            raise AssertionError(f"{what}: heal deltas differ")
+
+    def routes(feed, what, **kw):
+        k, p = run(feed, True, **kw), run(feed, False, **kw)
+        same(k, p, what)
+        return k
+
+    def served(streams, custom=None, inject=None):
+        def feed(srv):
+            if inject is not None:
+                inject(srv)
+            for s, x in enumerate(streams):
+                if custom is not None:
+                    srv.install_custom(f"s{s}", custom)
+                srv.submit(f"s{s}", x)
+                srv.finish(f"s{s}")
+            return dict(events=srv.drain())
+        return feed
+
+    out = {"launches": {}}
+    streams = _traffic(cfg)
+    forced = VADConfig(force="speech")
+
+    def faulty(fm):
+        fm.inject_stuck("conv3", [2, 7])
+        fm.inject_stuck("conv2", [0, 5], value=1)
+        fm.inject_bit_flips(n=6)
+
+    # (a) faults are riders
+    probe = FaultModel.for_config(cfg, FaultConfig(seed=3))
+    faulty(probe)
+    deltas = probe.deltas()
+    hwp, _ = kws.as_hw_params(hw)
+    result = CustomizationResult(
+        bias={n: hwp.bias[n].cpu().numpy() + deltas[n]
+              for n in cfg.imc_layer_names()},
+        fc_w=hwp.fc_w.cpu().numpy(), fc_b=hwp.fc_b.cpu().numpy(),
+        epochs=1, n_utterances=1, history=[], energy={})
+    for std in (0.0, SA_STD):
+        kw = dict(slots=SLOTS, chip_offsets=chip, sa_noise_std=std, seed=0,
+                  vad=forced)
+        fk = routes(served(streams, inject=lambda srv: faulty(srv.faults)),
+                    f"faulted (SA {std})",
+                    faults=FaultConfig(seed=3), **kw)
+        rk = routes(served(streams, custom=result),
+                    f"installed deltas (SA {std})", **kw)
+        base = run(served(streams), True, **kw)
+        if fk["events"] != rk["events"] or not fk["events"]:
+            raise AssertionError(f"SA {std}: the faulted server's events "
+                                 f"differ from the installed deltas'")
+        for x, y in zip(fk["leaves"], rk["leaves"]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"SA {std}: the faulted server's "
+                                     f"state differs from the installed "
+                                     f"deltas'")
+        moved = sum(a != b for a, b in zip(fk["events"], base["events"]))
+        log(f"[reliability] (a) SA {std}: faulted server (stuck conv3 2, 7 "
+            f"low, conv2 0, 5 high, 6 trim flips) == clean server with the "
+            f"deltas installed on its 8 streams: {len(fk['events'])} "
+            f"events and every state leaf, kernel and plain; {moved} "
+            f"events differ from the pristine chip's; imc_fused launches "
+            f"{fk['launches']} (= 5 x {fk['stats']['imc_passes']})")
+        out["launches"][f"riders_sa{std:g}"] = fk["launches"]
+
+    # (b), (c): a monitored chip until it is healthy again
+    live = _looped_traffic(cfg, SLOTS - 1, 150)
+
+    def scenario(inject, at, done):
+        def feed(srv):
+            for s, x in enumerate(live):
+                srv.submit(f"s{s}", x)
+                srv.finish(f"s{s}")
+            events, trace = [], []
+            for t in range(REL_CAP):
+                if t == at:
+                    inject(srv)
+                events.extend(srv.step())
+                trace.append(srv.health.state)
+                if t > at and done(srv):
+                    break
+            return dict(events=events, trace=trace)
+        return feed
+
+    def stuck(srv):
+        srv.faults.inject_stuck("conv3", [2, 7])
+
+    def drift(srv):
+        srv.faults._drift["conv2"][:] = 40.0
+        srv.faults._dirty = True
+
+    def healed_with(masked):
+        def done(srv):
+            h = srv.health
+            return (h.state == "healthy" and h.recoveries >= 1
+                    and {n: list(np.where(m)[0]) for n, m in
+                         h.masked.items() if m.any()} == masked)
+        return done
+
+    res = {}
+    for name, inject, masked in (("stuck", stuck, {"conv3": [2, 7]}),
+                                 ("drift", drift, {})):
+        k = routes(scenario(inject, 4, healed_with(masked)),
+                   f"{name} scenario", slots=SLOTS, chip_offsets=chip,
+                   vad=VADConfig(), faults=FaultConfig(seed=3),
+                   health=HealthConfig(interval=4, layers_per_tick=2))
+        h = k["stats"]["health"]
+        if h["detected_tick"] is None:
+            raise AssertionError(f"{name}: the fault was not detected")
+        heal = sorted(k["heal"] or {})
+        log(f"[reliability] ({'b' if name == 'stuck' else 'c'}) {name}: "
+            f"injected at tick 4, detected at tick {h['detected_tick']}, "
+            f"quarantined at {h['quarantined_tick']}; transitions "
+            f"{[(e['tick'], e['state']) for e in h['history']]}; "
+            f"{h['recoveries']} recoveries, recovery_energy_uj "
+            f"{h['recovery_energy_uj']}, masked {h['masked_channels']}, "
+            f"heal rider on {heal}; end state {h['state']} after "
+            f"{k['stats']['steps']} ticks, {h['canaries']} canaries "
+            f"({h['failed_canaries']} failed); "
+            f"{sum(e['degraded'] for e in k['events'])} of "
+            f"{len(k['events'])} events flagged degraded; imc_fused "
+            f"launches {k['launches']} (= 5 x {k['stats']['imc_passes']}); "
+            f"kernel and plain equal")
+        res[name] = dict(
+            detected_tick=h["detected_tick"],
+            quarantined_tick=h["quarantined_tick"],
+            history=h["history"], recoveries=h["recoveries"],
+            recovery_energy_uj=h["recovery_energy_uj"],
+            masked=h["masked_channels"], heal_layers=heal,
+            state=h["state"], ticks=k["stats"]["steps"],
+            launches=k["launches"])
+        out["launches"][name] = k["launches"]
+    out.update(res)
+
+    # (d) health on and off, phase 3's traffic on 9 slots
+    monitored = dict(slots=SLOTS + 1, chip_offsets=chip, vad=VADConfig())
+    health = HealthConfig(interval=REL_INTERVAL)
+    run(served(streams), True, **monitored)                     # warm-up
+    run(served(streams), True, health=health, **monitored)
+    timed = {False: [], True: []}
+    for _ in range(REL_RUNS):
+        for on in (False, True):
+            timed[on].append(run(served(streams), True,
+                                 health=health if on else None,
+                                 **monitored))
+    on_plain = run(served(streams), False, health=health, **monitored)
+    same(timed[True][0], on_plain, "health on")
+    for on in (False, True):
+        for r in timed[on][1:]:
+            same(r, timed[on][0], f"health {'on' if on else 'off'}")
+    dps = {on: [r["stats"]["decisions"] / r["wall"] for r in timed[on]]
+           for on in (False, True)}
+    busy = {}
+    for on in (False, True):
+        r = run(served(streams), True, profiled=True,
+                health=health if on else None, **monitored)
+        busy_us, rows = device_time(torch, r["prof"])
+        busy[on] = dict(share=busy_us / 1e6 / r["wall"], wall=r["wall"],
+                        k1_ms=sum(us for name, (us, _) in rows.items()
+                                  if "imc_fused" in name) / 1e3,
+                        launches=r["launches"])
+    on0, off0 = timed[True][0]["stats"], timed[False][0]["stats"]
+    flagged = [e.pop("degraded") for e in timed[True][0]["events"]]
+    if (timed[True][0]["events"] != timed[False][0]["events"]
+            or any(flagged) or not on0["health"]["canaries"]):
+        raise AssertionError(f"health run: events differ from the "
+                             f"unmonitored run's or are flagged degraded "
+                             f"({sum(flagged)}); {on0['health']['canaries']} "
+                             f"canaries")
+    log(f"[reliability] (d) phase 3's traffic on {SLOTS + 1} slots: "
+        f"{off0['decisions']} decisions in {off0['steps']} ticks; health "
+        f"off: wall decisions/s {[round(v, 1) for v in dps[False]]}, K1 "
+        f"launches {timed[False][0]['launches']}; health on (interval "
+        f"{REL_INTERVAL}): {[round(v, 1) for v in dps[True]]}, "
+        f"{on0['health']['canaries']} canaries, K1 launches "
+        f"{timed[True][0]['launches']} (= 5 x {on0['imc_passes']}), state "
+        f"{on0['health']['state']}; profiled busy share off "
+        f"{busy[False]['share']:.4f} (K1 {busy[False]['k1_ms']:.3f} ms), "
+        f"on {busy[True]['share']:.4f} (K1 {busy[True]['k1_ms']:.3f} ms); "
+        f"kernel and plain equal")
+    out["health_cost"] = dict(
+        decisions=off0["decisions"], ticks=off0["steps"],
+        wall_dps_off=dps[False], wall_dps_on=dps[True],
+        canaries=on0["health"]["canaries"],
+        launches_off=timed[False][0]["launches"],
+        launches_on=timed[True][0]["launches"],
+        busy_share_off=busy[False]["share"],
+        busy_share_on=busy[True]["share"],
+        k1_ms_off=busy[False]["k1_ms"], k1_ms_on=busy[True]["k1_ms"])
+    out["launches"]["health_on"] = timed[True][0]["launches"]
+
+    # (e) the tick whose batch carries a canary's hop
+    def captured(on):
+        srv = StreamServer(hw, cfg, hop=HOP, use_kernel=True, device=dev,
+                           health=health if on else None, **monitored)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        eng = srv.engine
+        calls = []
+        real = eng.step
+
+        def spy(state, audio, *riders):
+            calls.append((tuple(x.clone() if torch.is_tensor(x) else
+                                tuple(y.clone() for y in x)
+                                for x in state), audio.clone(), riders))
+            return real(state, audio, *riders)
+
+        eng.step = spy
+        return srv, calls
+
+    srv_on, calls_on = captured(True)
+    tick = None
+    for t in range(REL_CAP):
+        p = srv_on.health._pending
+        rec = None if p is None else srv_on._streams.get(p["stream"])
+        due = rec is not None and rec.initialized
+        n0, c0 = ops.COUNTS.launches, len(calls_on)
+        hops0 = srv_on.stats()["speech_hops"]
+        srv_on.step()
+        live_hops = srv_on.stats()["speech_hops"] - hops0
+        # the canary's hop and live hops in the tick's one batched call,
+        # and no other IMC call (a wake replay) in that tick
+        if (due and srv_on.health._pending is None and live_hops
+                and ops.COUNTS.launches - n0 == 5
+                and len(calls_on) == c0 + 1):
+            tick = t
+            break
+    if tick is None:
+        raise AssertionError("no canary hop rode a batch of live hops")
+    srv_off, calls_off = captured(False)
+    for _ in range(tick + 1):
+        srv_off.step()
+    state_cls = type(srv_on._state)
+    times = {}
+    for on, calls in ((True, calls_on), (False, calls_off)):
+        srv = srv_on if on else srv_off
+        st, audio, riders = calls[-1]
+        st = state_cls(*st)
+        eng = srv._engines[1]
+        step = type(eng).step              # the engine's own, not the spy
+        times[on] = device_ms(torch, lambda: step(eng, st, audio, *riders),
+                              iters=10, kernel="imc_fused")
+    log(f"[reliability] (e) tick {tick}: {live_hops} live hops and a "
+        f"canary hop in one batched call (5 imc_fused launches); K1 device "
+        f"time {times[True]} ms with the canary, {times[False]} ms the "
+        f"same tick without health (B = {SLOTS + 1} both)")
+    out["canary_tick"] = dict(tick=tick, live_hops=live_hops,
+                              k1_ms_with=times[True],
+                              k1_ms_without=times[False])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[reliability] the reliability phase took {out['wall_s']:.1f} s "
+        f"of wall")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2098,6 +2483,7 @@ def main() -> int:
     group = phase_grouploop(torch, dev)
     noisy = phase_noisy_served(torch, dev)
     front = phase_front_door(torch, dev, totals["window"])
+    rel = phase_reliability(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -2107,7 +2493,8 @@ def main() -> int:
                       "served": served, "customize": custom, "rgp": rgp,
                       "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
-                      "noisy": noisy, "front_door": front}), flush=True)
+                      "noisy": noisy, "front_door": front,
+                      "reliability": rel}), flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "
@@ -2127,6 +2514,16 @@ def main() -> int:
         f"{fr['bound_ms']:.5f}); launches {front['launches']}")
     log(f"[summary] {smi}: K1 five layers per shape (phase 2, device time): "
         f"{k1_shapes}")
+    hc, ct = rel["health_cost"], rel["canary_tick"]
+    log(f"[summary] {smi}: reliability: stuck detected at tick "
+        f"{rel['stuck']['detected_tick']} (injected at 4), end state "
+        f"{rel['stuck']['state']}, masked {rel['stuck']['masked']}; drift "
+        f"detected at {rel['drift']['detected_tick']}, end state "
+        f"{rel['drift']['state']}; decisions/s health off "
+        f"{[round(v, 1) for v in hc['wall_dps_off']]}, on (interval "
+        f"{REL_INTERVAL}) {[round(v, 1) for v in hc['wall_dps_on']]}; K1 "
+        f"in the canary tick {ct['k1_ms_with']} ms, without "
+        f"{ct['k1_ms_without']} ms; launches {rel['launches']}")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -2143,7 +2540,8 @@ def main() -> int:
         "name": "imc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "launches_front_door": front["launches"]}]
+        "library_ms": None, "launches_front_door": front["launches"],
+        "launches_reliability": rel["launches"]}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):

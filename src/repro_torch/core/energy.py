@@ -6,8 +6,8 @@ Own copy of the serving and customization half of ``repro/core/energy.py``
 paper's anchors (14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k
 cycles/decision, 765k cycles per training epoch), the streaming
 per-decision report and its side-by-side with the offline (recompute)
-one, the duty-cycled VAD-gated summary and the on-chip fine-tuning
-energy.  These are modelled chip numbers, not measurements of
+one, the duty-cycled VAD-gated summary, the on-chip fine-tuning energy
+and the energy of a self-healing recompensation pass.  These are modelled chip numbers, not measurements of
 any device.
 """
 
@@ -191,4 +191,25 @@ def customization_energy_summary(n_utts: int, feat_dim: int,
         "uj_per_finetune_step": per_step * 1e6,
         "total_uj": total * 1e6,
         "seconds_per_step": CYCLES_PER_TRAIN_EPOCH / freq_hz,
+    }
+
+
+def recovery_energy_summary(offline_stats: List[dict], *, n_cal: int,
+                            bias_bits: int, freq_hz: float = 1e6) -> dict:
+    """Analytical energy of one self-healing recompensation pass
+    (``serving.health``): the §IV-B test mode re-runs ``n_cal``
+    calibration windows through the full stack with the counts digitized
+    (charged as full offline decisions: the test mode has no streaming
+    reuse), then re-programs the healed layers' bias words (``bias_bits``
+    SRAM writes)."""
+    rep = kws_chip_report(offline_stats, freq_hz)
+    measure_j = n_cal * rep.energy_j_per_decision
+    reprogram_j = bias_bits * E_SRAM_WR_BIT
+    return {
+        "freq_hz": freq_hz,
+        "n_cal_windows": n_cal,
+        "bias_bits": bias_bits,
+        "measure_uj": measure_j * 1e6,
+        "reprogram_uj": reprogram_j * 1e6,
+        "total_uj": (measure_j + reprogram_j) * 1e6,
     }

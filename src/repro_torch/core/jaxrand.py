@@ -16,6 +16,9 @@ same numbers, so one seed gives both packages the same noisy chip:
   XOR of the two hash words of the counters ``(0, j)``, j the flat index;
 * ``uniform`` puts 23 random bits into the mantissa of a float in [1, 2)
   and scales, as ``jax.random._uniform`` does;
+* ``randint`` (int32) takes 32 bits from each half of a split key and
+  folds them into the span in uint32 arithmetic, as
+  ``jax.random._randint`` does;
 * ``normal`` is ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))`` with
   the f32 ``erf_inv`` that XLA's CPU backend compiles: Giles' polynomial
   on ``w = -log1p(-x*x)``, XLA's own ``log1p`` (a Cephes rational for small
@@ -285,3 +288,34 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.normal`` in float32: (..., *shape) for keys (..., 2)."""
     return normal_from_bits(random_bits(key, shape))
+
+
+# ---------------------------------------------------------------------------
+# integers
+# ---------------------------------------------------------------------------
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32: (..., *shape) values in
+    [minval, maxval) for keys (..., 2), as int64 tensors holding int32s.
+    As ``jax.random._randint`` does: split the key in two, draw 32 random
+    bits from each, force the span to 1 when ``maxval <= minval``, form
+    the multiplier as ``(2**16 % span)**2 % span`` with the square in
+    uint32 (so it wraps to 0 for spans past 2**16) and return
+    ``((hi % span) * mult + lo % span) % span + minval``, every step in
+    uint32 (or int32, for the last add) wraparound.  ``minval`` and
+    ``maxval`` are int32 Python ints."""
+    lo_i32, hi_i32 = -2 ** 31, 2 ** 31 - 1
+    if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
+        raise ValueError(f"randint: bounds {minval}, {maxval} are not int32")
+    span = 1 if maxval <= minval else (maxval - minval) & _M32
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span     # wraps for span > 2**16
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
+    offset = offset % span
+    out = (offset + (minval & _M32)) & _M32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out)

@@ -16,12 +16,18 @@
   customize.py  — on-device customization as a serving workload:
                   enrollment sessions, scheduler-ticked bias compensation
                   + SGA fine-tuning, hot-swapped per-stream profiles
+  health.py     — canary health monitoring: divergence localization,
+                  the healthy / degraded / quarantined / recovering state
+                  machine, online recompensation of a faulted chip
+                  (``core.faults``)
 """
 
+from repro_torch.core.faults import FaultConfig, FaultModel
 from repro_torch.serving.customize import (CustomizationResult,
                                            CustomizationSession,
                                            CustomizeConfig)
 from repro_torch.serving.decision import DecisionConfig
+from repro_torch.serving.health import HealthConfig, HealthMonitor
 from repro_torch.serving.scheduler import (AdmissionConfig,
                                            DynamicHopConfig, StreamServer)
 from repro_torch.serving.stream import (StreamEngine, StreamGeometry,
@@ -40,6 +46,7 @@ from repro_torch.serving.vad import VADConfig
 __all__ = [
     "AdmissionConfig", "CustomizationResult", "CustomizationSession",
     "CustomizeConfig", "DecisionConfig", "DynamicHopConfig",
+    "FaultConfig", "FaultModel", "HealthConfig", "HealthMonitor",
     "StreamEngine", "StreamGeometry", "StreamServer", "StreamState",
     "VADConfig", "WindowState", "gated_step", "gated_window_step",
     "hop_alignment", "hop_sa_noise_fields", "make_stream_geometry",

@@ -63,7 +63,19 @@ admission queue, and per tick:
   ``submit(stream_id, chunk, user_id=...)`` installs the user's stored
   profile onto the stream's riders; the sweep at the top of each tick
   re-installs a profile whose file changed and resets a stream whose
-  profile was deleted.
+  profile was deleted;
+* **faults and health** (``faults=FaultConfig(...)`` /
+  ``health=HealthConfig(...)``) — a seeded fault model
+  (``core.faults``) rides the batched calls as a chip-global pre-sign
+  count delta added to every slot's bias-delta rider row, so a faulted
+  tick launches the fused kernel as often as a healthy one; its drift
+  advances at the top of each tick.  The health monitor
+  (``serving.health``) submits canary windows as internal streams of the
+  same batch, captures their state right after the batched hop, walks
+  healthy -> degraded -> quarantined -> recovering, re-runs the test-mode
+  compensation as background work after the customization sessions' and
+  swaps the heal in through the same rider row (``_set_heal_delta``);
+  decision events carry ``degraded`` while the chip is not healthy.
 
 ``streaming=False`` serves on the recompute path (``hw_forward`` over the
 whole window every hop, ``stream.window_step``) with ~window/hop times
@@ -82,8 +94,8 @@ sheds, the hop multiplier and its retargets, the learning hops and
 sessions, and the modelled gated energy per decision; ``_tick_uj`` gives
 a tick's modelled energy from its hop composition.
 
-Not in this port yet: faults and health, compiled ticks, snapshots, the
-flight recorder and the trace.
+Not in this port yet: compiled ticks, snapshots, the flight recorder and
+the trace.
 """
 
 from __future__ import annotations
@@ -262,7 +274,7 @@ class StreamServer:
                  dynamic_hop: Optional[DynamicHopConfig] = None,
                  admission: Optional[AdmissionConfig] = None,
                  batch_init: bool = True,
-                 profiles=None,
+                 faults=None, health=None, profiles=None,
                  silence_fill: str = "constant",
                  seed: int = 0, device=None):
         if silence_fill not in ("constant", "retention"):
@@ -362,6 +374,26 @@ class StreamServer:
         self._imc_passes = 0
         self._profile_swaps = 0
 
+        # -- faults and health monitoring ------------------------------------
+        self._heal_delta = None           # {conv_i: (C_i,) float32} heal
+        self._chip_delta = None           # {conv_i: (C_i,)} fault + heal on
+        #                                   the host, None while pristine
+        self._chip_delta_t = None         # the same on the device
+        self._faults = None
+        if faults is not None:
+            from repro_torch.core import faults as flt
+            self._faults = (faults if isinstance(faults, flt.FaultModel)
+                            else flt.FaultModel.for_config(cfg, faults))
+            # route every batched call through the rider variant up front
+            # so fault deltas swap in without a mid-run mode change
+            self._enable_customization()
+            if self._faults.pop_dirty():
+                self._refresh_chip_delta()
+        self._health = None
+        if health is not None:
+            from repro_torch.serving import health as hl
+            self._health = hl.HealthMonitor(self, health)
+
     # -- hop-multiplier engine table ----------------------------------------
 
     def _engine_for(self, mult: int) -> sv.StreamEngine:
@@ -460,21 +492,86 @@ class StreamServer:
 
     def _riders(self) -> tuple:
         """The per-slot riders of a batched call, (bias deltas, head_w,
-        head_b), once customization is on; () for the base path."""
+        head_b), once customization is on; () for the base path.  The
+        chip-global fault + heal delta rides every slot's bias-delta row:
+        same operands, same launches."""
         if not self._cust_on:
             return ()
-        return (self._slot_delta, self._slot_head_w, self._slot_head_b)
+        delta = self._slot_delta
+        chip = self._chip_delta_t
+        if chip is not None:
+            delta = {k: v + chip[k][None] for k, v in delta.items()}
+        return (delta, self._slot_head_w, self._slot_head_b)
 
     def _row_custom(self, rec: "_Stream") -> tuple:
-        """Rider args for a B=1 init (``batch_init`` off): the stream's own
-        customization, or () for the base init path."""
-        if not self._cust_on or rec.custom is None:
+        """Rider args for a B=1 init (``batch_init`` off, hop-retarget
+        re-inits): the stream's own customization plus the chip-global
+        fault + heal delta, or () for the base init path."""
+        chip = self._chip_delta_t
+        if not self._cust_on or (rec.custom is None and chip is None):
             return ()
         dev = self.device
-        delta = {name: kws.as_tensor(rec.custom["delta"][name], dev)[None]
-                 for name in self.cfg.imc_layer_names()}
-        return (delta, kws.as_tensor(rec.custom["head"][0], dev)[None],
-                kws.as_tensor(rec.custom["head"][1], dev)[None])
+        if rec.custom is not None:
+            delta = {name: kws.as_tensor(rec.custom["delta"][name], dev)
+                     for name in self.cfg.imc_layer_names()}
+            hw1 = kws.as_tensor(rec.custom["head"][0], dev)
+            hb1 = kws.as_tensor(rec.custom["head"][1], dev)
+        else:
+            delta = {name: torch.zeros((self.cfg.channels[int(name[4:])],),
+                                       device=dev)
+                     for name in self.cfg.imc_layer_names()}
+            hw1, hb1 = self._base_head()
+        if chip is not None:
+            delta = {k: v + chip[k] for k, v in delta.items()}
+        return ({k: v[None] for k, v in delta.items()}, hw1[None],
+                hb1[None])
+
+    # -- fault injection + self-healing -------------------------------------
+
+    @property
+    def faults(self):
+        """The live FaultModel (None unless built with ``faults=``).
+        Inject through it between ticks: the next ``step()`` sees the
+        dirty flag and refreshes the rider operands."""
+        return self._faults
+
+    @property
+    def health(self):
+        """The HealthMonitor (None unless built with ``health=``)."""
+        return self._health
+
+    def _refresh_chip_delta(self) -> None:
+        """Rebuild the chip-global per-layer count delta: zeros + the
+        injected faults + the heal, in float32 in that order.  None while
+        the chip is pristine and unhealed, which keeps the rider rows at
+        their base values."""
+        fault = (self._faults.deltas()
+                 if self._faults is not None and self._faults.active
+                 else None)
+        if fault is None and self._heal_delta is None:
+            self._chip_delta = self._chip_delta_t = None
+            return
+        out = {}
+        for name in self.cfg.imc_layer_names():
+            v = np.zeros((self.cfg.channels[int(name[4:])],), np.float32)
+            if fault is not None:
+                v = v + fault[name]
+            if self._heal_delta is not None and name in self._heal_delta:
+                v = v + self._heal_delta[name]
+            out[name] = v
+        self._chip_delta = out
+        self._chip_delta_t = {k: self._tensor(v) for k, v in out.items()}
+
+    def _set_heal_delta(self, heal: Dict[str, np.ndarray]) -> None:
+        """Swap a healing bias correction (per-layer pre-sign count deltas
+        from the health monitor's recompensation) into every batched call.
+        Entries replace any earlier heal of the same layer: recoveries
+        start from the stored bias, so heals never stack."""
+        self._enable_customization()
+        cur = dict(self._heal_delta or {})
+        cur.update({k: np.asarray(v, np.float32) for k, v in heal.items()})
+        self._heal_delta = cur
+        self._refresh_chip_delta()
 
     def customize(self, stream_id: str, ccfg=None):
         """Open an enrollment / fine-tuning session attached to a live
@@ -511,13 +608,16 @@ class StreamServer:
             self._write_slot_custom(rec.slot, rec.custom)
 
     def _submit_internal(self, stream_id: str, wav: np.ndarray,
-                         custom: Optional[dict] = None) -> "_Stream":
+                         custom: Optional[dict] = None,
+                         uid: Optional[int] = None) -> "_Stream":
         """Enqueue a session-owned replay stream: it rides the normal slot
         machinery and the same batched launches but emits no decision
         events and never gates.  Finished on arrival: it retires once its
-        audio drains (the session captures its features first)."""
+        audio drains (the session captures its features first).  ``uid``
+        pins the stream's noise-field key to a reserved uid (the health
+        canaries reuse one key, so every canary sees the same field)."""
         return self._new_stream(stream_id, np.asarray(wav, np.float32),
-                                internal=True, force_compute=True,
+                                uid=uid, internal=True, force_compute=True,
                                 custom=custom, finished=True)
 
     def _drop_internal(self, stream_id: str) -> None:
@@ -937,13 +1037,18 @@ class StreamServer:
         return ev
 
     def step(self) -> List[dict]:
-        """One scheduler tick: the profile sweep, SLO shedding and
-        autoscaling, admissions, VAD classification, wake replays, ONE
-        batched hop over every speech-ready slot, ONE masked no-op fill
-        over every gated slot, the batched decision update, retirements,
-        the hop retarget and the sessions' background work.  Returns this
+        """One scheduler tick: the profile sweep, the fault drift, SLO
+        shedding and autoscaling, admissions, VAD classification, wake
+        replays, ONE batched hop over every speech-ready slot, ONE masked
+        no-op fill over every gated slot, the batched decision update, the
+        session and canary captures, retirements, the hop retarget and the
+        sessions' and health monitor's background work.  Returns this
         tick's decision events (gated hops emit none)."""
         self._check_profiles()
+        if self._faults is not None:
+            self._faults.tick()                 # advance the offset drift
+            if self._faults.pop_dirty():
+                self._refresh_chip_delta()      # riders take the new deltas
         self._enforce_slo()
         self._autoscale()
         eng = self.engine
@@ -1094,6 +1199,12 @@ class StreamServer:
         # feature captures must see the post-hop states before slots retire
         if self._cust is not None:
             self._cust.on_step(self)
+        if self._health is not None:
+            self._health.on_step(self)          # canary carry/ring capture
+            # decisions made while the chip is not healthy are flagged
+            degraded = self._health.state != "healthy"
+            for ev in events:
+                ev["degraded"] = degraded
 
         # retire drained finished streams
         for rec in list(self._slots):
@@ -1107,6 +1218,9 @@ class StreamServer:
         # spawns, bounded fine-tune rounds, hot swaps
         if self._cust is not None:
             self._cust.tick(self)
+        # health background work: recompensation, then canary spawns
+        if self._health is not None:
+            self._health.tick(self)
         return events
 
     def drain(self, max_steps: int = 10_000) -> List[dict]:
@@ -1188,6 +1302,10 @@ class StreamServer:
             out["profile_swaps"] = self._profile_swaps
         if self._cust is not None:
             out["customization"] = self._cust.stats()
+        if self._faults is not None:
+            out["faults"] = self._faults.stats()
+        if self._health is not None:
+            out["health"] = self._health.stats()
         if self.vcfg is not None:
             out["gated_energy"] = {
                 k: round(v, 4) if isinstance(v, float) else v

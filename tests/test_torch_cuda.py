@@ -15,8 +15,12 @@ on the card: the recompute server (``streaming=False``), the dynamic hop
 on a noisy chip, autoscaling to 16 slots with a customized slot riding
 the resizes, each kernel route equal to the plain one with one
 ``imc_fused`` launch per IMC layer and IMC forward, and K1 at the paper
-net's hop-2048 and hop-4096 tails; and a customization session on a
-noisy chip equal on the kernel route, the plain route and the CPU.
+net's hop-2048 and hop-4096 tails; a customization session on a noisy
+chip equal on the kernel route, the plain route and the CPU; and the
+self-healing chip: K1 on pre-sign operands holding stuck rails (±1e4)
+and fractional drift at the hop-1024 tails, a faulted, noisy,
+health-monitored server and the stuck-column and drift-heal scenarios,
+each equal on the kernel route, the plain route and the CPU.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -1145,3 +1149,155 @@ def test_noisy_customization_session_kernel_equals_plain_version(dev):
         assert rk.history == r.history
         for name in cfg.imc_layer_names():
             assert np.array_equal(rk.bias[name], r.bias[name])
+
+
+# -- the self-healing chip: faults in the riders, canaries, heals ----------
+
+
+@pytest.mark.parametrize("kind", ["pm1", "zero_streams", "ternary"])
+def test_kernel_on_rails_and_fractional_drift_at_hop_tails(dev, kind):
+    """K1 at the paper net's hop-1024 tail shapes (B = 8) with the
+    pre-sign operand a faulted chip gives it: SA noise plus stuck rails
+    (±1e4) on some channels and a fractional drift on the rest, and the
+    rails and drift alone; bitwise equal to the plain version."""
+    cfg = kws.PAPER_KWS
+    geom = sv.make_stream_geometry(cfg, 1024)
+    rng = np.random.default_rng(40)
+    for i in range(1, cfg.num_conv_layers):
+        c_in, c_out, g = cfg.channels[i - 1], cfg.channels[i], cfg.groups(i)
+        x, w, bias, flip, off, noise = _inputs(
+            200 + i, 8, geom.layers[i].tail_in, c_in, c_out, g,
+            cfg.strides[i], dev, kind)
+        delta = np.round(rng.normal(size=c_out) * 40.0, 2)
+        delta[rng.choice(c_out, 4, replace=False)] = 1e4
+        delta[rng.choice(c_out, 4, replace=False)] = -1e4
+        delta = torch.tensor(delta, dtype=torch.float32, device=dev)
+        for operand in (noise + delta, delta.expand_as(noise)):
+            ops.COUNTS.reset()
+            got = ops.fused_conv_mav(x, w, bias, flip, groups=g,
+                                     stride=cfg.strides[i],
+                                     pool=cfg.pools[i], chip_offset=off,
+                                     sa_noise=operand)
+            assert ops.COUNTS.launches == 1
+            want = ref.fused_conv_mav_ref(x, w, bias, flip, groups=g,
+                                          stride=cfg.strides[i],
+                                          pool=cfg.pools[i],
+                                          chip_offset=off, sa_noise=operand)
+            assert torch.equal(got, want), i
+
+
+def _reliability_runs(dev, make, drive):
+    """``drive(srv)`` on a server from ``make(hw, device, use_kernel)`` on
+    the kernel route, the plain route and the CPU: (events, stats,
+    imc_fused launches, server) for each, kernel and plain checked equal
+    (events, states, health and fault stats)."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    runs = []
+    for device, use_kernel in ((dev, True), (dev, False), ("cpu", True)):
+        srv = make(hw if device == dev else _to_cpu(hw), cfg, device,
+                   use_kernel)
+        ops.COUNTS.reset()
+        events = drive(srv)
+        runs.append((events, srv.stats(), ops.COUNTS.launches, srv))
+    (ev_k, st_k, n_k, srv_k), (ev_p, st_p, n_p, srv_p), (ev_c, st_c, _,
+                                                          srv_c) = runs
+    assert ev_k == ev_p and ev_k
+    for a, b in zip(srv_k._state, srv_p._state):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    assert n_k == 5 * st_k["imc_passes"] and n_p == 0
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    assert strip(ev_k) == strip(ev_c)
+    np.testing.assert_allclose([e["score"] for e in ev_k],
+                               [e["score"] for e in ev_c], rtol=0, atol=1e-6)
+    for st in (st_p, st_c):
+        assert st["health"] == st_k["health"]
+        assert st["faults"] == st_k["faults"]
+        assert st["imc_passes"] == st_k["imc_passes"]
+    for srv in (srv_p, srv_c):
+        assert (srv._heal_delta is None) == (srv_k._heal_delta is None)
+        for name, d in (srv_k._heal_delta or {}).items():
+            assert np.array_equal(d, srv._heal_delta[name])
+    return ev_k, st_k
+
+
+def test_faulted_noisy_monitored_server_kernel_equals_plain_and_cpu(dev):
+    """SA noise 1.5, chip offsets, stuck columns, trim flips and a drift
+    walk, canaries every 3 ticks: the kernel route equals the plain route
+    and the CPU, one ``imc_fused`` launch per IMC layer and forward."""
+    from repro_torch.serving import FaultConfig, HealthConfig
+    chans = {f"conv{i}": kws.KWSConfig(sample_len=L).channels[i]
+             for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(9, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    rng = np.random.default_rng(2)
+    auds = [rng.uniform(-1, 1, L + 14 * HOP).astype(np.float32)
+            for _ in range(2)]
+
+    def make(hw, cfg, device, use_kernel):
+        srv = StreamServer(hw, cfg, hop=HOP, slots=3, chip_offsets=chip,
+                           sa_noise_std=1.5, seed=11,
+                           faults=FaultConfig(drift_std=0.2, seed=3),
+                           health=HealthConfig(interval=3),
+                           use_kernel=use_kernel, device=device)
+        srv.faults.inject_stuck("conv2", [0, 5])
+        srv.faults.inject_bit_flips(n=3)
+        return srv
+
+    def drive(srv):
+        for i, x in enumerate(auds):
+            srv.submit(f"s{i}", x)
+            srv.finish(f"s{i}")
+        events = []
+        while srv.active_streams():
+            events.extend(srv.step())
+        return events
+
+    _, st = _reliability_runs(dev, make, drive)
+    assert st["health"]["canaries"] >= 2 and st["faults"]["drift_rms"]
+
+
+@pytest.mark.parametrize("scenario", ["stuck", "drift"])
+def test_stuck_and_drift_heal_kernel_equals_plain_and_cpu(dev, scenario):
+    """The reference's stuck-column (masked) and drift (healed) scenarios
+    at ``sample_len=640``: the canary expectations and captures run
+    through K1, the heal rides the chip-global rider, and the kernel
+    route walks the same states, heals and masks as the plain route and
+    the CPU."""
+    from repro_torch.serving import FaultConfig, HealthConfig
+    chans = {f"conv{i}": kws.KWSConfig(sample_len=L).channels[i]
+             for i in range(1, 6)}
+    chip = (imc.sample_chip_offsets(jaxrand.PRNGKey(9, "cpu"), chans,
+                                    imc.IMCNoiseParams(mav_offset_std=4.0))
+            if scenario == "drift" else None)
+
+    def make(hw, cfg, device, use_kernel):
+        return StreamServer(hw, cfg, hop=HOP, slots=3, chip_offsets=chip,
+                            faults=FaultConfig(seed=3),
+                            health=HealthConfig(interval=4,
+                                                layers_per_tick=2),
+                            use_kernel=use_kernel, device=device)
+
+    def drive(srv):
+        rng = np.random.default_rng(0)
+        srv.submit("a", rng.standard_normal(L).astype(np.float32))
+        events = []
+        for t in range(40):
+            if t == 12 and scenario == "stuck":
+                srv.faults.inject_stuck("conv3", [2, 7])
+            elif t == 12:
+                srv.faults._drift["conv2"][:] = 40.0
+                srv.faults._dirty = True
+            srv.submit("a", rng.standard_normal(HOP).astype(np.float32))
+            events.extend(srv.step())
+        return events
+
+    events, st = _reliability_runs(dev, make, drive)
+    h = st["health"]
+    assert h["state"] == "healthy" and h["recoveries"] >= 1
+    assert any(e["degraded"] for e in events)
+    assert h["masked_channels"] == ({"conv3": [2, 7]} if scenario == "stuck"
+                                    else {})
