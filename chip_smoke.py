@@ -30,8 +30,9 @@ result line):
    ``KWSConfig(channels_per_group=6)`` and the cpg-48 net (``WIDTH_NETS``),
    with each layer's block tile and full-window device time beside its
    bound;
-3. the served path: a net folded from ``init_params`` (seeded
-   ``torch.Generator``) serves 8 streams of synthetic keyword audio with
+3. the served path: a net folded from ``init_params`` (drawn from a
+   ``jaxrand`` key, as the JAX package draws it) serves 8 streams of
+   synthetic keyword audio with
    silent gaps (``repro_torch.data.audio``) through ``StreamServer`` at
    hop 1024, 8 slots, chip offsets and VAD on, about 24 hops each; once
    with ``use_kernel=True`` and once with the plain version.  Events and
@@ -110,7 +111,25 @@ result line):
    detection tick, transitions, recoveries and modelled recovery energy;
    (d) decisions/s and the device busy share with canaries every 8 ticks
    and without; (e) K1's device time in a tick whose batch carries live
-   hops and a canary hop, against the same tick without health.
+   hops and a canary hop, against the same tick without health;
+10. the float learning path (``phase_learning``), with TF32 off: (a)
+   ``train_base`` on 120 windows of ``make_gscd_like`` traffic at batch
+   60, two epochs (a soft ``tanh`` phase, then a hard surrogate-gradient
+   phase on the in-memory bias grid), clean and as the noise-aware
+   recovery fine-tune (chip offsets of std 4, SA noise 1.0): losses per
+   step, wall per step and the device busy share; then one soft step from
+   the initial net and one hard step from the soft-trained net, on the
+   card and on the CPU from identical parameters: the losses within rtol
+   1e-3, the BN state bitwise, 95% of the parameters within
+   1e-4 |p| + 1e-5 (Adam's first step turns a rounding-noise gradient into
+   a step of about the learning rate); (b) the trained net's
+   ``forward_eval`` features at B = 200 against ``hw_forward`` through K1
+   (5 launches) on the unconstrained fold, to 1e-5, and ``evaluate`` equal
+   on the card and the CPU; (c) the smallest mean ties: the T = 448 GAP at
+   every GAP site (0.4375) and the N = 7 head on both K2 routes
+   (``head_train_rows``, and ``epoch_grads`` then ``sga_update_rows``):
+   gw[1, 0] 7/128, each kernel bitwise against its plain version and the
+   card equal to the CPU.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -597,6 +616,7 @@ def _to(tree, dev):
 
 def phase_served(torch, dev):
     import numpy as np
+    from repro_torch.core import jaxrand
     from repro_torch.kernels.imc_mav import ops
     from repro_torch.models import kws
     from repro_torch.serving.scheduler import StreamServer
@@ -604,7 +624,8 @@ def phase_served(torch, dev):
 
     cfg = kws.PAPER_KWS
     gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
@@ -1164,8 +1185,8 @@ def phase_grouploop(torch, dev):
     from repro_torch.models import kws
 
     cfg = kws.PAPER_KWS
-    gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     x = torch.tensor(np.stack([s[:cfg.sample_len] for s in _traffic(cfg)]),
@@ -1268,8 +1289,8 @@ def phase_noisy_served(torch, dev):
     from repro_torch.serving.vad import VADConfig
 
     cfg = kws.PAPER_KWS
-    gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = _noisy_chip(torch, cfg)
@@ -1445,6 +1466,7 @@ def phase_customize(torch, dev):
     the kernels and with the plain versions; the offline loop on the card
     and on the CPU."""
     import numpy as np
+    from repro_torch.core import jaxrand
     from repro_torch.core.onchip_training import (OnChipTrainConfig,
                                                   quantized_head_finetune)
     from repro_torch.kernels.imc_mav import ops
@@ -1455,7 +1477,8 @@ def phase_customize(torch, dev):
 
     cfg = kws.PAPER_KWS
     gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
@@ -1664,6 +1687,7 @@ def phase_customize_rgp(torch, dev):
     epoch, one ``sga_update_rows`` launch per epoch and no fused launch;
     its head equals the offline loop on the card and on the CPU."""
     import numpy as np
+    from repro_torch.core import jaxrand
     from repro_torch.core.onchip_training import (OnChipTrainConfig,
                                                   quantized_head_finetune)
     from repro_torch.kernels.sga_update import ops as sga_ops
@@ -1673,7 +1697,8 @@ def phase_customize_rgp(torch, dev):
 
     cfg = kws.PAPER_KWS
     gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
@@ -1759,6 +1784,7 @@ def phase_front_door(torch, dev, window):
     import shutil
     import tempfile
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import jaxrand
     from repro_torch.checkpoint import ProfileStore
     from repro_torch.core.onchip_training import OnChipTrainConfig
     from repro_torch.kernels.imc_mav import ops
@@ -1769,8 +1795,8 @@ def phase_front_door(torch, dev, window):
 
     t_phase = time.perf_counter()
     cfg = kws.PAPER_KWS
-    gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = _noisy_chip(torch, cfg)
@@ -2110,6 +2136,7 @@ def phase_reliability(torch, dev):
     ``sample_len=640``)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import jaxrand
     from repro_torch.kernels.imc_mav import ops
     from repro_torch.models import kws
     from repro_torch.serving import (CustomizationResult, FaultConfig,
@@ -2118,8 +2145,8 @@ def phase_reliability(torch, dev):
 
     t_phase = time.perf_counter()
     cfg = kws.PAPER_KWS
-    gen = torch.Generator().manual_seed(0)
-    params = kws.init_params(gen, cfg, device=dev)
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
     hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                          pack=True)
     chip = _noisy_chip(torch, cfg)
@@ -2428,6 +2455,322 @@ def phase_reliability(torch, dev):
     return out
 
 
+LEARN_N, LEARN_BATCH, LEARN_EVAL = 120, 60, 200
+LEARN_CHECK = 8          # windows of the steps held against the CPU
+# a soft epoch (tanh, alpha 2), then a hard surrogate-gradient epoch on the
+# in-memory bias grid (alpha -5): two steps each at 120 windows, batch 60
+LEARN_SCHEDULE = ((0.5, 2.0), (1.0, -5.0))
+LEARN_SHARE = 0.05       # parameters allowed outside 1e-4 |p| + 1e-5
+
+
+def _params_apart(torch, got, want):
+    """(elements of ``got`` outside 1e-4 |want| + 1e-5, elements, largest
+    |got - want|) over two parameter trees (``got`` may live elsewhere)."""
+    off = total = 0
+    worst = 0.0
+    for n in want:
+        for k in want[n]:
+            a, b = got[n][k].cpu(), want[n][k].cpu()
+            d = torch.abs(a - b)
+            off += int(torch.sum(d > 1e-4 * torch.abs(b) + 1e-5))
+            total += b.numel()
+            worst = max(worst, float(d.max()))
+    return off, total, worst
+
+
+def _mean_ties(torch, dev):
+    """Phase 10 (c): the T = 448 GAP tie at every GAP site and the N = 7
+    head tie on both K2 routes, on the card against the plain version,
+    the CPU and the reference's values (0.4375, 7/128)."""
+    import numpy as np
+    from repro_torch.core import onchip_training as ot
+    from repro_torch.core.quantize import ACT_Q
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.kernels.sga_update import ref as sga_ref
+    from repro_torch.models import kws
+    from repro_torch.serving import stream as sv
+    from repro_torch.serving.customize import capture_features
+
+    rng = np.random.default_rng(0)
+    ring = np.where(rng.random((2, 448, 576)) < 0.5, 1.0, -1.0)
+    for r in range(2):                  # channel 0: 315 ones, sum 182
+        ring[r, :, 0] = -1.0
+        ring[r, rng.permutation(448)[:315], 0] = 1.0
+    ring = ring.astype(np.float32)
+    fc_w = (np.round(rng.normal(size=(576, 10)) * 5) / 128).astype(
+        np.float32)
+    fc_b = (np.round(rng.normal(size=10) * 5) / 128).astype(np.float32)
+    heads = (np.round(rng.normal(size=(2, 576, 10)) * 5) / 128).astype(
+        np.float32)
+    head_b = (np.round(rng.normal(size=(2, 10)) * 5) / 128).astype(
+        np.float32)
+    if float(ACT_Q.quantize(torch.tensor(ring[0, :, 0]).sum() / 448)) \
+            != 0.375:
+        raise AssertionError("the GAP input is not a tie")
+
+    def sites(d):
+        t = lambda a: torch.tensor(a, device=d)
+        hw = kws.HWParams(w_bin={}, bias={}, flip={}, fc_w=t(fc_w),
+                          fc_b=t(fc_b))
+        logits, feats = kws.gap_fc(hw, t(ring))
+        return dict(feats=feats, logits=logits,
+                    ring=sv._ring_logits(hw, t(ring), None, None),
+                    heads=sv._ring_logits(hw, t(ring), t(heads), t(head_b)),
+                    capture=capture_features(t(ring[0])))
+
+    card, cpu = sites(dev), sites("cpu")
+    for k in card:
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise AssertionError(f"GAP tie: {k} differs on the card")
+    if not (float(card["feats"][0, 0]) == float(card["capture"][0])
+            == 0.4375):
+        raise AssertionError("GAP tie: feats[0, 0] is not 0.4375")
+
+    feats = np.array([[1, -0.625], [-1, 0], [0.5, 0], [-0.5, -0.5],
+                      [0.25, 0], [0.75, 0], [-0.75, 0]], np.float32)
+    labels = np.array([0, 1, 2, 1, 2, 0, 0])
+    w0 = np.array([[0.5, -0.25, 0.125], [0, 0, 0]], np.float32)
+    b0 = np.array([0, 0.125, -0.125], np.float32)
+    tcfg = ot.OnChipTrainConfig()
+    spec, out = ot.head_train_spec(tcfg), {}
+    for epochs in (1, 30):
+        res = {}
+        for d in (dev, "cpu"):
+            st, fq, oh = ot.finetune_init(feats, labels, w0, b0, tcfg,
+                                          device=d)
+            # per-epoch route: epoch_grads, then one sga_update_rows
+            # launch (the plain version beside it on the card)
+            per = [st.w.reshape(-1), st.b, st.accum_w.reshape(-1),
+                   st.accum_b]
+            gw10 = None
+            for e in range(epochs):
+                s = ot.HeadState(per[0].reshape(2, 3), per[1],
+                                 per[2].reshape(2, 3), per[3], st.key)
+                gw, gb, lr, _ = ot.epoch_grads(s, e, fq, oh, tcfg)
+                gw10 = float(gw[1, 0]) if e == 0 else gw10
+                args = (torch.cat([per[0], per[1]])[None],
+                        torch.cat([gw.reshape(-1), gb])[None],
+                        torch.cat([per[2], per[3]])[None], lr.reshape(1),
+                        ot.sga_threshold(lr).reshape(1))
+                nw, na = sga_ops.sga_update_batch(*args)
+                if d != "cpu":
+                    pw, pa = sga_ref.sga_update_ref(
+                        *args[:3], args[3][:, None], args[4][:, None])
+                    if not (torch.equal(nw, pw) and torch.equal(na, pa)):
+                        raise AssertionError("sga_update_rows differs from "
+                                             "its plain version")
+                per = [nw[0, :6], nw[0, 6:], na[0, :6], na[0, 6:]]
+            # fused route: head_train_rows (kernel on the card) and its
+            # plain version on the card
+            fused = [v.clone() for v in (st.w, st.b, st.accum_w,
+                                         st.accum_b)]
+            sga_ops.head_train_batch(*([v] for v in fused), [fq], [oh], [0],
+                                     [epochs], ot.train_lut(fq.device), spec)
+            if d != "cpu":
+                plain = [v.clone() for v in (st.w, st.b, st.accum_w,
+                                             st.accum_b)]
+                sga_ref.head_train_rows_ref(*([v] for v in plain), [fq],
+                                            [oh], [0], [epochs],
+                                            ot.train_lut(fq.device), spec)
+                if not all(torch.equal(a, b) for a, b in zip(fused, plain)):
+                    raise AssertionError("head_train_rows differs from its "
+                                         "plain version")
+            res[d] = (gw10, [v.cpu() for v in per],
+                      [v.cpu().reshape(-1) for v in fused])
+        (gw_k, per_k, fused_k), (gw_c, per_c, fused_c) = res[dev], res["cpu"]
+        if not gw_k == gw_c == 7 / 128:
+            raise AssertionError(f"head tie: gw[1, 0] {gw_k} / {gw_c}")
+        for a, b in zip(per_k + fused_k, per_c + fused_c):
+            if not torch.equal(a, b):
+                raise AssertionError("head tie: the card's head differs "
+                                     "from the CPU's")
+        for a, b in zip(per_k, fused_k):
+            if not torch.equal(a.reshape(-1), b.reshape(-1)):
+                raise AssertionError("head tie: the two routes differ")
+        if epochs == 1 and float(fused_k[2][3]) != 7 / 128:
+            raise AssertionError("head tie: the bank does not hold 7/128")
+        out[epochs] = [float(v) for v in fused_k[0]]
+    log("[learning] (c) T = 448 GAP tie: feats[0, 0] = 0.4375 through "
+        "gap_fc, _ring_logits (shared and per-stream heads) and the capture, "
+        "equal on the card and the CPU; N = 7 head tie: gw[1, 0] = 7/128 "
+        "on the card and the CPU, the head after 1 and 30 epochs equal on "
+        "the per-epoch route (epoch_grads + sga_update_rows), the fused "
+        "route (head_train_rows) and the plain versions")
+    return dict(gap_feat0=float(card["feats"][0, 0]), head_gw10=7 / 128,
+                head_w_after=out)
+
+
+def phase_learning(torch, dev):
+    """Phase 10: the float learning path at full width on the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import imc, jaxrand
+    from repro_torch.data import audio
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    from repro_torch.training import kws as tr
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 is on: the float path runs in float32")
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    (xtr, ytr), (xte, yte) = audio.make_gscd_like(
+        seed=7, train_per_class=LEARN_N // 10,
+        test_per_class=LEARN_EVAL // 10)
+    chans = {name: cfg.channels[i]
+             for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(0, device="cpu"), chans,
+                                   imc.IMCNoiseParams(OFFSET_STD, SA_STD))
+    init = kws.init_params(jaxrand.PRNGKey(1, device="cpu"), cfg, device=dev)
+    log(f"[learning] traffic and the initial net: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    trained = None
+    for name, offs, std in (("clean", None, 0.0),
+                            ("recovery", chip, SA_STD)):
+        offs_dev = None if offs is None else _to(offs, dev)
+
+        def card_run(tcfg, x, y, params=None, state=None, hist=None):
+            return tr.train_base(x, y, cfg, tcfg, params=params, state=state,
+                                 chip_offsets=offs_dev, sa_noise_std=std,
+                                 verbose=False, history=hist, device=dev)
+
+        def cpu_run(tcfg, x, y, params=None, state=None, hist=None):
+            return tr.train_base(x, y, cfg, tcfg, params=params, state=state,
+                                 chip_offsets=offs, sa_noise_std=std,
+                                 verbose=False, history=hist, device="cpu")
+
+        # (a) the main run: the whole schedule, once to warm up (first use
+        # of each operation on the card), then timed, then profiled
+        main = tr.TrainConfig(epochs=2, batch_size=LEARN_BATCH,
+                              alpha_schedule=LEARN_SCHEDULE, seed=1)
+        card_run(main, xtr, ytr, params=init)
+        hist = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state = card_run(main, xtr, ytr, params=init, hist=hist)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(h["loss"]) for h in hist]
+        if [h["alpha"] for h in hist] != [2.0, 2.0, -5.0, -5.0] \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: bad training run {hist}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            card_run(main, xtr, ytr, params=init)
+            torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+        busy_us, rows = device_time(torch, prof)
+        steps = len(hist)
+        # one step at a time from identical parameters against the CPU (on
+        # LEARN_CHECK full-width windows, which bounds the CPU's time): a
+        # soft step from the initial net and a hard step from the card's
+        # soft-trained net, at a constant learning rate of 0.01
+        agree = {}
+        start = (init, None)
+        for phase, alpha in (("soft", 2.0), ("hard", -5.0)):
+            t_check = time.perf_counter()
+            one = tr.TrainConfig(epochs=1, batch_size=LEARN_CHECK,
+                                 alpha_schedule=((1.0, alpha),), seed=2,
+                                 lr_min=0.01)
+            hk, hc = [], []
+            xs, ys = xtr[:LEARN_CHECK], ytr[:LEARN_CHECK]
+            pk, sk = card_run(one, xs, ys, *start, hist=hk)
+            pc, sc = cpu_run(one, xs, ys,
+                             *(None if v is None else _to(v, "cpu")
+                               for v in start), hist=hc)
+            lk, lc = float(hk[0]["loss"]), float(hc[0]["loss"])
+            apart, total, worst = _params_apart(torch, pk, pc)
+            if abs(lk - lc) > 1e-3 * abs(lc) or apart > LEARN_SHARE * total \
+                    or worst > 2 * 0.01:
+                raise AssertionError(
+                    f"{name} {phase} step: card loss {lk} CPU {lc}, "
+                    f"{apart} of {total} parameters apart (max {worst})")
+            for a, b in zip(list(sk.mean.values()) + list(sk.var.values()),
+                            list(sc.mean.values()) + list(sc.var.values())):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name} {phase}: BN state differs")
+            agree[phase] = dict(loss_card=lk, loss_cpu=lc,
+                                params_apart=apart, params=total,
+                                max_abs_diff=worst,
+                                seconds=time.perf_counter() - t_check)
+            start = (pk, sk)
+        busy = busy_us / 1e6 / prof_wall
+        out[name] = dict(losses=losses, wall_s=wall,
+                         wall_ms_per_step=wall / steps * 1e3,
+                         profiled_wall_ms_per_step=prof_wall / steps * 1e3,
+                         device_busy_ms=busy_us / 1e3,
+                         device_busy_share=busy, steps=agree)
+        log(f"[learning] (a) {name}: train_base at PAPER_KWS, {LEARN_N} "
+            f"windows, batch {LEARN_BATCH}, alpha {[h['alpha'] for h in hist]}"
+            f": losses {[round(v, 4) for v in losses]}; wall "
+            f"{wall / steps * 1e3:.1f} ms/step; profiled "
+            f"{prof_wall / steps * 1e3:.1f} ms/step, device busy "
+            f"{busy_us / 1e3:.1f} ms (share {busy:.4f})")
+        for phase, a in agree.items():
+            log(f"[learning] (a) {name} {phase} step, card vs CPU from "
+                f"identical parameters: loss {a['loss_card']:.6f} / "
+                f"{a['loss_cpu']:.6f}; {a['params_apart']} of {a['params']} "
+                f"parameters outside 1e-4|p| + 1e-5, max |diff| "
+                f"{a['max_abs_diff']:.3g} ({a['seconds']:.1f} s, both "
+                f"devices)")
+        for k, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:5]:
+            log(f"[learning]   {us / 1e3:8.3f} ms  n={n:5d}  {k[:80]}")
+        if name == "clean":
+            trained = (params, state)
+
+    # (b) the trained net, float path against the unconstrained fold
+    # through K1, and evaluate on the card and the CPU
+    params, state = trained
+    x = kws.as_tensor(xte, dev)
+    with torch.no_grad():
+        _, f_eval = kws.forward_eval(params, state, x, cfg)
+    hw_u = kws.fold_params(params, state, cfg, bn_constraints=False,
+                           pack=True)
+    ops.COUNTS.reset()
+    _, f_hw = kws.hw_forward(hw_u, x, cfg, use_kernel=True, device=dev)
+    k1 = ops.COUNTS.launches
+    _, f_plain = kws.hw_forward(hw_u, x, cfg, use_kernel=False, device=dev)
+    fold_err = float(torch.max(torch.abs(f_hw - f_eval)))
+    if k1 != 5 or fold_err > 1e-5 or not torch.equal(f_hw, f_plain):
+        raise AssertionError(f"fold: K1 {k1} launches (expected 5), "
+                             f"max |hw - eval| {fold_err}, kernel == plain "
+                             f"{torch.equal(f_hw, f_plain)}")
+    t_eval = time.perf_counter()
+    acc_card = tr.evaluate(params, state, xte, yte, cfg, device=dev)
+    t_eval, t_cpu = time.perf_counter() - t_eval, time.perf_counter()
+    acc_cpu = tr.evaluate(_to(params, "cpu"), _to(state, "cpu"), xte, yte,
+                          cfg, device="cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    if acc_card != acc_cpu:
+        raise AssertionError(f"evaluate: card {acc_card}, CPU {acc_cpu}")
+    log(f"[learning] (b) the trained net at B = {LEARN_EVAL}: forward_eval "
+        f"features against hw_forward through K1 on the unconstrained fold "
+        f"max |diff| {fold_err:.3g} (K1 {k1} launches = 5 x 1 forward, "
+        f"equal to the plain version); evaluate accuracy card {acc_card} "
+        f"({t_eval:.2f} s), CPU {acc_cpu} ({t_cpu:.1f} s)")
+    sga_ops.COUNTS_ROWS.reset()
+    sga_ops.COUNTS_HEAD.reset()
+    t_ties = time.perf_counter()
+    ties = _mean_ties(torch, dev)
+    log(f"[learning] (c) took {time.perf_counter() - t_ties:.1f} s")
+    ties["launches"] = dict(sga_update_rows=sga_ops.COUNTS_ROWS.launches,
+                            head_train_rows=sga_ops.COUNTS_HEAD.launches)
+    if not (ties["launches"]["sga_update_rows"] == 31
+            and ties["launches"]["head_train_rows"] == 2):
+        raise AssertionError(f"phase 10 (c) launches {ties['launches']}")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[learning] phase 10 took {t_phase:.1f} s")
+    return dict(runs=out, fold=dict(max_abs_diff=fold_err, k1_launches=k1,
+                                    batch=LEARN_EVAL),
+                accuracy=dict(card=acc_card, cpu=acc_cpu), ties=ties,
+                seconds=t_phase)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2484,6 +2827,7 @@ def main() -> int:
     noisy = phase_noisy_served(torch, dev)
     front = phase_front_door(torch, dev, totals["window"])
     rel = phase_reliability(torch, dev)
+    learning = phase_learning(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -2494,7 +2838,8 @@ def main() -> int:
                       "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy, "front_door": front,
-                      "reliability": rel}), flush=True)
+                      "reliability": rel, "learning": learning}),
+          flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
     log(f"[summary] {smi}: imc_fused five layers per hop tick (B={B}): "

@@ -10,19 +10,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import imc
+from repro_torch.core import imc, means
 
 
 def estimate_channel_offsets(ideal_counts: torch.Tensor,
                              noisy_counts: torch.Tensor) -> torch.Tensor:
     """Mean per-channel discrepancy; channels on the last axis.  The mean
-    is the IEEE quotient ``sum / n`` as in ``jnp.mean`` (``torch.mean``
-    multiplies by 1/n, and so does CUDA's division by a Python number, so
-    ``n`` is a tensor on the sum's device)."""
+    is ``jnp.mean``'s as compiled, the sum times the float32 reciprocal of
+    the count (``core.means``)."""
     diff = noisy_counts - ideal_counts
-    diff = diff.reshape(-1, diff.shape[-1])
-    n = diff.new_full((), float(diff.shape[0]))
-    return diff.sum(dim=0) / n
+    return means.mean(diff.reshape(-1, diff.shape[-1]), 0)
 
 
 def compensate_bias(bias_int: torch.Tensor, offset_estimate: torch.Tensor,

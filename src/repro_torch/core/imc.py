@@ -1,9 +1,11 @@
 """Count-exact functional model of the SRAM IMC macro (paper §IV).
 
-Port of the inference half of ``repro/core/imc.py``: in-memory BN folding
-onto the word-line bias grid, the chip's static MAV offsets, the MAV +
-sense-amplifier epilogue (with the SA read noise drawn here or given) and
-the grouped ±1 convolution counts.  Everything is expressed in the
+Port of ``repro/core/imc.py`` (less the TPU tile packing): in-memory BN
+folding onto the word-line bias grid, the chip's static MAV offsets, the
+MAV + sense-amplifier epilogue (with the SA read noise drawn here or
+given), the grouped ±1 convolution counts (also the float path's
+convolution, differentiated by autograd), and the macro allocation of a
+layer (``map_layer_to_macros``).  Everything is expressed in the
 array's integer count domain, so the model is exact; the noise comes from
 ``core.jaxrand``, so a key draws the reference's numbers.
 
@@ -155,3 +157,35 @@ def binary_group_conv_counts(x: torch.Tensor, w: torch.Tensor, groups: int,
             term = torch.einsum("btgc,gco->btgo", xs, wg[tap])
         acc = term if acc is None else acc + term
     return acc.reshape(b, t_out, c_out)
+
+
+# ---------------------------------------------------------------------------
+# Macro allocation / utilization accounting (paper Fig 8, §V-A)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerMapping:
+    name: str
+    weight_bits: int
+    products_per_output: int      # fan-in of one SA decision
+    out_channels: int
+    macros: int
+    banks: int
+    utilization: float            # temporal utilization (pooling idles layers)
+
+
+def map_layer_to_macros(name: str, c_out: int, c_in_per_group: int, k: int,
+                        utilization: float,
+                        macro: IMCMacroConfig = DEFAULT_MACRO
+                        ) -> LayerMapping:
+    """Allocate IMC banks for one binary conv layer: the layer's weight
+    bits plus one bias word line per output channel, in banks of
+    rows x cols bits, eight banks to a macro."""
+    fan_in = c_in_per_group * k
+    weight_bits = c_out * fan_in + c_out * macro.cols  # weights + bias lines
+    banks = -(-weight_bits // (macro.rows * macro.cols))
+    macros = -(-banks // macro.banks_per_macro)
+    return LayerMapping(name=name, weight_bits=weight_bits,
+                        products_per_output=fan_in, out_channels=c_out,
+                        macros=macros, banks=banks, utilization=utilization)

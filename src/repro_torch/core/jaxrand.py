@@ -174,7 +174,7 @@ def _mantissa_floats(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` as an FMA gives it: the float64 product of
     float32 operands is exact, and the float64 sum is rounded to float32.
     (That second rounding could in principle differ from a single one; on
@@ -190,7 +190,7 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     """``jax.random.uniform`` in float32: (..., *shape) for keys (..., 2)."""
     lo, hi = np.float32(minval), np.float32(maxval)
     floats = _mantissa_floats(random_bits(key, shape))
-    u = _fma(floats, float(hi - lo), float(lo))
+    u = fma(floats, float(hi - lo), float(lo))
     return torch.clamp_min(u, float(lo))
 
 
@@ -225,8 +225,10 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full_like(like, v)
 
 
-def _logf(z: torch.Tensor) -> torch.Tensor:
-    """XLA CPU's float32 log for z in (0, 1] (Cephes logf)."""
+def logf(z: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 log (Cephes logf) for positive normal z: the
+    mantissa in [sqrt(1/2), sqrt(2)), a polynomial with an FMA in each
+    Horner step, and the exponent times ln 2 split in two."""
     zb = z.view(torch.int32).to(torch.int64)
     mant = ((zb & 0x7FFFFF) | 0x3F000000).to(torch.int32).view(
         torch.float32)                                   # in [0.5, 1)
@@ -238,17 +240,47 @@ def _logf(z: torch.Tensor) -> torch.Tensor:
     t2 = t * t
     t3 = t2 * t
     p = _LOGF_P
-    y = _fma(t, p[0], p[1])
-    y1 = _fma(t, p[3], p[4])
-    y2 = _fma(t, p[6], p[7])
-    y = _fma(y, t, p[2])
-    y1 = _fma(y1, t, p[5])
-    y2 = _fma(y2, t, p[8])
-    y = _fma(y, t3, y1)
-    y = _fma(y, t3, y2)
-    y = _fma(y, t3, e * _LN2_LO)
+    y = fma(t, p[0], p[1])
+    y1 = fma(t, p[3], p[4])
+    y2 = fma(t, p[6], p[7])
+    y = fma(y, t, p[2])
+    y1 = fma(y1, t, p[5])
+    y2 = fma(y2, t, p[8])
+    y = fma(y, t3, y1)
+    y = fma(y, t3, y2)
+    y = fma(y, t3, e * _LN2_LO)
     r = (t - t2 * 0.5) + y
-    return _fma(e, _LN2_HI, r)
+    return fma(e, _LN2_HI, r)
+
+
+def logf_host(z: np.ndarray) -> np.ndarray:
+    """``logf`` on a numpy float32 array, the same operations in the same
+    order (host code: a few numpy calls instead of dozens of launches)."""
+    f32 = np.float32
+
+    def fma_(a, b, c):
+        return (np.asarray(a, np.float64) * b + c).astype(f32)
+
+    zb = np.asarray(z, f32).view(np.int32).astype(np.int64)
+    mant = ((zb & 0x7FFFFF) | 0x3F000000).astype(np.int32).view(f32)
+    e = ((zb >> 23) - 127).astype(f32) + f32(1.0)
+    small = mant < f32(_SQRT_HALF)
+    t = (mant - f32(1.0)) + np.where(small, mant, f32(0.0))
+    e = e - np.where(small, f32(1.0), f32(0.0))
+    t2 = t * t
+    t3 = t2 * t
+    p = _LOGF_P
+    y = fma_(t, p[0], p[1])
+    y1 = fma_(t, p[3], p[4])
+    y2 = fma_(t, p[6], p[7])
+    y = fma_(y, t, p[2])
+    y1 = fma_(y1, t, p[5])
+    y2 = fma_(y2, t, p[8])
+    y = fma_(y, t3, y1)
+    y = fma_(y, t3, y2)
+    y = fma_(y, t3, e * f32(_LN2_LO))
+    r = (t - t2 * f32(0.5)) + y
+    return fma_(e, _LN2_HI, r)
 
 
 def _log1p_neg(y: torch.Tensor) -> torch.Tensor:
@@ -256,13 +288,13 @@ def _log1p_neg(y: torch.Tensor) -> torch.Tensor:
     yy = y * y
     den = y + _LOG1P_DEN[0]
     for c in _LOG1P_DEN[1:]:
-        den = _fma(den, y, c)
-    num = _fma(_const(_LOG1P_NUM[0], y), y, _LOG1P_NUM[1])
+        den = fma(den, y, c)
+    num = fma(_const(_LOG1P_NUM[0], y), y, _LOG1P_NUM[1])
     for c in _LOG1P_NUM[2:]:
-        num = _fma(num, y, c)
+        num = fma(num, y, c)
     q = (num.double() / den.double()).float()
     small = y + (yy * -0.5 + (y * yy) * q)
-    return torch.where(y.abs() < _LOG1P_SMALL, small, _logf(y + 1.0))
+    return torch.where(y.abs() < _LOG1P_SMALL, small, logf(y + 1.0))
 
 
 def _erfinv_times_sqrt2(u: torch.Tensor) -> torch.Tensor:
@@ -273,7 +305,7 @@ def _erfinv_times_sqrt2(u: torch.Tensor) -> torch.Tensor:
                      torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, _const(_ERFINV_LT5[0], w), _const(_ERFINV_GE5[0], w))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, ww, torch.where(lt, _const(a, w), _const(b, w)))
+        p = fma(p, ww, torch.where(lt, _const(a, w), _const(b, w)))
     return (u * p) * _SQRT2_F32
 
 

@@ -13,7 +13,9 @@ and an 8-bit division (§V-C).
 Every step lies on a fixed-point grid, so the loop is bit-identical to the
 reference in any summation order: Q1.3.4 x Q1.7 products lie on a 2**-11
 grid and their sums stay far below 2**13, the LUT softmax sums 1/256-grid
-values, and the divisions are single IEEE divisions.  The learning-rate
+values and divides once (an IEEE division, as in the reference), and the
+batch means are the sums times the float32 reciprocal of N, as XLA
+compiles the reference's jitted ``/ n`` (``core.means``).  The learning-rate
 schedule is computed in float32 on the host (powers of two, exact), and
 ``lr * g`` is one rounded product followed by one rounded difference, as
 in the reference.
@@ -36,7 +38,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import jaxrand
+from repro_torch.core import jaxrand, means
 from repro_torch.core.quantize import (ACCUM_Q, ACT_Q, ERROR_Q, GRAD_Q,
                                        WEIGHT_Q, QFormat,
                                        error_scale_exponent)
@@ -180,10 +182,10 @@ def epoch_grads(state: HeadState, epoch: int, features_q: torch.Tensor,
     error scaling (Eq 1-2), gradient quantization and, with ``rgp``, the
     Random Gradient Prediction noise.  Returns (gw, gb, lr, key):
     everything ``apply_update`` (or the batched ``sga_update`` kernel)
-    needs to transition the head state.  The batch means divide by N as
-    a tensor: on CUDA PyTorch turns a division by a Python number into a
-    multiplication by its reciprocal, which is not the IEEE quotient."""
-    n = features_q.new_full((), float(features_q.shape[0]))
+    needs to transition the head state.  The batch means are the sums
+    times the float32 reciprocal of N, as the reference's jitted ``/ n``
+    compiles (``core.means``)."""
+    inv_n = means.reciprocal(features_q.shape[0])
     lr = lr_schedule(cfg, epoch, device=features_q.device)
 
     logits = head_logits(features_q, state.w, state.b, cfg)
@@ -209,11 +211,11 @@ def epoch_grads(state: HeadState, epoch: int, features_q: torch.Tensor,
         err = cfg.error_fmt.quantize(err * scale)
         # accumulated sample by sample into the gradient SRAM; the batch
         # mean is what the scaling factor was calibrated against (§V-C)
-        gw = cfg.grad_fmt.quantize(features_q.T @ err / n)
-        gb = cfg.grad_fmt.quantize(torch.sum(err, dim=0) / n)
+        gw = cfg.grad_fmt.quantize(features_q.T @ err * inv_n)
+        gb = cfg.grad_fmt.quantize(torch.sum(err, dim=0) * inv_n)
     else:
-        gw = features_q.T @ err / n
-        gb = torch.sum(err, dim=0) / n
+        gw = features_q.T @ err * inv_n
+        gb = torch.sum(err, dim=0) * inv_n
 
     key = state.key
     if cfg.rgp and cfg.quantized:
@@ -307,7 +309,8 @@ def head_accuracy(features: torch.Tensor, labels: torch.Tensor,
     feats = cfg.act_fmt.quantize(features) if cfg.quantized else features
     logits = head_logits(feats, w, b, cfg)
     labels = labels.to(logits.device)
-    return torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return means.mean((torch.argmax(logits, -1) == labels).to(torch.float32),
+                      0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Fixed-point formats of the accelerator's digital datapath (paper §VI-A3).
 
-Port of the forward half of ``repro/core/quantize.py``: the formats, their
-round-to-nearest-even quantizer and integer codes, and the error-scaling
-exponent of Eq (2).
-``torch.round`` rounds half to even like ``jnp.round``, so the quantized
-values are bit-identical.
+Port of ``repro/core/quantize.py``: the formats, their
+round-to-nearest-even quantizer and integer codes, the clipped
+straight-through quantizer of quantization-aware training
+(``quantize_ste``), the error scaling of Eq (1)-(2) and stochastic
+rounding.  ``torch.round`` rounds half to even like ``jnp.round``, so the
+quantized values are bit-identical.
 
     weight     : Q1.7    activation : Q1.3.4    gradient, error : Q1.7
     SGA accum  : 16-bit fixed point (Q1.15)
@@ -13,9 +14,11 @@ values are bit-identical.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core import jaxrand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +62,14 @@ class QFormat:
         q = torch.clamp(torch.round(x / self.scale), self.qmin, self.qmax)
         return q * self.scale
 
+    def quantize_ste(self, x: torch.Tensor) -> torch.Tensor:
+        """Quantize with a clipped straight-through gradient: identity
+        inside the representable range, zero outside.  The forward value
+        is ``x + (quantize(x) - x)``, as the reference computes it."""
+        grad_path = torch.where(torch.abs(x) <= self.max_value, x,
+                                x.detach())
+        return grad_path + (self.quantize(x) - grad_path).detach()
+
     def to_int(self, x: torch.Tensor,
                dtype: torch.dtype = torch.int32) -> torch.Tensor:
         """Real value -> integer code (saturating round-to-nearest-even)."""
@@ -71,6 +82,10 @@ ACT_Q = QFormat(int_bits=3, frac_bits=4, name="act:Q1.3.4")
 GRAD_Q = QFormat(int_bits=0, frac_bits=7, name="grad:Q1.7")
 ERROR_Q = QFormat(int_bits=0, frac_bits=7, name="error:Q1.7")
 ACCUM_Q = QFormat(int_bits=0, frac_bits=15, name="accum:Q1.15")
+
+
+def quantize_ste(x: torch.Tensor, fmt: QFormat) -> torch.Tensor:
+    return fmt.quantize_ste(x)
 
 
 def error_scale_exponent(error: torch.Tensor, mode: str = "ceil",
@@ -95,3 +110,31 @@ def error_scale_exponent(error: torch.Tensor, mode: str = "ceil",
     if max_exponent is not None:
         s = torch.clamp(s, max=int(max_exponent))
     return torch.where(m > 0, s, torch.zeros_like(s))
+
+
+def scale_error(error: torch.Tensor, fmt: QFormat = ERROR_Q,
+                fixed_scale: Optional[float] = None, mode: str = "ceil",
+                max_exponent: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq (1): error * 2**s quantized to ``fmt``; ``fixed_scale`` replaces
+    2**s verbatim (the chip's 1.375).  Returns (scaled quantized error,
+    the scale used, a float32 scalar on the error's device)."""
+    if fixed_scale is not None:
+        scale = torch.tensor(fixed_scale, dtype=torch.float32,
+                             device=error.device)
+    else:
+        s = error_scale_exponent(error, mode=mode, max_exponent=max_exponent)
+        scale = torch.exp2(s.to(torch.float32))
+    return fmt.quantize(error * scale), scale
+
+
+def stochastic_round(x: torch.Tensor, fmt: QFormat,
+                     key: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding onto ``fmt``'s grid: up with probability equal
+    to the fractional part, the uniform draw ``jaxrand.uniform(key)`` as
+    the reference draws it."""
+    y = x / fmt.scale
+    lo = torch.floor(y)
+    up = jaxrand.uniform(key.to(x.device), tuple(x.shape)) < (y - lo)
+    q = torch.clamp(lo + up.to(lo.dtype), fmt.qmin, fmt.qmax)
+    return q * fmt.scale

@@ -106,7 +106,7 @@ int launch(const float* w, const float* g, const float* a,
 //   p     = round(lut[idx(z - max z)] / max(sum, 1/256) * 256) / 256
 //   err   = err_q((p - onehot) * scale)       scale fixed, 1, or 2**s with
 //                                             s = ceil/floor(log2(1 / max|p - onehot|))
-//   gw    = grad_q((F^T @ err) / N),  gb = grad_q(sum_n err / N)
+//   gw    = grad_q((F^T @ err) * (1 / N)),  gb = grad_q(sum_n err * (1 / N))
 //   (w, accum) <- sga_element(w, gw, accum, lr(e), (w_scale / 2) / lr(e))
 //
 // with lr(e) = max(lr_init * 2**-(e / halve_every), lr_min), the float32
@@ -122,8 +122,11 @@ int launch(const float* w, const float* g, const float* a,
 // (`core/onchip_training.py::head_train_exact`: D max|act| max|w| + max|b|
 // and N max|act| max|err|; the paper formats hold it up to N = 1024).  So
 // the warp-shuffle reductions below are bitwise equal to the reference's
-// matmuls; the divisions by N and by the LUT denominator are single IEEE
-// divisions (__fdiv_rn), and the dynamic exponent is read from the
+// matmuls; the division by the LUT denominator is a single IEEE division
+// (__fdiv_rn), as in the reference; the batch means multiply by 1 / N, one
+// IEEE division per row (__fdiv_rn(1, N), then __fmul_rn), because XLA
+// compiles the reference's jitted `/ n` into a product with the float32
+// reciprocal; and the dynamic exponent is read from the
 // exponent bits of the IEEE quotient 1 / max|err| (mantissa 1.0 means an
 // exact power of two: floor and ceil agree), which equals the reference's
 // log2 on every value k / 256 the loop can meet (chip_smoke.py holds all
@@ -249,7 +252,7 @@ head_train_kernel(const __grid_constant__ HeadParams P) {
   const float* F = R.stage ? sf : R.feats;
   __syncthreads();
 
-  const float n_f = (float)N;
+  const float inv_n = __fdiv_rn(1.0f, (float)N);   // the batch means' 1 / N
   for (int e = R.start; e < R.start + R.epochs; ++e) {
     const float lr = fmaxf(
         __fmul_rn(P.lr_init, ldexpf(1.0f, -(e / P.halve_every))), P.lr_min);
@@ -331,7 +334,7 @@ head_train_kernel(const __grid_constant__ HeadParams P) {
       } else {
         for (int n = 0; n < N; ++n) g = __fadd_rn(g, ze[n * C + i - dc]);
       }
-      g = quant(__fdiv_rn(g, n_f), P.grad);
+      g = quant(__fmul_rn(g, inv_n), P.grad);
       sga_element(sw[i], g, sa[i], lr, g_th, P.w_scale, P.lo, P.hi,
                   P.a_scale, sw + i, sa + i);
     }

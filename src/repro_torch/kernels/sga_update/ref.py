@@ -7,15 +7,17 @@ for the flat update, (B, 1) columns for the row-batched one.
 ``torch.round`` rounds half to even like ``jnp.round``.
 
 ``head_train_rows_ref`` is a tick's whole head-training budget, epoch by
-epoch, as ``head_train_rows`` runs it in one launch.  Its divisions by N
-take a tensor divisor: on CUDA PyTorch turns a division by a Python
-number into a multiplication by its reciprocal, which is not the IEEE
-quotient the reference and the kernel take.
+epoch, as ``head_train_rows`` runs it in one launch.  Its batch means are
+the sums times the float32 reciprocal of N, as XLA compiles the
+reference's jitted ``/ n`` and as the kernel computes them
+(``core.means``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import means
 
 
 def sga_update_ref(w: torch.Tensor, g: torch.Tensor, accum: torch.Tensor,
@@ -68,7 +70,7 @@ def head_train_rows_ref(w, b, accum_w, accum_b, feats, onehot, start,
     for r in range(len(w)):
         wr, br, awr, abr = w[r], b[r], accum_w[r], accum_b[r]
         f, oh = feats[r], onehot[r]
-        n = f.new_full((), float(f.shape[0]))
+        inv_n = means.reciprocal(f.shape[0])
         for e in range(start[r], start[r] + epochs[r]):
             lr = spec.lr(e)
             lr_t = torch.tensor(lr, device=f.device)
@@ -91,8 +93,8 @@ def head_train_rows_ref(w, b, accum_w, accum_b, feats, onehot, start,
                     err, spec.error_scale_mode,
                     spec.error_scale_max_exponent).to(torch.float32))
             err = _quant(err * scale, spec.error)
-            gw = _quant(f.T @ err / n, spec.grad)
-            gb = _quant(torch.sum(err, dim=0) / n, spec.grad)
+            gw = _quant(f.T @ err * inv_n, spec.grad)
+            gb = _quant(torch.sum(err, dim=0) * inv_n, spec.grad)
             wr, awr = sga_update_ref(wr, gw, awr, lr_t, th_t,
                                      w_scale=spec.w_scale, w_max=spec.w_max,
                                      a_scale=spec.a_scale)

@@ -1,1 +1,1 @@
-"""The KWS network's hardware path."""
+"""The KWS network: its float QAT path and its hardware path."""

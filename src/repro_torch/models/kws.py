@@ -1,6 +1,6 @@
-"""The paper's IMC-aware binary KWS network: hardware path (paper §II, §IV).
+"""The paper's IMC-aware binary KWS network (paper §II, §IV).
 
-Port of the inference half of ``repro/models/kws.py``:
+Port of ``repro/models/kws.py``:
 
   L1  binarized sinc conv  1 -> 24ch, k=15, stride 4          (digital)
   L2  binary group conv   24 -> 96,  k=3, cpg=24, pool 2      (IMC)
@@ -10,11 +10,24 @@ Port of the inference half of ``repro/models/kws.py``:
   L6  binary group conv  384 -> 576, k=3, cpg=24, pool 2      (IMC)
   GAP -> ACT_Q -> FC 576 -> 10                                 (digital)
 
-``fold_params`` folds float parameters and BN state into the hardware
-parameters; ``hw_forward`` is the count-exact silicon path over them.
-With ``use_kernel=True`` every IMC layer (conv1..conv5) runs as one
-launch of the fused kernel (``repro_torch.kernels.imc_mav``), on a CUDA
-device the hand-written Hopper kernel.
+Three forwards: ``forward_train``, the float QAT path (straight-through
+binarization, annealed ``tanh`` or surrogate-gradient phases, optional
+injected chip offsets and SA noise for the noise-aware recovery
+fine-tune); ``forward_eval``, the float path with frozen statistics; and
+``hw_forward``, the count-exact silicon path over the parameters that
+``fold_params`` folds.  With ``use_kernel=True`` every IMC layer
+(conv1..conv5) of ``hw_forward`` runs as one launch of the fused kernel
+(``repro_torch.kernels.imc_mav``), on a CUDA device the hand-written
+Hopper kernel.  The float path's convolution is the plain per-tap
+product of ``core.imc.binary_group_conv_counts`` (the reference's is a
+plain XLA convolution, no Pallas kernel), differentiated by autograd.
+
+The float path follows the reference as XLA compiles it under ``jit``:
+means are sums times float32 reciprocals (``core.means``), and the fixed
+normalization divides by ``sqrt(fan_in)`` as a product with its float32
+reciprocal.  ``init_params`` draws from a ``core.jaxrand`` key exactly as
+the reference draws from a ``jax.random`` key, so one seed gives both
+packages the same net.
 
 Layouts are the JAX package's: activations (B, T, C), weights
 (K, C_in // groups, C_out).  ``hw_params_from_numpy`` and
@@ -31,9 +44,10 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import imc, jaxrand
+from repro_torch.core import imc, jaxrand, means
 from repro_torch.core.sa_noise import SANoiseField, field_window_noise
-from repro_torch.core.binary import binarize, channel_shuffle, or_maxpool
+from repro_torch.core.binary import (binarize, binarize_sg, channel_shuffle,
+                                     or_maxpool, rsign)
 from repro_torch.core.energy import CYCLES_PER_DECISION
 from repro_torch.core.quantize import ACT_Q, WEIGHT_Q
 from repro_torch.kernels import resolve_device
@@ -51,6 +65,7 @@ class KWSConfig:
     sample_len: int = 16_000
     sample_rate: int = 16_000
     bias_mapping: str = "best"          # paper §IV-A: pick best of 4
+    bn_momentum: float = 0.9
     # 'fixed': the in-memory-BN threshold semantics the paper net uses;
     # 'batch': standard BN statistics
     bn_mode: str = "fixed"
@@ -78,18 +93,42 @@ class KWSState(NamedTuple):
     var: Dict[str, torch.Tensor]
 
 
-def init_params(gen: torch.Generator, cfg: KWSConfig = PAPER_KWS,
+def xla_linspace(start: float, stop: float, n: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, n)`` in float32 as XLA's CPU code gives
+    it (CPU tensor): element i < n - 1 is ``start * (1 - i * r) + i * (stop
+    * r)`` with r = f32(1 / (n - 1)), the second product fused into the sum
+    (an FMA), and the last is ``stop``.  Up to 34 points XLA unrolls the
+    loop and element 1 fuses the first product instead."""
+    s, e = np.float32(start), np.float32(stop)
+    if n == 1:
+        return torch.tensor([float(s)])
+    r = np.float32(1.0) / np.float32(n - 1)
+    i = torch.arange(n - 1, dtype=torch.float32)
+    er = float(e * r)
+    sub = 1.0 - i * float(r)
+    out = jaxrand.fma(i, er, float(s) * sub)
+    if 2 < n <= 34:
+        out[1] = jaxrand.fma(torch.tensor(float(s)), float(sub[1]), er)
+    return torch.cat([out, torch.tensor([float(e)])])
+
+
+def init_params(key: torch.Tensor, cfg: KWSConfig = PAPER_KWS,
                 device=None) -> Dict:
-    """Random float parameters, drawn from ``gen`` (a CPU generator, so a
-    seed gives the same net on every device) and placed on ``device``.
-    Same structure and scales as the reference; not the same numbers."""
+    """Float parameters drawn from the ``jaxrand`` key ``key`` as the
+    reference draws them from a ``jax.random`` key (a ``split`` into one
+    key per conv layer plus one, ``normal`` draws scaled by 0.1 for the
+    binary layers' latent weights and by 1 / sqrt(d) for the FC), so a
+    seed gives the reference's net bit for bit, on ``device`` (the draws
+    are made there: ``jaxrand`` gives the same bits on every device).  The
+    sinc band edges are ``jnp.linspace``'s (``xla_linspace``)."""
     dev = resolve_device(device)
+    keys = jaxrand.split(key.to(dev), cfg.num_conv_layers + 1)
     n0 = cfg.channels[0]
     params: Dict = {
         "conv0": {
-            "low_hz": torch.linspace(700.0, 6200.0, n0),
-            "band_hz": torch.full((n0,), 300.0) + torch.linspace(0.0, 900.0,
-                                                                 n0),
+            "low_hz": xla_linspace(700.0, 6200.0, n0),
+            "band_hz": torch.full((n0,), 300.0) + xla_linspace(0.0, 900.0,
+                                                               n0),
             "gamma": torch.ones(n0), "beta": torch.full((n0,), -0.6),
             "offset": torch.zeros(n0),
         }
@@ -98,14 +137,15 @@ def init_params(gen: torch.Generator, cfg: KWSConfig = PAPER_KWS,
         cin_g = cfg.channels[i - 1] // cfg.groups(i)
         shape = (cfg.kernels[i], cin_g, cfg.channels[i])
         params[f"conv{i}"] = {
-            "w": torch.randn(shape, generator=gen) * 0.1,
+            "w": jaxrand.normal(keys[i], shape).cpu() * 0.1,
             "gamma": torch.ones(cfg.channels[i]),
             "beta": torch.full((cfg.channels[i],), -0.25),
             "offset": torch.zeros(cfg.channels[i]),
         }
     d = cfg.channels[-1]
     params["fc"] = {
-        "w": torch.randn((d, cfg.num_classes), generator=gen) / math.sqrt(d),
+        "w": jaxrand.normal(keys[-1], (d, cfg.num_classes)).cpu()
+        * float(np.float32(1.0) / np.sqrt(np.float32(d))),
         "b": torch.zeros(cfg.num_classes),
     }
     return {name: {k: v.to(dev) for k, v in p.items()}
@@ -146,6 +186,151 @@ def sinc_kernel(low_hz: torch.Tensor, band_hz: torch.Tensor, k: int,
     h = (bp(high) - bp(low)) * window                         # (C, k)
     h = h / (torch.amax(torch.abs(h), dim=-1, keepdim=True) + 1e-6)
     return h.transpose(0, 1)[:, None, :]                      # (k, 1, C)
+
+
+# ---------------------------------------------------------------------------
+# Float forwards (QAT training / eval)
+# ---------------------------------------------------------------------------
+
+
+def _inv_sqrt(n: int) -> float:
+    """f32(1) / f32(sqrt(n)): XLA's constant for ``/ jnp.sqrt(float(n))``."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
+
+def _batchnorm_train(counts, gamma, beta, running_mean, running_var,
+                     momentum: float):
+    """Batch statistics over (B, T); the means and the variance are
+    ``jnp.mean`` / ``jnp.var`` as compiled (``core.means``)."""
+    mu = means.mean(counts, (0, 1))
+    var = means.mean(torch.square(counts - mu), (0, 1))
+    y = gamma * (counts - mu) / torch.sqrt(var + 1e-5) + beta
+    new_mean = momentum * running_mean + (1 - momentum) * mu
+    new_var = momentum * running_var + (1 - momentum) * var
+    return y, new_mean, new_var
+
+
+def _batchnorm_eval(counts, gamma, beta, mean, var):
+    return gamma * (counts - mean) / torch.sqrt(var + 1e-5) + beta
+
+
+def _pinned_stats(state: KWSState, name: str, fan_in: int):
+    """Fixed mode's running statistics: zero mean, variance fan_in - 1e-5
+    (what ``fold_params`` needs to fold the fixed normalization)."""
+    return (torch.zeros_like(state.mean[name]),
+            torch.full_like(state.var[name], float(fan_in)) - 1e-5)
+
+
+def _float_forward(params, state: KWSState, x: torch.Tensor, cfg: KWSConfig,
+                   train: bool,
+                   chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                   sa_noise_std: float = 0.0,
+                   rng: Optional[torch.Tensor] = None,
+                   soft_alpha: Optional[float] = None):
+    """The float path on audio x (B, sample_len): (logits, features, new
+    state).  ``soft_alpha``: None is the hard sign with the clipped
+    straight-through gradient; a > 0 the annealed ``tanh(a * x)`` for
+    weights and activations; a < 0 the hard forward with the surrogate
+    gradient of ``binarize_sg(|a|)``, the IMC layers thresholded on the
+    exact in-memory bias grid (parity and range, straight through), so
+    the trained net is the folded silicon's.  ``chip_offsets`` ({conv_i:
+    (C_i,)}) and ``sa_noise_std`` (a normal per count, drawn down a
+    ``jaxrand.split`` chain of ``rng``, one key per IMC layer) inject the
+    chip's non-idealities into the IMC layers' counts: the noise-aware
+    forward of the recovery fine-tune.  ``x`` may be any array-like; it
+    is moved to the parameters' device."""
+    new_mean, new_var = dict(state.mean), dict(state.var)
+    h = as_tensor(x, params["fc"]["w"].device)[..., None]   # (B, T, 1)
+    for i in range(cfg.num_conv_layers):
+        name = f"conv{i}"
+        p = params[name]
+        latent = (sinc_kernel(p["low_hz"], p["band_hz"], cfg.kernels[0],
+                              cfg.sample_rate) if i == 0 else p["w"])
+        if soft_alpha is not None and soft_alpha > 0:
+            w = torch.tanh(soft_alpha * latent)        # annealed binarization
+        elif soft_alpha is not None and soft_alpha < 0:
+            w = binarize_sg(latent, -soft_alpha)
+        else:
+            w = binarize(latent)
+        counts = imc.binary_group_conv_counts(h, w, cfg.groups(i),
+                                              cfg.strides[i])
+        if chip_offsets is not None and i > 0:
+            counts = counts + chip_offsets[name]
+        if sa_noise_std > 0.0 and rng is not None and i > 0:
+            rng, sub = jaxrand.split(rng)
+            counts = counts + sa_noise_std * jaxrand.normal(
+                sub, tuple(counts.shape))
+        if cfg.bn_mode == "fixed":
+            fan_in = w.shape[0] * w.shape[1]
+            new_mean[name], new_var[name] = _pinned_stats(state, name,
+                                                          fan_in)
+            if soft_alpha is not None and soft_alpha < 0 and i > 0:
+                # hard phase: threshold on the exact in-memory bias grid
+                # (count domain, parity and [-64, 64], straight through)
+                g = p["gamma"]
+                g_safe = torch.where(torch.abs(g) < 0.05,
+                                     torch.sign(g) * 0.05 + 1e-9, g)
+                b_eff = (p["beta"] + p["offset"]) * float(
+                    np.sqrt(np.float32(fan_in))) / g_safe
+                b_q = b_eff + (imc.map_bias(b_eff, cfg.bias_mapping)
+                               - b_eff).detach()
+                flip = torch.where(g >= 0, 1.0, -1.0)
+                h = binarize_sg((counts + b_q) * flip, -soft_alpha)
+                h = channel_shuffle(h, cfg.groups(i))
+                if cfg.pools[i] > 1:
+                    h = or_maxpool(h, cfg.pools[i], axis=1)
+                continue
+            y = p["gamma"] * counts * _inv_sqrt(fan_in) + p["beta"]
+        elif train:
+            y, new_mean[name], new_var[name] = _batchnorm_train(
+                counts, p["gamma"], p["beta"], state.mean[name],
+                state.var[name], cfg.bn_momentum)
+        else:
+            y = _batchnorm_eval(counts, p["gamma"], p["beta"],
+                                state.mean[name], state.var[name])
+        if soft_alpha is not None and soft_alpha > 0:
+            h = torch.tanh(soft_alpha * (y + p["offset"]))
+        elif soft_alpha is not None and soft_alpha < 0:
+            h = binarize_sg(y + p["offset"], -soft_alpha)
+        else:
+            h = rsign(y, p["offset"])
+        h = channel_shuffle(h, cfg.groups(i))          # Fig 9 digital block
+        if cfg.pools[i] > 1:
+            h = or_maxpool(h, cfg.pools[i], axis=1)
+    feats = ACT_Q.quantize_ste(means.mean(h, 1))       # GAP, then QAT
+    wq = WEIGHT_Q.quantize_ste(params["fc"]["w"])      # 8-bit FC (QAT)
+    bq = WEIGHT_Q.quantize_ste(params["fc"]["b"])
+    logits = feats @ wq + bq
+    return logits, feats, KWSState(mean=new_mean, var=new_var)
+
+
+def forward_train(params, state: KWSState, x, cfg: KWSConfig = PAPER_KWS,
+                  chip_offsets=None, sa_noise_std: float = 0.0, rng=None,
+                  soft_alpha=None):
+    """The QAT forward: (logits, new BN state)."""
+    logits, _, new_state = _float_forward(params, state, x, cfg, True,
+                                          chip_offsets, sa_noise_std, rng,
+                                          soft_alpha=soft_alpha)
+    return logits, new_state
+
+
+def forward_eval(params, state: KWSState, x, cfg: KWSConfig = PAPER_KWS):
+    """The float path with frozen statistics: (logits, features)."""
+    logits, feats, _ = _float_forward(params, state, x, cfg, False)
+    return logits, feats
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean negative log-likelihood of the integer ``labels``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -means.mean(torch.gather(logp, 1, labels[:, None]), (0, 1))
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose first maximal logit is the label."""
+    return means.mean((torch.argmax(logits, -1) == labels).to(torch.float32),
+                      0)
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +377,14 @@ def pack_hw_params(hw, cfg: KWSConfig = PAPER_KWS) -> PackedHWParams:
 
 def fold_params(params, state: KWSState, cfg: KWSConfig = PAPER_KWS,
                 macro: imc.IMCMacroConfig = imc.DEFAULT_MACRO,
+                bn_constraints: bool = True, fc_quant: bool = True,
                 pack: bool = False):
     """Fold BN (+ learnable offsets) into biases, apply the IMC bias grid
     (parity + [-64, 64]) to the IMC layers, a 1/128 grid to the digital
-    layer 0, and quantize the FC to Q1.7.  ``pack=True`` returns
-    PackedHWParams."""
+    layer 0, and quantize the FC to Q1.7.  ``bn_constraints=False`` keeps
+    the real biases everywhere and ``fc_quant=False`` the float FC (the
+    Table III ablation points; the unconstrained fold equals the float
+    ``forward_eval``).  ``pack=True`` returns PackedHWParams."""
     w_bin, bias, flip = {}, {}, {}
     for i in range(cfg.num_conv_layers):
         name = f"conv{i}"
@@ -209,14 +397,17 @@ def fold_params(params, state: KWSState, cfg: KWSConfig = PAPER_KWS,
         w_bin[name] = w
         b, f = imc.fold_bn_to_bias(p["gamma"], p["beta"], state.mean[name],
                                    state.var[name], p["offset"])
-        if i == 0:
+        if not bn_constraints:
+            bias[name] = b
+        elif i == 0:
             bias[name] = torch.round(b * 128.0) / 128.0
         else:
             bias[name] = imc.map_bias(b, cfg.bias_mapping, macro)
         flip[name] = f
-    hw = HWParams(w_bin=w_bin, bias=bias, flip=flip,
-                  fc_w=WEIGHT_Q.quantize(params["fc"]["w"]),
-                  fc_b=WEIGHT_Q.quantize(params["fc"]["b"]))
+    fw, fb = params["fc"]["w"], params["fc"]["b"]
+    if fc_quant:
+        fw, fb = WEIGHT_Q.quantize(fw), WEIGHT_Q.quantize(fb)
+    hw = HWParams(w_bin=w_bin, bias=bias, flip=flip, fc_w=fw, fc_b=fb)
     return pack_hw_params(hw, cfg) if pack else hw
 
 
@@ -312,10 +503,10 @@ def _sense(hw: HWParams, i: int, counts: torch.Tensor, cfg: KWSConfig, *,
 def gap_fc(hw: HWParams, h: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GAP -> ACT_Q -> FC over final activations (B, T, C): (logits,
-    features).  The mean is ``sum / n`` as in ``jnp.mean`` (``torch.mean``
-    multiplies by 1/n, which can round differently); every FC product then
-    lies on a 2**-11 grid, so the logits are exact in any order."""
-    feats = ACT_Q.quantize(h.sum(dim=1) / h.shape[1])
+    features).  The mean is ``jnp.mean``'s as compiled, the sum times the
+    float32 reciprocal of T (``core.means``); every FC product then lies
+    on a 2**-11 grid, so the logits are exact in any order."""
+    feats = ACT_Q.quantize(means.mean(h, 1))
     return feats @ hw.fc_w + hw.fc_b, feats
 
 

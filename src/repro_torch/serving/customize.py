@@ -50,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import energy, jaxrand
+from repro_torch.core import energy, jaxrand, means
 from repro_torch.core.onchip_training import (HeadState, OnChipTrainConfig,
                                               apply_update, epoch_grads,
                                               finetune_init,
@@ -113,6 +113,12 @@ class CustomizationResult:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def capture_features(ring: torch.Tensor) -> torch.Tensor:
+    """One feature capture from a slot's GAP ring (T, D): the quantized
+    mean over T, ``jnp.mean`` as compiled (see ``models.kws.gap_fc``)."""
+    return ACT_Q.quantize(means.mean(ring, 0))
 
 
 def result_riders(result: CustomizationResult, hw, cfg: kws.KWSConfig,
@@ -313,10 +319,8 @@ class CustomizationManager:
                     raise RuntimeError(
                         f"capture overshoot on {cap['stream']}: consumed "
                         f"{rec.consumed} > target {cap['target']}")
-                ring = srv._state.ring[rec.slot]
-                # GAP as sum / n, like jnp.mean (see models.kws.gap_fc)
-                sess.features[cap["index"]] = ACT_Q.quantize(
-                    ring.sum(dim=0) / ring.shape[0])
+                sess.features[cap["index"]] = capture_features(
+                    srv._state.ring[rec.slot])
                 # the capture's noise-field coordinates: the stream's key
                 # and the completion window's index
                 sess.feature_origins[cap["index"]] = {

@@ -333,7 +333,11 @@ class StreamServer:
         self._state = self.engine.zeros_state(slots)
         self._dstate = dec.decision_init(slots, cfg.num_classes, decision,
                                          device=self.device)
-        self._vstate = (vd.vad_init(slots, device=self.device)
+        # the voice-activity detector runs on the host, where each hop's
+        # audio arrives and the gating decision is taken: its exact level
+        # (XLA's reduction order and log) is dozens of small operations,
+        # which the card would run as as many launches and a read-back
+        self._vstate = (vd.vad_init(slots, device="cpu")
                         if vad is not None else None)
         # customization (serving.customize): once enabled, batched calls
         # route through the per-slot (bias delta, FC head) variant so
@@ -1069,9 +1073,9 @@ class StreamServer:
             speech = ready.copy()
         else:
             self._vstate, sp = vd.vad_step(self.vcfg, self._vstate,
-                                           self._tensor(audio),
-                                           self._tensor(ready))
-            speech = sp.cpu().numpy() & ready
+                                           torch.from_numpy(audio),
+                                           torch.from_numpy(ready))
+            speech = sp.numpy() & ready
             for s, rec in enumerate(self._slots):
                 # enrollment and replay hops must run the real IMC path:
                 # a gated hop would corrupt the captured feature buffer

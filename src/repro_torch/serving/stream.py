@@ -53,7 +53,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import jaxrand
+from repro_torch.core import jaxrand, means
 from repro_torch.core.quantize import ACT_Q
 from repro_torch.core.sa_noise import (SANoiseField, columns_noise,
                                        field_window_noise, sa_noise_columns)
@@ -261,7 +261,7 @@ def _ring_logits(hwp: kws.HWParams, ring: torch.Tensor,
     on rows that hold the base head."""
     if head_w is None:
         return kws.gap_fc(hwp, ring)[0]
-    feats = ACT_Q.quantize(ring.sum(dim=1) / ring.shape[1])
+    feats = ACT_Q.quantize(means.mean(ring, 1))
     return torch.bmm(feats[:, None, :], head_w)[:, 0] + head_b
 
 

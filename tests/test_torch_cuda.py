@@ -20,7 +20,12 @@ chip equal on the kernel route, the plain route and the CPU; and the
 self-healing chip: K1 on pre-sign operands holding stuck rails (±1e4)
 and fractional drift at the hop-1024 tails, a faulted, noisy,
 health-monitored server and the stuck-column and drift-heal scenarios,
-each equal on the kernel route, the plain route and the CPU.
+each equal on the kernel route, the plain route and the CPU; the means
+at their smallest ties (the T = 448 GAP at every GAP site, the N = 7 head
+on both K2 routes) equal to the reference's values; and the float
+learning path: ``forward_eval`` on the card equal to the CPU, its
+unconstrained fold through K1, and a ``train_base`` step of the recovery
+fine-tune on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -48,6 +53,8 @@ from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
 
+from _mean_cases import (GAP_FEAT0, HEAD_GW10, gap_head, gap_tie_ring,
+                         head_tie_case)
 from _sga_cases import head_rows, sga_rows
 
 pytestmark = pytest.mark.cuda
@@ -275,7 +282,7 @@ def test_kernel_rejects_mismatched_operands(dev):
 
 
 def _hw(dev, cfg):
-    params = kws.init_params(torch.Generator().manual_seed(5), cfg,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), cfg,
                              device=dev)
     return kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
                            pack=True)
@@ -1301,3 +1308,142 @@ def test_stuck_and_drift_heal_kernel_equals_plain_and_cpu(dev, scenario):
     assert any(e["degraded"] for e in events)
     assert h["masked_channels"] == ({"conv3": [2, 7]} if scenario == "stuck"
                                     else {})
+
+
+# ---------------------------------------------------------------------------
+# means as the reference computes them, and the float learning path
+# ---------------------------------------------------------------------------
+
+def test_gap_tie_on_the_card(dev):
+    """T = 448 (``tests/_mean_cases.py``): feats[0, 0] is 0.4375 through
+    ``gap_fc``, ``_ring_logits`` (shared and per-stream heads) and the
+    capture's GAP, on the card as on the CPU."""
+    from repro_torch.serving.customize import capture_features
+    ring = gap_tie_ring(batch=2)
+    w, b = gap_head()
+    heads = np.stack([w, w[:, ::-1].copy()])
+    got = {}
+    for d in (dev, "cpu"):
+        t = lambda a: torch.tensor(a, device=d)
+        hw = kws.HWParams(w_bin={}, bias={}, flip={}, fc_w=t(w), fc_b=t(b))
+        logits, feats = kws.gap_fc(hw, t(ring))
+        got[str(d)] = [feats, logits,
+                       sv._ring_logits(hw, t(ring), None, None),
+                       sv._ring_logits(hw, t(ring), t(heads), t(
+                           np.stack([b, b]))),
+                       capture_features(t(ring[0]))]
+    card, cpu = got[str(dev)], got["cpu"]
+    assert float(card[0][0, 0]) == float(card[4][0]) == GAP_FEAT0
+    for a, c in zip(card, cpu):
+        assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("epochs", [1, 30])
+def test_head_tie_on_both_k2_routes(dev, epochs):
+    """N = 7: gw[1, 0] is 7/128 on the card; the per-epoch route
+    (``epoch_grads`` then ``sga_update_rows``) and the fused route
+    (``head_train_rows``) land on the same head as their plain versions
+    and as the CPU."""
+    feats, labels, w, b = head_tie_case()
+    tcfg = OnChipTrainConfig()
+    spec, heads = ot.head_train_spec(tcfg), {}
+    for d in (dev, "cpu"):
+        st, fq, oh = ot.finetune_init(feats, labels, w, b, tcfg, device=d)
+        flat = [torch.cat([st.w.reshape(-1), st.b])[None],
+                torch.cat([st.accum_w.reshape(-1), st.accum_b])[None]]
+        sga_ops.COUNTS_ROWS.reset()
+        for e in range(epochs):
+            s = ot.HeadState(flat[0][0, :6].reshape(2, 3), flat[0][0, 6:],
+                             flat[1][0, :6].reshape(2, 3), flat[1][0, 6:],
+                             st.key)
+            gw, gb, lr, _ = ot.epoch_grads(s, e, fq, oh, tcfg)
+            if e == 0:
+                assert float(gw[1, 0]) == HEAD_GW10
+            g = torch.cat([gw.reshape(-1), gb])[None]
+            th = ot.sga_threshold(lr)
+            nw, na = sga_ops.sga_update_batch(flat[0], g, flat[1],
+                                              lr.reshape(1), th.reshape(1))
+            pw, pa = sga_update_ref(flat[0], g, flat[1], lr, th)
+            assert torch.equal(nw, pw) and torch.equal(na, pa)
+            flat = [nw, na]
+        assert sga_ops.COUNTS_ROWS.launches == (epochs if torch.device(d) == dev
+                                                else 0)
+        fused = [v.clone() for v in (st.w, st.b, st.accum_w, st.accum_b)]
+        plain = [v.clone() for v in fused]
+        sga_ops.head_train_batch(*([v] for v in fused), [fq], [oh], [0],
+                                 [epochs], ot.train_lut(fq.device), spec)
+        sga_ref.head_train_rows_ref(*([v] for v in plain), [fq], [oh], [0],
+                                    [epochs], ot.train_lut(fq.device), spec)
+        fused = torch.cat([v.reshape(-1) for v in fused])
+        assert torch.equal(fused, torch.cat([v.reshape(-1) for v in plain]))
+        per_epoch = torch.cat([flat[0][0, :6], flat[0][0, 6:],
+                               flat[1][0, :6], flat[1][0, 6:]])
+        assert torch.equal(fused, per_epoch)
+        if epochs == 1:
+            assert float(fused[9 + 3]) == HEAD_GW10     # accum_w[1, 0]
+        heads[str(d)] = fused.cpu()
+    assert torch.equal(heads[str(dev)], heads["cpu"])
+
+
+def test_float_path_folds_through_k1(dev):
+    """The float path on the card: ``forward_eval`` of a jaxrand-key net
+    equals the CPU's bitwise, and the unconstrained fold through K1 (5
+    launches) gives its features to 1e-5 (the reference's fold check)."""
+    cfg = kws.KWSConfig(sample_len=L)
+    x = np.random.default_rng(2).uniform(-1, 1, (8, L)).astype(np.float32)
+    nets, out = {}, {}
+    for d in (dev, "cpu"):
+        nets[str(d)] = (kws.init_params(jaxrand.PRNGKey(1, device="cpu"),
+                                        cfg, device=d),
+                        kws.init_state(cfg, device=d))
+        with torch.no_grad():
+            out[str(d)] = kws.forward_eval(*nets[str(d)], x, cfg)
+    logits, feats = out[str(dev)]
+    assert torch.equal(logits.cpu(), out["cpu"][0])
+    hw_u = kws.fold_params(*nets[str(dev)], cfg, bn_constraints=False)
+    ops.COUNTS.reset()
+    _, f_hw = kws.hw_forward(hw_u, x, cfg, use_kernel=True, device=dev)
+    assert ops.COUNTS.launches == 5
+    assert float(torch.max(torch.abs(f_hw - feats))) <= 1e-5
+
+
+@pytest.mark.parametrize("alpha", [2.0, -5.0])
+def test_train_step_on_the_card_equals_the_cpu(dev, alpha):
+    """One ``train_base`` step of the recovery fine-tune (chip offsets, SA
+    noise 1.0) from identical parameters on the card and the CPU: the
+    loss within rtol 1e-3, the BN state bitwise, 95% of the parameters
+    within 1e-4 |p| + 1e-5 (Adam's first step normalizes each element's
+    gradient, so rounding-noise gradients step by up to the learning
+    rate), no TF32."""
+    from repro_torch.training import kws as tr
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = kws.KWSConfig(sample_len=L)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (8, L)).astype(np.float32)
+    y = rng.integers(0, 10, 8)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(9, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    tcfg = tr.TrainConfig(epochs=1, batch_size=8, lr_min=0.01,
+                          alpha_schedule=((1.0, alpha),))
+    res = {}
+    for d in (dev, "cpu"):
+        hist = []
+        res[str(d)] = tr.train_base(x, y, cfg, tcfg, chip_offsets=chip,
+                                    sa_noise_std=1.0, verbose=False,
+                                    history=hist, device=d), hist
+    (pk, sk), hk = res[str(dev)]
+    (pc, sc), hc = res["cpu"]
+    assert abs(float(hk[0]["loss"]) - float(hc[0]["loss"])) \
+        <= 1e-3 * abs(float(hc[0]["loss"]))
+    for name in sc.mean:
+        assert torch.equal(sk.mean[name].cpu(), sc.mean[name])
+        assert torch.equal(sk.var[name].cpu(), sc.var[name])
+    off = total = 0
+    for n in pc:
+        for k in pc[n]:
+            d = torch.abs(pk[n][k].cpu() - pc[n][k])
+            off += int(torch.sum(d > 1e-4 * torch.abs(pc[n][k]) + 1e-5))
+            total += d.numel()
+            assert float(d.max()) <= 0.02
+    assert off <= 0.05 * total

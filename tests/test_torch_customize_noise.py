@@ -40,7 +40,7 @@ EPOCHS, PER_TICK, N_UTTS, CALIB_SEED = 12, 5, 3, 4
 
 @pytest.fixture(scope="module")
 def session():
-    params = kws.init_params(torch.Generator().manual_seed(5), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), CFG,
                              device="cpu")
     hw_t = kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)

@@ -22,11 +22,11 @@ port and carried to the JAX package as numpy leaves.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.models import kws as jkws
 from repro.serving import StreamServer as JStreamServer
 from repro.serving import VADConfig as JVADConfig
+from repro_torch.core import jaxrand
 from repro_torch.models import kws
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
@@ -87,7 +87,7 @@ NETS = {
 def net(request):
     kw = NETS[request.param]
     cfg = kws.KWSConfig(sample_len=L, **kw)
-    params = kws.init_params(torch.Generator().manual_seed(5), cfg,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), cfg,
                              device="cpu")
     hw_t = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
                            pack=True)

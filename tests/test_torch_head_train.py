@@ -17,6 +17,7 @@ land on the port's offline loop.  tests/test_torch_cuda.py holds the
 kernel against the plain version on a card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import torch
 
 from repro.core import onchip_training as jot
 from repro.kernels.sga_update import ops as jops
+from repro_torch.core import jaxrand
 from repro_torch.core import onchip_training as ot
 from repro_torch.core import quantize
 from repro_torch.kernels.sga_update import ops, ref
@@ -45,16 +47,19 @@ CONFIGS = {
 
 
 def _jax_loop(rows, jcfg):
-    """The JAX customization path's rounds: epoch_grads per row, then one
+    """The JAX customization path's rounds: epoch_grads per row, jitted as
+    that path runs it (``repro/serving/customize.py``), then one
     sga_update_batch over the rows still training."""
+    grads_fn = jax.jit(lambda st, e, f, oh: jot.epoch_grads(st, e, f, oh,
+                                                            jcfg))
     states = [jot.HeadState(*(jnp.asarray(r[k]) for k in ("w", "b", "aw",
                                                           "ab")),
                             key=jnp.zeros(2, jnp.uint32)) for r in rows]
     for rnd in range(max(BUDGETS)):
         batch = [i for i in range(len(rows)) if rnd < BUDGETS[i]]
-        grads = [jot.epoch_grads(states[i], jnp.int32(STARTS[i] + rnd),
-                                 jnp.asarray(rows[i]["f"]),
-                                 jnp.asarray(rows[i]["onehot"]), jcfg)
+        grads = [grads_fn(states[i], jnp.int32(STARTS[i] + rnd),
+                          jnp.asarray(rows[i]["f"]),
+                          jnp.asarray(rows[i]["onehot"]))
                  for i in batch]
         cat = lambda a, b: jnp.concatenate([a.reshape(-1), b.reshape(-1)])
         lrs = jnp.stack([g[2] for g in grads])
@@ -143,7 +148,7 @@ CFG = kws.KWSConfig(sample_len=L)
 
 @pytest.fixture(scope="module")
 def hw():
-    params = kws.init_params(torch.Generator().manual_seed(5), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), CFG,
                              device="cpu")
     return kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)

@@ -27,6 +27,7 @@ from repro.core.binary import channel_shuffle as jshuffle
 from repro.core.binary import or_maxpool as jpool
 from repro.kernels.imc_mav import ops as jops
 from repro.kernels.imc_mav.ref import fused_conv_mav_ref as jref
+from repro_torch.core import jaxrand
 from repro_torch.kernels.imc_mav import ops, ref
 from repro_torch.models import kws
 from repro_torch.serving.scheduler import StreamServer
@@ -173,7 +174,7 @@ def test_hw_forward_one_fused_call_per_imc_layer(monkeypatch):
     per IMC layer; on the CPU that is the plain version and the kernel's
     launch count stays 0."""
     cfg = kws.KWSConfig(sample_len=640)
-    params = kws.init_params(torch.Generator().manual_seed(5), cfg,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), cfg,
                              device="cpu")
     hw = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
                          pack=True)
@@ -216,7 +217,7 @@ def test_served_activations_are_ternary_and_hold_zeros(monkeypatch):
     admitted ride every batched hop (the contract the kernel is exact on).
     """
     cfg = kws.KWSConfig(sample_len=640)
-    params = kws.init_params(torch.Generator().manual_seed(3), cfg,
+    params = kws.init_params(jaxrand.PRNGKey(3, device="cpu"), cfg,
                              device="cpu")
     hw = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
                          pack=True)
@@ -264,7 +265,7 @@ def test_pack_weights_s8_rows():
 
 def test_hw_params_pack_int8_rows():
     cfg = kws.KWSConfig(sample_len=640)
-    params = kws.init_params(torch.Generator().manual_seed(5), cfg,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), cfg,
                              device="cpu")
     hw = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
                          pack=True)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.models import kws as jkws
+from repro_torch.core import jaxrand
 from repro_torch.models import kws
 
 L = 640
@@ -169,10 +170,10 @@ def test_silence_columns_match_jax(nets, case):
 
 
 def test_port_init_params_serve_finite_logits():
-    """The port's own init (torch.Generator) folds into a net whose fused
-    and plain hardware paths agree and give finite logits."""
-    gen = torch.Generator().manual_seed(3)
-    params = kws.init_params(gen, CFG, device="cpu")
+    """The port's own init (from a jaxrand key) folds into a net whose
+    fused and plain hardware paths agree and give finite logits."""
+    params = kws.init_params(jaxrand.PRNGKey(3, device="cpu"), CFG,
+                             device="cpu")
     hw = kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                          pack=True)
     x = _audio(7, b=3)

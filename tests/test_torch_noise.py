@@ -6,7 +6,7 @@ hardware forward, and the noisy stream against its offline windows
 Tolerances: none.  Noise values, ±1 activations, features and logits are
 compared bitwise (the port's ``jaxrand`` draws JAX's numbers exactly).
 Small config: ``sample_len=640``, ``hop=64``.  The folded net is made by
-the port from a seeded ``torch.Generator`` and carried to the JAX package
+the port from a ``jaxrand`` key and carried to the JAX package
 as numpy leaves (``jax_hw``), which keeps the JAX side's compile time out
 of the file's budget.
 """
@@ -56,7 +56,7 @@ def jax_hw(hw_t):
 
 @pytest.fixture(scope="module")
 def nets():
-    params = kws.init_params(torch.Generator().manual_seed(5), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), CFG,
                              device="cpu")
     hw_t = kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)

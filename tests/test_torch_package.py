@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.core import jaxrand
 from repro_torch.models import kws
 from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
@@ -49,7 +50,7 @@ def no_cuda(monkeypatch):
 
 @pytest.fixture(scope="module")
 def hw_cpu():
-    params = kws.init_params(torch.Generator().manual_seed(0), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), CFG,
                              device="cpu")
     return kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)
@@ -64,9 +65,9 @@ def test_resolve_device_without_cuda(no_cuda):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, hw_cpu):
-    gen = torch.Generator().manual_seed(0)
+    key = jaxrand.PRNGKey(0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        kws.init_params(gen, CFG)
+        kws.init_params(key, CFG)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kws.hw_forward(hw_cpu, torch.zeros(1, CFG.sample_len), CFG)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

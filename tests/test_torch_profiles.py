@@ -52,7 +52,7 @@ SCORE_ATOL = 1e-6
 
 @pytest.fixture(scope="module")
 def nets():
-    params = kws.init_params(torch.Generator().manual_seed(5), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), CFG,
                              device="cpu")
     hw_t = kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)

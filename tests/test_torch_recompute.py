@@ -55,7 +55,7 @@ DECISION = dict(smooth=2, threshold_on=0.27, threshold_off=0.25,
 
 @pytest.fixture(scope="module")
 def nets():
-    params = kws.init_params(torch.Generator().manual_seed(5), CFG,
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), CFG,
                              device="cpu")
     hw_t = kws.fold_params(params, kws.init_state(CFG, device="cpu"), CFG,
                            pack=True)
