@@ -129,7 +129,27 @@ result line):
    every GAP site (0.4375) and the N = 7 head on both K2 routes
    (``head_train_rows``, and ``epoch_grads`` then ``sga_update_rows``):
    gw[1, 0] 7/128, each kernel bitwise against its plain version and the
-   card equal to the CPU.
+   card equal to the CPU;
+11. the paper's Tables II-IV pipeline (``phase_pipeline``), as
+   ``benchmarks/kws_experiments.py`` runs it with ``fast``, on 400 + 120
+   windows of ``make_gscd_like`` and the personal set
+   (``make_personal``, accent 0.18): ``train_base`` on the card (24
+   epochs, batch 100), every accuracy row through ``evaluate_hw`` with
+   K1 (ideal, FC-quantized and BN-constrained folds; two chips of offset
+   std 8 and SA noise 1.0, noisy and compensated; a one-epoch noise-aware
+   fine-tune), Table IV's five head variants on ``hw_features`` of the
+   compensated chip, and the chip report (uJ/decision, power, TOPS/W,
+   breakdown): each ``evaluate_hw`` launching K1 5 x its chunks with its
+   logits equal to the plain route's, and on 16 windows the card equal to
+   the CPU (clean, noisy, compensated biases); accuracies printed, not
+   gated;
+12. the serving telemetry (``phase_obs``) on phase 3's traffic and on
+   phase 9's faulted, canary-monitored run: telemetry fully on (recorder,
+   auditor in raise mode, trace) equal to off on events and every state
+   leaf; the auditor's count of fused calls equal to K1's launches tick
+   by tick; the recorder's tick events equal to the server's counts; the
+   trace dump valid JSON (under ``build/``); wall decisions/s off and on
+   in alternating pairs, with their spread.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -141,7 +161,9 @@ time per call where the profiler records no device activity), and the
 least time the card could take for the same bytes and operations.
 ``launches`` is the count from the main path's served run,
 ``launches_front_door`` K1's counts on the front door's paths and
-``launches_reliability`` those of phase 9's kernel runs; phase 2's
+``launches_reliability`` those of phase 9's kernel runs,
+``launches_pipeline`` phase 11's (its ``evaluate_hw`` and ``hw_features``
+calls) and ``launches_obs`` phase 12's served run with telemetry on; phase 2's
 totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
 JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
@@ -2771,6 +2793,405 @@ def phase_learning(torch, dev):
                 seconds=t_phase)
 
 
+# the paper's pipeline (phase 11): benchmarks/kws_experiments.py's fast run
+PIPE_PER_CLASS = (40, 12)        # make_gscd_like train / test per class
+PIPE_EPOCHS, PIPE_FT_EPOCHS, PIPE_HEAD_EPOCHS = 24, 1, 400
+PIPE_CHIPS, PIPE_CALIB, PIPE_CHECK = 2, 150, 16
+PIPE_MAV_STD = 8.0                # the experiment's chip: offsets of std 8
+
+
+def _hw_kw(**kw):
+    """The keyword arguments of ``training.kws._hw_batched``, defaults
+    filled in as ``evaluate_hw`` fills them."""
+    return {"chip_offsets": None, "sa_noise_std": 0.0, "seed": 0,
+            "batch": 200, "sa_noise_field": None, **kw}
+
+
+def phase_pipeline(torch, dev):
+    """Phase 11: the paper's Tables II-IV pipeline at full width, as
+    ``benchmarks/kws_experiments.py`` runs it with ``fast``: ``train_base``
+    on the card (24 epochs of 400 windows at batch 100), then every
+    accuracy row through ``evaluate_hw(use_kernel=True)``: the ideal and
+    the FC-quantized folds, the BN-constrained packed fold, two chips
+    (offsets of std 8 from ``PRNGKey(100 + s)``, SA noise 1.0) noisy and
+    compensated (``calibrate_and_compensate(xtr[:150])``), and a
+    noise-aware fine-tune of one epoch on chip 0; Table IV's five head
+    variants (400 epochs each) on ``hw_features`` of the compensated chip
+    0; the chip report.  Gates: each ``evaluate_hw`` launches K1 5 x its
+    chunks and its logits through K1 equal the plain route's on the card;
+    on ``PIPE_CHECK`` windows the card equals the CPU, clean, noisy and on
+    the compensated biases.  The accuracies are printed, not gated: a
+    few-epoch net is not the paper's."""
+    import numpy as np
+    from repro_torch.core import energy, imc, jaxrand
+    from repro_torch.core.onchip_training import (OnChipTrainConfig,
+                                                  head_accuracy,
+                                                  quantized_head_finetune)
+    from repro_torch.data import audio
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.training import kws as tr
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = kws.PAPER_KWS
+    (xtr, ytr), (xte, yte) = audio.make_gscd_like(
+        train_per_class=PIPE_PER_CLASS[0], test_per_class=PIPE_PER_CLASS[1],
+        length=cfg.sample_len)
+    (xp_tr, yp_tr), (xp_te, yp_te) = audio.make_personal(
+        train_per_class=3, test_per_class=6, length=cfg.sample_len,
+        accent_shift=0.18)
+    log(f"[pipeline] data: {len(ytr)} / {len(yte)} windows, personal "
+        f"{len(yp_tr)} / {len(yp_te)} ({time.perf_counter() - t_phase:.1f} "
+        f"s)")
+    tcfg = tr.TrainConfig(
+        epochs=PIPE_EPOCHS, batch_size=100, lr=3e-3, log_every=48,
+        alpha_schedule=((0.3, 2.0), (0.5, 5.0), (0.65, 12.0), (1.0, -8.0)),
+        polarize_weight=5e-3)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state = tr.train_base(xtr, ytr, cfg, tcfg, verbose=False,
+                                  history=hist, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [float(h["loss"]) for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_base: non-finite losses {losses}")
+    log(f"[pipeline] train_base: {len(hist)} steps at batch 100 in "
+        f"{train_s:.1f} s ({train_s / len(hist) * 1e3:.1f} ms/step); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    launches = {"evaluate_hw": 0, "hw_features": 0}
+    table = {}
+
+    def evaluate(row, hw, x, y, **kw):
+        """One accuracy row: ``evaluate_hw`` through K1 (the main path:
+        its launches counted, 5 a chunk), then its logits through K1 and
+        the plain route, which must be equal."""
+        chunks = -(-len(y) // 200)
+        n0 = ops.COUNTS.launches
+        t0 = time.perf_counter()
+        acc = tr.evaluate_hw(hw, x, y, cfg, use_kernel=True, device=dev,
+                             **kw)
+        wall = time.perf_counter() - t0
+        n = ops.COUNTS.launches - n0
+        if n != 5 * chunks:
+            raise AssertionError(f"{row}: evaluate_hw launched K1 {n} times "
+                                 f"for {chunks} chunks")
+        launches["evaluate_hw"] += n
+        lk = tr._hw_batched(hw, x, cfg, 0, use_kernel=True, device=dev,
+                            **_hw_kw(**kw))
+        lp = tr._hw_batched(hw, x, cfg, 0, use_kernel=False, device=dev,
+                            **_hw_kw(**kw))
+        if not torch.equal(lk, lp) or not torch.isfinite(lk).all():
+            raise AssertionError(f"{row}: logits through K1 differ from the "
+                                 f"plain route's")
+        if acc != float(np.mean(np.argmax(lk.cpu().numpy(), -1) == y)):
+            raise AssertionError(f"{row}: evaluate_hw's accuracy is not its "
+                                 f"logits'")
+        table[row] = acc
+        log(f"[pipeline] {row}: accuracy {acc:.4f} on {len(y)} windows "
+            f"({wall:.2f} s; K1 {n} launches = 5 x {chunks} chunks, logits "
+            f"equal to the plain route)")
+        return acc
+
+    # Table II and III
+    evaluate("ideal", kws.fold_params(params, state, cfg,
+                                      bn_constraints=False, fc_quant=False),
+             xte, yte)
+    evaluate("fc_quantized", kws.fold_params(params, state, cfg,
+                                             bn_constraints=False,
+                                             fc_quant=True), xte, yte)
+    hw = kws.fold_params(params, state, cfg, pack=True)
+    evaluate("bn_constraints", hw, xte, yte)
+    chans = {name: cfg.channels[i]
+             for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    chips = [imc.sample_chip_offsets(
+        jaxrand.PRNGKey(100 + s, device="cpu"), chans,
+        imc.IMCNoiseParams(mav_offset_std=PIPE_MAV_STD, sa_noise_std=SA_STD))
+        for s in range(PIPE_CHIPS)]
+    hw_comp0 = None
+    for s, offs in enumerate(chips):
+        offs_dev = _to(offs, dev)
+        evaluate(f"mav_sa_noise_chip{s}", hw, xte, yte,
+                 chip_offsets=offs_dev, sa_noise_std=SA_STD, seed=s)
+        t0 = time.perf_counter()
+        hw_c = tr.calibrate_and_compensate(hw, xtr[:PIPE_CALIB], offs_dev,
+                                           cfg, device=dev)
+        log(f"[pipeline] calibrate_and_compensate chip {s} on "
+            f"{PIPE_CALIB} windows: {time.perf_counter() - t0:.2f} s")
+        hw_comp0 = hw_c if hw_comp0 is None else hw_comp0
+        evaluate(f"bias_compensation_chip{s}", hw_c, xte, yte,
+                 chip_offsets=offs_dev, sa_noise_std=SA_STD, seed=s)
+    chip0 = _to(chips[0], dev)
+    ft_cfg = tr.TrainConfig(epochs=PIPE_FT_EPOCHS, batch_size=100, lr=1e-3,
+                            log_every=999, alpha_schedule=((1.0, -8.0),),
+                            polarize_weight=0.0)
+    t0 = time.perf_counter()
+    p_ft, st_ft = tr.train_base(xtr, ytr, cfg, ft_cfg, params=params,
+                                state=state, chip_offsets=chip0,
+                                sa_noise_std=SA_STD, verbose=False,
+                                device=dev)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    hw_ft = tr.calibrate_and_compensate(kws.fold_params(p_ft, st_ft, cfg),
+                                        xtr[:PIPE_CALIB], chip0, cfg,
+                                        device=dev)
+    evaluate("compensation_finetune", hw_ft, xte, yte, chip_offsets=chip0,
+             sa_noise_std=SA_STD, seed=0)
+    log(f"[pipeline] noise-aware fine-tune: {PIPE_FT_EPOCHS} epoch "
+        f"({len(ytr) // 100} steps) in {ft_s:.1f} s")
+
+    # Table IV: the head variants on the compensated chip 0's features
+    feats = {}
+    for part, x in (("train", xp_tr), ("test", xp_te)):
+        n0 = ops.COUNTS.launches
+        feats[part] = tr.hw_features(hw_comp0, x, cfg, chip_offsets=chip0,
+                                     sa_noise_std=SA_STD, use_kernel=True,
+                                     device=dev)
+        n = ops.COUNTS.launches - n0
+        if n != 5 * -(-len(x) // 200):
+            raise AssertionError(f"hw_features ({part}): K1 {n} launches")
+        launches["hw_features"] += n
+        plain = tr.hw_features(hw_comp0, x, cfg, chip_offsets=chip0,
+                               sa_noise_std=SA_STD, use_kernel=False,
+                               device=dev)
+        if not torch.equal(feats[part], plain):
+            raise AssertionError(f"hw_features ({part}): K1 and the plain "
+                                 f"route differ")
+    evaluate("before_customization", hw_comp0, xp_te, yp_te,
+             chip_offsets=chip0, sa_noise_std=SA_STD)
+    hwp0, _ = kws.as_hw_params(hw_comp0)
+    variants = {
+        "baseline_fp": dict(quantized=False),
+        "quantized_naive": dict(quantized=True, error_scaling=False,
+                                sga=False, rgp=False),
+        "error_scaling": dict(quantized=True, error_scaling=True, sga=False,
+                              rgp=False),
+        "es_sga": dict(quantized=True, error_scaling=True, sga=True,
+                       rgp=False),
+        "es_sga_rgp": dict(quantized=True, error_scaling=True, sga=True,
+                           rgp=True, rgp_lambda=8.0),
+    }
+    t4 = {}
+    t0 = time.perf_counter()
+    labels_te = torch.as_tensor(yp_te, device=dev)
+    for name, kw in variants.items():
+        ocfg = OnChipTrainConfig(epochs=PIPE_HEAD_EPOCHS, **kw)
+        w, b = quantized_head_finetune(feats["train"], yp_tr, hwp0.fc_w,
+                                       hwp0.fc_b, ocfg, device=dev)
+        t4[name] = float(head_accuracy(feats["test"], labels_te, w, b, ocfg))
+    head_s = time.perf_counter() - t0
+    log(f"[pipeline] Table IV ({PIPE_HEAD_EPOCHS} epochs each, "
+        f"{head_s:.1f} s): before {table['before_customization']:.4f}, "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t4.items()))
+
+    # the card against the CPU on PIPE_CHECK windows
+    t0 = time.perf_counter()
+    hw_cpu = _to(hw, "cpu")
+    sub = xte[:PIPE_CHECK]
+    for what, kd, kc in (("clean", {}, {}),
+                         ("noisy", dict(chip_offsets=chip0,
+                                        sa_noise_std=SA_STD),
+                          dict(chip_offsets=chips[0], sa_noise_std=SA_STD))):
+        lk = tr._hw_batched(hw, sub, cfg, 0, use_kernel=True, device=dev,
+                            **_hw_kw(**kd))
+        lc = tr._hw_batched(hw_cpu, sub, cfg, 0, use_kernel=True,
+                            device="cpu", **_hw_kw(**kc))
+        if not torch.equal(lk.cpu(), lc):
+            raise AssertionError(f"{what} logits: the card and the CPU "
+                                 f"differ")
+    hc_dev = tr.calibrate_and_compensate(hw, xtr[:PIPE_CHECK], chip0, cfg,
+                                         device=dev)
+    hc_cpu = tr.calibrate_and_compensate(hw_cpu, xtr[:PIPE_CHECK], chips[0],
+                                         cfg, device="cpu")
+    for name in cfg.imc_layer_names():
+        if not torch.equal(hc_dev.hw.bias[name].cpu(), hc_cpu.hw.bias[name]):
+            raise AssertionError(f"compensated {name}: the card and the CPU "
+                                 f"differ")
+    check_s = time.perf_counter() - t0
+    log(f"[pipeline] on {PIPE_CHECK} windows the card equals the CPU: "
+        f"clean and noisy logits, compensated biases ({check_s:.1f} s)")
+
+    rep = energy.kws_chip_report(kws.layer_stats(cfg))
+    report = dict(uj_per_decision=rep.energy_j_per_decision * 1e6,
+                  power_w=rep.power_w, total_ops=rep.total_ops,
+                  tops_per_w=rep.tops_per_w, breakdown=rep.breakdown())
+    log(f"[pipeline] chip report: {report['uj_per_decision']:.4f} "
+        f"uJ/decision, {rep.power_w * 1e6:.2f} uW, {rep.total_ops} ops, "
+        f"{rep.tops_per_w:.4f} TOPS/W; dynamic energy by layer "
+        + ", ".join(f"{k} {v:.3f}" for k, v in report["breakdown"].items()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"[pipeline] K1 launches: evaluate_hw {launches['evaluate_hw']}, "
+        f"hw_features {launches['hw_features']}; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; phase 11 took {seconds:.1f} s")
+    return dict(train=dict(steps=len(hist), seconds=train_s,
+                           ms_per_step=train_s / len(hist) * 1e3,
+                           losses=[losses[0], losses[-1]]),
+                table23=table, table4=t4, chip_report=report,
+                launches=launches["evaluate_hw"] + launches["hw_features"],
+                launches_by_call=launches, finetune_s=ft_s, head_s=head_s,
+                check_s=check_s, max_memory_bytes=peak, seconds=seconds)
+
+
+OBS_PAIRS = 3                     # off / on pairs of the decisions/s
+
+
+def phase_obs(torch, dev):
+    """Phase 12: telemetry on the served runs.  Phase 3's traffic (8
+    slots, chip offsets of std 4, VAD on) and phase 9's faulted,
+    canary-monitored run (stuck columns and trim flips, canaries every 8
+    ticks, 9 slots) on the kernel route, with telemetry off and fully on
+    (``ObsConfig(recorder=4096, audit="raise", trace=True)``): events,
+    every state leaf and the health stats identical; the auditor's fused
+    calls (in its regions and outside them) equal to K1's launches, tick
+    by tick and in all; the recorder's ``tick`` events summing to the
+    server's own decisions, gated hops, replays and init waves; the trace
+    dump valid JSON.  Then wall decisions/s of phase 3's traffic off and
+    on in ``OBS_PAIRS`` alternating pairs, with their spread."""
+    import numpy as np
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import (FaultConfig, HealthConfig,
+                                     StreamServer, VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    gen = torch.Generator().manual_seed(0)
+    chip = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
+            for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    streams = _traffic(cfg)
+    full = ObsConfig(recorder=4096, audit="raise", trace=True)
+
+    def faulty(srv):
+        srv.faults.inject_stuck("conv3", [2, 7])
+        srv.faults.inject_stuck("conv2", [0, 5], value=1)
+        srv.faults.inject_bit_flips(n=6)
+
+    configs = {
+        "served": dict(slots=SLOTS, chip_offsets=chip, vad=VADConfig()),
+        "faulted": dict(slots=SLOTS + 1, chip_offsets=_noisy_chip(torch,
+                                                                  cfg),
+                        vad=VADConfig(), faults=FaultConfig(seed=3),
+                        health=HealthConfig(interval=REL_INTERVAL)),
+    }
+
+    def run(name, obs):
+        srv = StreamServer(hw, cfg, hop=HOP, use_kernel=True, device=dev,
+                           obs=obs, **configs[name])
+        if srv.faults is not None:
+            faulty(srv)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        torch.cuda.synchronize()
+        ops.COUNTS.reset()                  # the path's run starts
+        per_tick, events = [], []
+        t0 = time.perf_counter()
+        def buffers():
+            return (len(srv._queue),
+                    [None if r is None else len(r.buf) for r in srv._slots])
+
+        while True:                         # drain(), tick by tick
+            n0, before = ops.COUNTS.launches, buffers()
+            events.extend(srv.step())
+            per_tick.append(ops.COUNTS.launches - n0)
+            if buffers() == before:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st_ = srv._state
+        return dict(srv=srv, events=events, wall=wall, per_tick=per_tick,
+                    launches=ops.COUNTS.launches, stats=srv.stats(),
+                    leaves=[st_.audio_carry, *st_.carries, st_.ring,
+                            st_.hop, st_.key, *srv._dstate, *srv._vstate])
+
+    out = {}
+    for name in configs:
+        run(name, full)                     # warm-up
+        off, on = run(name, ObsConfig()), run(name, full)
+        if on["events"] != off["events"] or not on["events"]:
+            raise AssertionError(f"{name}: events differ with telemetry on")
+        for a, b in zip(on["leaves"], off["leaves"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: state differs with "
+                                     f"telemetry on")
+        if on["launches"] != off["launches"]:
+            raise AssertionError(f"{name}: K1 launches differ with "
+                                 f"telemetry on")
+        srv, st = on["srv"], on["stats"]
+        if "health" in st and st["health"] != off["stats"]["health"]:
+            raise AssertionError(f"{name}: health differs with telemetry on")
+        aud = srv.auditor.stats()
+        hist = srv.auditor.history()
+        if (aud["violations"]
+                or aud["traced_launches"] + aud["outside_regions"]
+                != on["launches"]
+                or [h["k1_calls"] for h in hist] != on["per_tick"]
+                or on["launches"] != 5 * st["imc_passes"]):
+            raise AssertionError(
+                f"{name}: the auditor's count {aud} does not equal K1's "
+                f"{on['launches']} launches ({st['imc_passes']} IMC passes)")
+        ticks = srv.recorder.events("tick")
+        calls = st["batched_calls"]
+        sums = {k: sum(e[k] for e in ticks)
+                for k in ("decisions", "gated", "replays", "computed")}
+        if (sums["decisions"] != st["decisions"]
+                or sums["gated"] != st["gated_hops"]
+                or sums["replays"] != calls["replay"]
+                or sum(1 for e in ticks if e["init"]) != calls["init"]
+                or srv.recorder.dropped()):
+            raise AssertionError(f"{name}: tick events {sums} do not match "
+                                 f"the server's counts {st}")
+        path = os.path.join(ROOT, "build", f"phase12_{name}_trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        n_spans = srv.trace.dump(path)
+        with open(path) as f:
+            doc = json.load(f)
+        if len(doc["traceEvents"]) != n_spans + 1:
+            raise AssertionError(f"{name}: trace dump holds "
+                                 f"{len(doc['traceEvents'])} events")
+        kinds = {}
+        for e in srv.recorder.events():
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        log(f"[obs] {name}: telemetry on == off ({len(on['events'])} "
+            f"events, every state leaf); auditor (raise) calls "
+            f"{aud['calls']}, fused calls in regions "
+            f"{aud['traced_launches']} + outside {aud['outside_regions']} "
+            f"= K1 launches {on['launches']} (= 5 x {st['imc_passes']}), "
+            f"0 violations; recorder {kinds}; tick events sum to the "
+            f"server's decisions {sums['decisions']}, gated hops "
+            f"{sums['gated']}; trace {n_spans} spans, valid JSON")
+        out[name] = dict(events=len(on["events"]), launches=on["launches"],
+                         audit=aud, recorder=kinds, spans=n_spans)
+    dps = {False: [], True: []}
+    for _ in range(OBS_PAIRS):
+        for obs_on in (False, True):
+            r = run("served", full if obs_on else ObsConfig())
+            dps[obs_on].append(r["stats"]["decisions"] / r["wall"])
+    spread = {k: max(v) / min(v) for k, v in dps.items()}
+    ratio = statistics.median(dps[True]) / statistics.median(dps[False])
+    log(f"[obs] wall decisions/s of phase 3's traffic in turns off / on: "
+        f"off {[round(v, 1) for v in dps[False]]}, on "
+        f"{[round(v, 1) for v in dps[True]]}; spread (max / min) off "
+        f"{spread[False]:.3f}, on {spread[True]:.3f}; median on / off "
+        f"{ratio:.3f}")
+    out.update(wall_dps_off=dps[False], wall_dps_on=dps[True],
+               spread=spread, median_ratio=ratio,
+               launches=out["served"]["launches"],
+               seconds=time.perf_counter() - t_phase)
+    log(f"[obs] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2828,6 +3249,8 @@ def main() -> int:
     front = phase_front_door(torch, dev, totals["window"])
     rel = phase_reliability(torch, dev)
     learning = phase_learning(torch, dev)
+    pipeline = phase_pipeline(torch, dev)
+    obs = phase_obs(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -2838,7 +3261,8 @@ def main() -> int:
                       "sga": sga, "imc_mav": mav,
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy, "front_door": front,
-                      "reliability": rel, "learning": learning}),
+                      "reliability": rel, "learning": learning,
+                      "pipeline": pipeline, "obs": obs}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -2869,6 +3293,22 @@ def main() -> int:
         f"{REL_INTERVAL}) {[round(v, 1) for v in hc['wall_dps_on']]}; K1 "
         f"in the canary tick {ct['k1_ms_with']} ms, without "
         f"{ct['k1_ms_without']} ms; launches {rel['launches']}")
+    t23, rep_ = pipeline["table23"], pipeline["chip_report"]
+    log(f"[summary] {smi}: pipeline: train_base {pipeline['train']['steps']} "
+        f"steps, {pipeline['train']['ms_per_step']:.1f} ms/step; Table II/III "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t23.items())
+        + "; Table IV " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    pipeline["table4"].items())
+        + f"; chip report {rep_['uj_per_decision']:.3f} uJ/decision, "
+        f"{rep_['tops_per_w']:.4f} TOPS/W; K1 {pipeline['launches']} "
+        f"launches; peak memory "
+        f"{pipeline['max_memory_bytes'] / 2 ** 30:.2f} GiB; "
+        f"{pipeline['seconds']:.1f} s")
+    log(f"[summary] {smi}: telemetry: wall decisions/s off "
+        f"{[round(v, 1) for v in obs['wall_dps_off']]}, on "
+        f"{[round(v, 1) for v in obs['wall_dps_on']]} (median on / off "
+        f"{obs['median_ratio']:.3f}); K1 {obs['launches']} launches with "
+        f"telemetry on, each counted by the auditor")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -2886,7 +3326,9 @@ def main() -> int:
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "launches_front_door": front["launches"],
-        "launches_reliability": rel["launches"]}]
+        "launches_reliability": rel["launches"],
+        "launches_pipeline": pipeline["launches"],
+        "launches_obs": obs["launches"]}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):

@@ -1,20 +1,22 @@
-"""Analytical energy model of the KWS accelerator (paper §VI-B) — the parts
-the streaming server's ``stats()`` and the customization sessions report.
+"""Analytical energy model of the KWS accelerator (paper §VI-B) — the chip
+report and the parts the streaming server's ``stats()`` and the
+customization sessions report.
 
 Own copy of the serving and customization half of ``repro/core/energy.py``
 (constants and formulas unchanged): per-event energies fitted to the
 paper's anchors (14.3 uJ/decision at 1 MHz, leakage ~61.8 uW, 160k
-cycles/decision, 765k cycles per training epoch), the streaming
+cycles/decision, 765k cycles per training epoch), the chip report's
+power, operations, TOPS/W and dynamic-energy breakdown, the streaming
 per-decision report and its side-by-side with the offline (recompute)
 one, the duty-cycled VAD-gated summary, the on-chip fine-tuning energy
-and the energy of a self-healing recompensation pass.  These are modelled chip numbers, not measurements of
-any device.
+and the energy of a self-healing recompensation pass.  These are
+modelled chip numbers, not measurements of any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 LEAKAGE_W = 61.8e-6            # static power, whole chip
 CYCLES_PER_DECISION = 160_000  # 160 ms @ 1 MHz
@@ -69,6 +71,24 @@ class ChipReport:
     @property
     def energy_j_per_decision(self) -> float:
         return self.dynamic_j_per_decision + LEAKAGE_W * self.latency_s
+
+    @property
+    def power_w(self) -> float:
+        return self.energy_j_per_decision / self.latency_s
+
+    @property
+    def total_ops(self) -> int:
+        return sum(2 * layer.macs for layer in self.layers)  # 1 MAC = 2 ops
+
+    @property
+    def tops_per_w(self) -> float:
+        return (self.total_ops / self.energy_j_per_decision) / 1e12
+
+    def breakdown(self) -> Dict[str, float]:
+        """Each layer's share of the dynamic energy per decision."""
+        total = self.dynamic_j_per_decision
+        return {layer.name: layer.dynamic_j / total
+                for layer in self.layers}
 
 
 def kws_chip_report(layer_stats: List[dict],

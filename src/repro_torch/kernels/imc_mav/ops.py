@@ -22,8 +22,10 @@ takes its weights as int8 B rows packed at fold time
 converts them as it stages them.  Each launch picks its own block tile
 (``block_tile``, ``mav_tile`` report them).
 ``COUNTS`` (K1) and ``COUNTS_MAV`` (K5) count kernel launches, and
-nothing else: they take the place of the JAX package's launch auditor,
-which patched ``pl.pallas_call``.
+nothing else.  ``CALLS`` counts the fused layer's calls on either route
+(the kernel on a CUDA tensor, the plain version on a CPU tensor): the
+launch auditor (``obs.audit``) reads it where the JAX package's patched
+``pl.pallas_call``, and on the card it moves with ``COUNTS``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,20 @@ MAV_SOURCE = pathlib.Path(__file__).parent / "csrc" / "imc_mav.cu"
 
 COUNTS = kernels.LaunchCount()          # K1: imc_fused
 COUNTS_MAV = kernels.LaunchCount()      # K5: imc_mav
+
+
+class CallCount:
+    """Calls of ``fused_conv_mav`` since the last ``reset``, on either
+    route."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def reset(self) -> None:
+        self.calls = 0
+
+
+CALLS = CallCount()                     # K1's calls, kernel or plain
 
 
 def pack_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -336,13 +352,16 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cuda":
         if packed is None:
             packed = pack_weights_s8(w, groups)
-        return imc_fused(x, packed, bias, flip, chip_offset, sa_noise, k=k,
-                         groups=groups, stride=stride, pool=pool)
-    if x.device.type != "cpu":
+        out = imc_fused(x, packed, bias, flip, chip_offset, sa_noise, k=k,
+                        groups=groups, stride=stride, pool=pool)
+    elif x.device.type == "cpu":
+        out = fused_conv_mav_ref(x, w, bias, flip, groups=groups,
+                                 stride=stride, pool=pool,
+                                 chip_offset=chip_offset, sa_noise=sa_noise)
+    else:
         raise ValueError(f"fused_conv_mav: no kernel for {x.device}")
-    return fused_conv_mav_ref(x, w, bias, flip, groups=groups,
-                              stride=stride, pool=pool,
-                              chip_offset=chip_offset, sa_noise=sa_noise)
+    CALLS.calls += 1
+    return out
 
 
 def fused_conv_mav_step(x_tail: torch.Tensor, w: torch.Tensor,

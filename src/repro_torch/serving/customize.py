@@ -301,6 +301,9 @@ class CustomizationManager:
         self._next_sid += 1
         self.sessions.append(sess)
         srv._metrics.inc("customize.sessions")
+        if srv._rec is not None:
+            srv._rec.record(srv._steps, "session", stream=stream_id,
+                            sid=sess.sid, phase="enrolling")
         return sess
 
     # -- per-tick hooks (called by StreamServer.step) -----------------------
@@ -552,6 +555,11 @@ class CustomizationManager:
             epochs=sess._epoch, n_utterances=len(sess.windows),
             history=list(sess.history), energy=e)
         sess.phase = "ready"
+        srv = self.srv
+        if srv._rec is not None:
+            srv._rec.record(srv._steps, "session", stream=sess.stream_id,
+                            sid=sess.sid, phase="ready",
+                            epochs=sess._epoch)
 
     # -- hot swap -------------------------------------------------------------
 
@@ -573,6 +581,9 @@ class CustomizationManager:
                 srv._write_slot_custom(rec.slot, riders)
         sess.phase = "swapped"
         srv._metrics.inc("customize.swaps")
+        if srv._rec is not None:
+            srv._rec.record(srv._steps, "session", stream=sess.stream_id,
+                            sid=sess.sid, phase="swapped")
 
     # -- accounting -----------------------------------------------------------
 

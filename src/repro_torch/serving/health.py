@@ -49,9 +49,15 @@ the GAP ring) and a fixed hop (a retarget would rebuild the canary's
 state mid-capture).  Canaries pause while the server has no live
 traffic, so ``drain()`` still ends.
 
+With the server's flight recorder on, every transition is a ``health``
+event (``state``, ``prev``) and each recovery phase a ``heal`` event
+(``ideal`` with its layers, ``layers`` with its progress, ``apply`` with
+the healed layers and the modelled energy).  The expected canary state's
+two B = 1 forwards run outside the scheduler's launch-auditor regions,
+so the auditor counts them as calls outside any region.
+
 Not in this port yet: ``snapshot()`` / ``restore()`` (they come with the
-server's snapshots) and the flight-recorder records of transitions and
-heals (they come with the recorder).
+server's snapshots).
 """
 
 from __future__ import annotations
@@ -268,11 +274,15 @@ class HealthMonitor:
 
     def _transition(self, srv, state: str) -> None:
         if state != self.state:
+            prev = self.state
             self.state = state
             self.history.append({"tick": srv._steps, "state": state})
             self._metrics.inc("health.transitions", to=state)
             self._metrics.set_gauge("health.state",
                                     self.STATES.index(state))
+            if srv._rec is not None:
+                srv._rec.record(srv._steps, "health", state=state,
+                                prev=prev)
 
     def _evaluate(self, srv, carries: List[np.ndarray],
                   ring: np.ndarray) -> None:
@@ -408,6 +418,9 @@ class HealthMonitor:
             job["keys"] = tr.calibration_layer_keys(
                 cfg, self.hcfg.seed + 1 + self.recoveries, device=dev)
             job["phase"] = "layers"
+            if srv._rec is not None:
+                srv._rec.record(srv._steps, "heal", phase="ideal",
+                                layers=list(job["layers"]))
             return
         if job["phase"] == "layers":
             offs = srv.engine.chip_offsets or {}
@@ -439,6 +452,10 @@ class HealthMonitor:
             job["idx"] += self.hcfg.layers_per_tick
             if job["idx"] >= len(job["layers"]):
                 job["phase"] = "apply"
+            if srv._rec is not None:
+                srv._rec.record(srv._steps, "heal", phase="layers",
+                                done=min(job["idx"], len(job["layers"])),
+                                total=len(job["layers"]))
             return
         if job["phase"] == "apply":
             heal = {name: (b - hwp.bias[name]).cpu().numpy()
@@ -450,6 +467,10 @@ class HealthMonitor:
                 bias_bits=bias_bits)
             self.recovery_energy_uj += e["total_uj"]
             self.recoveries += 1
+            if srv._rec is not None:
+                srv._rec.record(srv._steps, "heal", phase="apply",
+                                layers=sorted(heal),
+                                uj=round(e["total_uj"], 4))
             # a canary spawned before the heal would mix pre- and
             # post-heal hops: drop it, the next interval spawns a clean one
             if self._pending is not None:

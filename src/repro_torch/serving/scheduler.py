@@ -94,13 +94,25 @@ sheds, the hop multiplier and its retargets, the learning hops and
 sessions, and the modelled gated energy per decision; ``_tick_uj`` gives
 a tick's modelled energy from its hop composition.
 
-Not in this port yet: compiled ticks, snapshots, the flight recorder and
-the trace.
+**Telemetry** (``obs=ObsConfig(...)``; ``None`` reads the
+``REPRO_OBS_*`` environment, ``ObsConfig.from_env``): every counter
+lives in the server's ``MetricsRegistry``; ``recorder=N`` keeps the last
+N structured events (``reject``, ``admit``, ``evict``, ``shed``,
+``hop_retarget``, ``tick``, and the health monitor's and sessions'
+``health`` / ``heal`` / ``session`` records) and the ``serving.tick_uj``
+histogram; ``audit="flag"|"raise"`` wraps every batched call site in a
+``LaunchAuditor`` region (``init``, ``replay``, ``hop``, ``gate``) that
+counts the fused layer's calls inside it; ``trace=True`` records the
+``init``, ``replay``, ``hop``, ``gate``, ``decide``, ``riders`` and
+``tick`` spans.  Telemetry reads the tick and changes nothing it serves.
+
+Not in this port yet: compiled ticks and snapshots.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -111,7 +123,8 @@ import torch
 from repro_torch.core import energy, jaxrand
 from repro_torch.kernels import resolve_device
 from repro_torch.models import kws
-from repro_torch.obs.metrics import MetricsRegistry, counter_property
+from repro_torch.obs import (FlightRecorder, LaunchAuditor, MetricsRegistry,
+                             ObsConfig, TraceBuilder, counter_property)
 from repro_torch.serving import decision as dec
 from repro_torch.serving import stream as sv
 from repro_torch.serving import vad as vd
@@ -276,12 +289,23 @@ class StreamServer:
                  batch_init: bool = True,
                  faults=None, health=None, profiles=None,
                  silence_fill: str = "constant",
+                 obs: Optional[ObsConfig] = None,
                  seed: int = 0, device=None):
         if silence_fill not in ("constant", "retention"):
             raise ValueError(f"silence_fill={silence_fill!r}: use "
                              f"'constant' or 'retention'")
         self.device = resolve_device(device)
+        # the registry backs every counter attribute: create it before the
+        # first counter write below
         self._metrics = MetricsRegistry()
+        self.obs = obs if obs is not None else ObsConfig.from_env()
+        self._rec = (FlightRecorder(self.obs.recorder)
+                     if self.obs.recorder else None)
+        self._audit = (LaunchAuditor(cfg.num_conv_layers - 1,
+                                     mode=self.obs.audit,
+                                     batch_init=batch_init)
+                       if self.obs.audit != "off" else None)
+        self.trace = TraceBuilder() if self.obs.trace else None
         self.cfg = cfg
         self.streaming = streaming
         self.base_hop = hop
@@ -427,6 +451,23 @@ class StreamServer:
     def metrics(self) -> MetricsRegistry:
         """The server's metrics registry (it backs ``stats()``)."""
         return self._metrics
+
+    @property
+    def recorder(self) -> Optional[FlightRecorder]:
+        """The flight recorder (None unless ``obs.recorder > 0``)."""
+        return self._rec
+
+    @property
+    def auditor(self) -> Optional[LaunchAuditor]:
+        """The launch auditor (None unless ``obs.audit != 'off'``)."""
+        return self._audit
+
+    def _region(self, cause: str, passes: int = 1):
+        """Launch-auditor region around one batched call site (a no-op
+        context while the auditor is off)."""
+        if self._audit is None:
+            return contextlib.nullcontext()
+        return self._audit.region(cause, passes)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -660,6 +701,9 @@ class StreamServer:
                     and all(r is not None for r in self._slots)
                     and len(self._queue) >= self.acfg.max_queue):
                 self._rejected += 1
+                if self._rec is not None:
+                    self._rec.record(self._steps, "reject",
+                                     stream=stream_id)
                 return "rejected"
             rec = self._new_stream(stream_id, np.zeros((0,), np.float32),
                                    uid=uid)
@@ -761,6 +805,9 @@ class StreamServer:
         self._slots[s] = None
         rec.slot = None
         self._write_slot_custom(s, None)
+        if self._rec is not None:
+            self._rec.record(self._steps, "evict", stream=rec.stream_id,
+                             slot=s, internal=rec.internal)
         self._try_admit()
 
     def _try_admit(self) -> None:
@@ -801,6 +848,9 @@ class StreamServer:
             rec.shed_samples += dropped
             self._shed_events += 1
             self._shed_samples += dropped
+            if self._rec is not None:
+                self._rec.record(self._steps, "shed",
+                                 stream=rec.stream_id, samples=dropped)
 
     def _autoscale(self) -> None:
         if self.acfg is None or self.max_slots <= self.min_slots:
@@ -924,6 +974,9 @@ class StreamServer:
         self._state = new_state
         self._mult = mult
         self._hop_retargets += 1
+        if self._rec is not None:
+            self._rec.record(self._steps, "hop_retarget", mult=mult,
+                             hop=self.base_hop * mult)
 
     def _retarget_hop(self, events: List[dict], woke: bool,
                       silent: bool = False) -> None:
@@ -989,6 +1042,10 @@ class StreamServer:
             if self._vstate is not None:
                 self._vstate = vd.vad_reset_slot(self._vstate, s)
             init_mask[s] = True
+            if self._rec is not None:
+                self._rec.record(self._steps, "admit",
+                                 stream=rec.stream_id, slot=s,
+                                 internal=rec.internal)
 
         if self.batch_init:
             windows = np.zeros((self.slots, window), np.float32)
@@ -1000,9 +1057,10 @@ class StreamServer:
                 rec.buf = rec.buf[window:]   # the state carries the overlap
                 init_mask[s] = True
             t0 = time.perf_counter()
-            logits, new_state = self.engine.init(
-                self._tensor(windows), keys.to(self.device),
-                *self._riders())
+            with self._region("init"):
+                logits, new_state = self.engine.init(
+                    self._tensor(windows), keys.to(self.device),
+                    *self._riders())
             self._state = _select_state(self._tensor(init_mask), new_state,
                                         self._state)
             logits = logits.cpu().numpy()
@@ -1010,6 +1068,9 @@ class StreamServer:
             self._hop_wall_s += dt
             self._init_calls += 1
             self._imc_passes += 1
+            if self.trace is not None:
+                self.trace.span("init", t0, t0 + dt, tick=self._steps,
+                                slots=len(todo))
             for s, rec in todo:
                 _book(rec, s, windows[s], dt / len(todo))
                 init_logits[s] = logits[s]
@@ -1019,10 +1080,11 @@ class StreamServer:
             first = rec.buf[:window]
             rec.buf = rec.buf[window:]
             t0 = time.perf_counter()
-            logits, one = self.engine.init(
-                self._tensor(first[None]),
-                self.stream_key(rec.uid)[None].to(self.device),
-                *self._row_custom(rec))
+            with self._region("init"):
+                logits, one = self.engine.init(
+                    self._tensor(first[None]),
+                    self.stream_key(rec.uid)[None].to(self.device),
+                    *self._row_custom(rec))
             self._state = _scatter_slot(self._state, one, s)
             init_logits[s] = logits[0].cpu().numpy()
             dt = time.perf_counter() - t0
@@ -1046,8 +1108,13 @@ class StreamServer:
         replays, ONE batched hop over every speech-ready slot, ONE masked
         no-op fill over every gated slot, the batched decision update, the
         session and canary captures, retirements, the hop retarget and the
-        sessions' and health monitor's background work.  Returns this
-        tick's decision events (gated hops emit none)."""
+        sessions' and health monitor's background work, then the tick's
+        telemetry.  Returns this tick's decision events (gated hops emit
+        none)."""
+        tick = self._steps
+        t_tick = time.perf_counter()
+        if self._audit is not None:
+            self._audit.begin_tick(tick)
         self._check_profiles()
         if self._faults is not None:
             self._faults.tick()                 # advance the offset drift
@@ -1124,8 +1191,10 @@ class StreamServer:
             a = np.zeros((self.slots, n * hop), np.float32)
             a[s] = np.concatenate(chunks)
             t0 = time.perf_counter()
-            lg, new_state = eng.multi_step(self._state, self._tensor(a), n,
-                                           *self._riders())
+            with self._region("replay", 1 if self.streaming else n):
+                lg, new_state = eng.multi_step(self._state,
+                                               self._tensor(a), n,
+                                               *self._riders())
             self._state = _select_state(mask_t, new_state, self._state)
             self._replay_calls += 1
             self._imc_passes += 1 if self.streaming else n
@@ -1138,6 +1207,9 @@ class StreamServer:
             dt = time.perf_counter() - t0
             rec.wall_s += dt
             self._hop_wall_s += dt
+            if self.trace is not None:
+                self.trace.span("replay", t0, t0 + dt, tick=tick,
+                                stream=rec.stream_id, hops=n)
             for ch, out in zip(chunks, outs):
                 self._decisions += 1
                 self._speech_hops += 1
@@ -1149,8 +1221,9 @@ class StreamServer:
         logits = init_logits
         if compute_mask.any():
             t0 = time.perf_counter()
-            hop_logits, new_state = eng.step(
-                self._state, self._tensor(audio), *self._riders())
+            with self._region("hop"):
+                hop_logits, new_state = eng.step(
+                    self._state, self._tensor(audio), *self._riders())
             self._state = _select_state(self._tensor(compute_mask),
                                         new_state, self._state)
             hop_logits = hop_logits.cpu().numpy()
@@ -1159,6 +1232,9 @@ class StreamServer:
             self._hop_calls += 1
             self._imc_passes += 1
             n_active = int(compute_mask.sum())
+            if self.trace is not None:
+                self.trace.span("hop", t0, t0 + dt, tick=tick,
+                                slots=n_active)
             for s, rec in enumerate(self._slots):
                 if compute_mask[s]:
                     if rec.internal:
@@ -1174,33 +1250,44 @@ class StreamServer:
 
         if fill_mask.any():
             t0 = time.perf_counter()
-            if self.streaming:
-                fills = (self._slot_fills if self._slot_fills is not None
-                         else self._fills)
-                new_state = sv.gated_step(self._state, self.cfg, self.geom,
-                                          fills)
-            else:
-                new_state = sv.gated_window_step(self._state, self.geom)
-            self._state = _select_state(self._tensor(fill_mask), new_state,
-                                        self._state)
-            self._sync()
-            self._hop_wall_s += time.perf_counter() - t0
+            with self._region("gate"):
+                if self.streaming:
+                    fills = (self._slot_fills
+                             if self._slot_fills is not None
+                             else self._fills)
+                    new_state = sv.gated_step(self._state, self.cfg,
+                                              self.geom, fills)
+                else:
+                    new_state = sv.gated_window_step(self._state, self.geom)
+                self._state = _select_state(self._tensor(fill_mask),
+                                            new_state, self._state)
+                self._sync()
+            dt = time.perf_counter() - t0
+            self._hop_wall_s += dt
             self._gate_calls += 1
+            if self.trace is not None:
+                self.trace.span("gate", t0, t0 + dt, tick=tick,
+                                slots=int(fill_mask.sum()))
 
         internal = np.asarray([rec is not None and rec.internal
                                for rec in self._slots])
         decide_mask = (init_mask | compute_mask) & ~internal
         if decide_mask.any():
+            t0 = time.perf_counter()
             self._dstate, out = dec.decision_step(
                 self.dcfg, self._dstate, self._tensor(logits),
                 self._tensor(decide_mask))
             self._decisions += int(decide_mask.sum())
             out = dec.DecisionOut(*(t.cpu() for t in out))
+            if self.trace is not None:
+                self.trace.span("decide", t0, time.perf_counter(),
+                                tick=tick, slots=int(decide_mask.sum()))
             for s, rec in enumerate(self._slots):
                 if rec is not None and decide_mask[s]:
                     events.append(self._event(rec, s, out))
 
         # feature captures must see the post-hop states before slots retire
+        t_riders = time.perf_counter() if self.trace is not None else 0.0
         if self._cust is not None:
             self._cust.on_step(self)
         if self._health is not None:
@@ -1225,6 +1312,28 @@ class StreamServer:
         # health background work: recompensation, then canary spawns
         if self._health is not None:
             self._health.tick(self)
+
+        # -- per-tick telemetry: composition, modelled uJ, spans -----------
+        computed = (int(init_mask.sum()) + int(compute_mask.sum())
+                    + sum(len(chunks) for _, chunks in replays))
+        gated = int(fill_mask.sum())
+        if self._rec is not None or self.trace is not None:
+            uj = self._tick_uj(computed, gated)
+            if self._rec is not None and (computed or gated or events):
+                self._rec.record(tick, "tick",
+                                 init=int(init_mask.sum()),
+                                 computed=computed, gated=gated,
+                                 replays=len(replays),
+                                 decisions=len(events), uj=round(uj, 4))
+                self._metrics.observe("serving.tick_uj", uj)
+            if self.trace is not None:
+                now = time.perf_counter()
+                self.trace.span("riders", t_riders, now, tick=tick)
+                self.trace.span("tick", t_tick, now, tick=tick,
+                                computed=computed, gated=gated,
+                                decisions=len(events), uj=round(uj, 4))
+        if self._audit is not None:
+            self._audit.end_tick()
         return events
 
     def drain(self, max_steps: int = 10_000) -> List[dict]:
@@ -1302,6 +1411,13 @@ class StreamServer:
                 for rec in self._streams.values() if not rec.internal
             },
         }
+        out["obs"] = {"metrics": len(self._metrics._cells)}
+        if self._rec is not None:
+            out["obs"]["recorder"] = {"events": len(self._rec),
+                                      "capacity": self._rec.capacity,
+                                      "dropped": self._rec.dropped()}
+        if self._audit is not None:
+            out["obs"]["audit"] = self._audit.stats()
         if self._profiles is not None:
             out["profile_swaps"] = self._profile_swaps
         if self._cust is not None:

@@ -10,8 +10,10 @@ Port of ``repro/training/kws.py``:
   paper's noise-aware recovery fine-tune.  Batches come from numpy's
   ``default_rng(seed)`` and the noise keys from a ``jaxrand`` chain, as
   the reference draws them.  ``evaluate`` is the float path's accuracy;
-* the batched hardware forward that fills the customization feature
-  buffer (``hw_features``) and the chip's test-mode bias compensation,
+* the batched hardware forward (``_hw_batched``) behind the hardware
+  path's accuracy (``evaluate_hw``, the rows of the paper's Tables II and
+  III) and the customization feature buffer (``hw_features``), and the
+  chip's test-mode bias compensation,
   both as one driver (``calibrate_and_compensate``) and as the
   tick-resumable pieces the serving sessions run
   (``calibration_ideal_counts`` + ``compensate_layer_bias``).
@@ -19,7 +21,7 @@ Port of ``repro/training/kws.py``:
 The test mode measures ideal counts + the chip's static offset + fresh SA
 read noise, drawn per layer from the calibration split chain
 (``calibration_layer_keys``) with ``core.jaxrand``, so the compensated
-biases are the reference's.  The feature forward draws fresh noise per
+biases are the reference's.  The hardware forward draws fresh noise per
 chunk (``sa_noise_std``/``seed``) or evaluates a stream's noise field
 (``sa_noise_field``: the offline oracle of a session's captures).
 """
@@ -202,18 +204,19 @@ def _check_device(hw, device) -> torch.device:
     return dev
 
 
-def hw_features(hw, x, cfg: kws.KWSConfig = kws.PAPER_KWS,
-                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
-                sa_noise_std: float = 0.0, seed: int = 0, batch: int = 200,
-                use_kernel: bool = False,
-                sa_noise_field: Optional[SANoiseField] = None,
-                device=None) -> torch.Tensor:
-    """GAP features (N, D) of audio windows x (N, sample_len) through the
-    hardware path, in chunks of ``batch``: the customization feature
-    buffer (§V-C).  SA noise is a fresh draw per chunk
-    (``sa_noise_std``, keys split from ``PRNGKey(seed)``) or, with
-    ``sa_noise_field``, each example's recorded (stream key, window)
-    field, which reproduces a session's captured features bit for bit.
+def _hw_batched(hw, x, cfg: kws.KWSConfig, out_index: int, *,
+                chip_offsets, sa_noise_std: float, seed: int, batch: int,
+                use_kernel: bool, sa_noise_field: Optional[SANoiseField],
+                device) -> torch.Tensor:
+    """The chunked hardware forward shared by ``evaluate_hw`` (logits,
+    ``out_index`` 0) and ``hw_features`` (features, 1): ``hw_forward``
+    over x (N, sample_len) in chunks of ``batch``, concatenated.
+
+    SA noise is a fresh draw per chunk (``sa_noise_std``, a key split
+    from ``PRNGKey(seed)`` for each chunk; a ragged last chunk draws at
+    its own shape) or, with ``sa_noise_field``, each example's recorded
+    (stream key, window) field, whose rows ride their batch slice: the
+    offline oracle of a stream's or a session's noise, bit for bit.
     ``hw`` lives on ``device`` (``None`` means CUDA)."""
     dev = _check_device(hw, device)
     x = kws.as_tensor(x, dev)
@@ -230,7 +233,7 @@ def hw_features(hw, x, cfg: kws.KWSConfig = kws.PAPER_KWS,
             hw, x[i:i + batch], cfg, chip_offsets=chip_offsets,
             sa_noise_field=f._replace(keys=f.keys[i:i + batch],
                                       hops=f.hops[i:i + batch]),
-            use_kernel=use_kernel, device=dev)[1]
+            use_kernel=use_kernel, device=dev)[out_index]
             for i in range(0, x.shape[0], batch)], dim=0)
     outs, key = [], jaxrand.PRNGKey(seed, device=dev)
     for i in range(0, x.shape[0], batch):
@@ -238,8 +241,47 @@ def hw_features(hw, x, cfg: kws.KWSConfig = kws.PAPER_KWS,
         outs.append(kws.hw_forward(hw, x[i:i + batch], cfg,
                                    chip_offsets=chip_offsets,
                                    sa_noise_std=sa_noise_std, rng=sub,
-                                   use_kernel=use_kernel, device=dev)[1])
+                                   use_kernel=use_kernel,
+                                   device=dev)[out_index])
     return torch.cat(outs, dim=0)
+
+
+def evaluate_hw(hw, x, y, cfg: kws.KWSConfig = kws.PAPER_KWS,
+                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                sa_noise_std: float = 0.0, seed: int = 0, batch: int = 200,
+                use_kernel: bool = False,
+                sa_noise_field: Optional[SANoiseField] = None,
+                device=None) -> float:
+    """Accuracy of the hardware path (``hw`` is ``HWParams`` or
+    ``PackedHWParams`` on ``device``, ``None`` meaning CUDA) on windows x
+    (N, sample_len) with labels y (N,), in chunks of ``batch``, with the
+    noise modes of ``hw_features``.  The accuracy is taken on the host in
+    numpy, as the reference takes it: the mean of the float64 hits."""
+    logits = _hw_batched(hw, x, cfg, 0, chip_offsets=chip_offsets,
+                         sa_noise_std=sa_noise_std, seed=seed, batch=batch,
+                         use_kernel=use_kernel,
+                         sa_noise_field=sa_noise_field, device=device)
+    return float(np.mean(np.argmax(logits.cpu().numpy(), -1)
+                         == np.asarray(y)))
+
+
+def hw_features(hw, x, cfg: kws.KWSConfig = kws.PAPER_KWS,
+                chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
+                sa_noise_std: float = 0.0, seed: int = 0, batch: int = 200,
+                use_kernel: bool = False,
+                sa_noise_field: Optional[SANoiseField] = None,
+                device=None) -> torch.Tensor:
+    """GAP features (N, D) of audio windows x (N, sample_len) through the
+    hardware path, in chunks of ``batch``: the customization feature
+    buffer (§V-C).  SA noise is a fresh draw per chunk
+    (``sa_noise_std``, keys split from ``PRNGKey(seed)``) or, with
+    ``sa_noise_field``, each example's recorded (stream key, window)
+    field, which reproduces a session's captured features bit for bit.
+    ``hw`` lives on ``device`` (``None`` means CUDA)."""
+    return _hw_batched(hw, x, cfg, 1, chip_offsets=chip_offsets,
+                       sa_noise_std=sa_noise_std, seed=seed, batch=batch,
+                       use_kernel=use_kernel, sa_noise_field=sa_noise_field,
+                       device=device)
 
 
 def calibration_ideal_counts(hw, xcal, cfg: kws.KWSConfig = kws.PAPER_KWS,

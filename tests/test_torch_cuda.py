@@ -25,7 +25,12 @@ at their smallest ties (the T = 448 GAP at every GAP site, the N = 7 head
 on both K2 routes) equal to the reference's values; and the float
 learning path: ``forward_eval`` on the card equal to the CPU, its
 unconstrained fold through K1, and a ``train_base`` step of the recovery
-fine-tune on the card against the CPU.
+fine-tune on the card against the CPU; the hardware half of the learning
+path: ``evaluate_hw`` / ``hw_features`` through K1 (clean, fresh SA
+draws with a ragged chunk, a noise field) equal to the plain route and
+the CPU, 5 launches a chunk; and the serving telemetry: the launch
+auditor's count of fused calls equal to K1's launches, and telemetry on
+equal to off, on a gated, faulted, canary-monitored server.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -1447,3 +1452,111 @@ def test_train_step_on_the_card_equals_the_cpu(dev, alpha):
             total += d.numel()
             assert float(d.max()) <= 0.02
     assert off <= 0.05 * total
+
+
+# ---------------------------------------------------------------------------
+# the hardware half of the learning path, and the serving telemetry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["clean", "fresh", "field"])
+def test_evaluate_hw_through_k1_equals_plain_and_cpu(dev, mode):
+    """``_hw_batched`` logits and features through K1 equal the plain
+    route on the card and the CPU, chunk by chunk (7 windows in chunks of
+    3: a ragged last chunk draws its noise at its own shape), with 5 K1
+    launches a chunk; ``evaluate_hw`` gives the same accuracy on all
+    three."""
+    from repro_torch.training import kws as tr
+    cfg = kws.KWSConfig(sample_len=L)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (7, L)).astype(np.float32)
+    y = rng.integers(0, 10, 7)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(11, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=8.0))
+    kw = {}
+    if mode != "clean":
+        kw["chip_offsets"] = chip
+    if mode == "fresh":
+        kw.update(sa_noise_std=1.0, seed=3)
+    params = kws.init_params(jaxrand.PRNGKey(5, device="cpu"), cfg,
+                             device="cpu")
+    hw_cpu = kws.fold_params(params, kws.init_state(cfg, device="cpu"), cfg,
+                             pack=True)
+    hw_dev = kws.fold_params(kws.init_params(
+        jaxrand.PRNGKey(5, device="cpu"), cfg, device=dev),
+        kws.init_state(cfg, device=dev), cfg, pack=True)
+    outs, accs = {}, {}
+    for where, hw, use_kernel in (("kernel", hw_dev, True),
+                                  ("plain", hw_dev, False),
+                                  ("cpu", hw_cpu, True)):
+        d = "cpu" if where == "cpu" else dev
+        if mode == "field":
+            kw["sa_noise_field"] = sa_noise.SANoiseField(
+                jaxrand.split(jaxrand.PRNGKey(13, d), 7),
+                torch.tensor([0, 2, 9, 1, 5, 3, 7], device=d), 1.0, HOP)
+        ops.COUNTS.reset()
+        outs[where] = [tr._hw_batched(
+            hw, x, cfg, i, batch=3, use_kernel=use_kernel, device=d,
+            **{"chip_offsets": None, "sa_noise_std": 0.0, "seed": 0,
+               "sa_noise_field": None, **kw}).cpu() for i in (0, 1)]
+        assert ops.COUNTS.launches == (2 * 5 * 3 if where == "kernel"
+                                       else 0)
+        accs[where] = tr.evaluate_hw(hw, x, y, cfg, batch=3,
+                                     use_kernel=use_kernel, device=d, **kw)
+    for i in (0, 1):
+        assert torch.equal(outs["kernel"][i], outs["plain"][i])
+        assert torch.equal(outs["kernel"][i], outs["cpu"][i])
+    assert accs["kernel"] == accs["plain"] == accs["cpu"]
+
+
+def test_launch_auditor_counts_k1_launches(dev):
+    """Telemetry fully on (recorder, auditor in raise mode, trace) on a
+    gated, faulted server with canaries every 4 ticks: events and every
+    state leaf equal telemetry off; no violation; the auditor's fused
+    calls (in regions and outside them) equal K1's launches, tick by
+    tick and in all, and 5 x ``imc_passes``."""
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import FaultConfig, HealthConfig
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = kws.fold_params(kws.init_params(jaxrand.PRNGKey(5, device="cpu"),
+                                         cfg, device=dev),
+                         kws.init_state(cfg, device=dev), cfg, pack=True)
+    rng = np.random.default_rng(7)
+    wavs = []
+    for _ in range(2):
+        w = rng.uniform(-1, 1, L + 20 * HOP).astype(np.float32)
+        w[L + 4 * HOP:L + 9 * HOP] *= 1e-4
+        wavs.append(w)
+    runs = []
+    for obs in (ObsConfig(recorder=256, audit="raise", trace=True),
+                ObsConfig()):
+        srv = StreamServer(hw, cfg, hop=HOP, slots=3, seed=3, device=dev,
+                           vad=VADConfig(threshold_on_db=-40.0,
+                                         threshold_off_db=-50.0,
+                                         wake_margin=1, hang=0),
+                           faults=FaultConfig(seed=3),
+                           health=HealthConfig(interval=4), obs=obs)
+        srv.faults.inject_bit_flips(n=2)
+        for i, w in enumerate(wavs):
+            srv.submit(f"s{i}", w)
+            srv.finish(f"s{i}")
+        ops.COUNTS.reset()
+        events, per_tick = [], []
+        for _ in range(26):
+            n0 = ops.COUNTS.launches
+            events.extend(srv.step())
+            per_tick.append(ops.COUNTS.launches - n0)
+        runs.append((srv, events, per_tick, ops.COUNTS.launches))
+    (on, ev_on, ticks_on, n_on), (off, ev_off, _, n_off) = runs
+    assert ev_on == ev_off and n_on == n_off
+    for a, b in zip([on._state.audio_carry, *on._state.carries,
+                     on._state.ring], [off._state.audio_carry,
+                                       *off._state.carries, off._state.ring]):
+        assert torch.equal(a, b)
+    s = on.auditor.stats()
+    assert s["violations"] == 0 and s["calls"]["gate"] > 0
+    assert s["traced_launches"] + s["outside_regions"] == n_on
+    assert [h["k1_calls"] for h in on.auditor.history()] == ticks_on
+    assert s["outside_regions"] >= 10           # the canary expectation
+    assert n_on == 5 * on.stats()["imc_passes"]
+    assert on.health.stats() == off.health.stats()

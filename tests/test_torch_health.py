@@ -9,7 +9,12 @@ whose batch carries live hops and a canary hop.
 Both servers take the same calls; events must be equal (``degraded``
 included; ``score`` within 1e-6 absolute, as in the other server tests),
 and so must the state leaves, the health stats and history, the masked
-channels, the heal deltas and the fault stats, bitwise.  Small config:
+channels, the heal deltas and the fault stats, bitwise.  In the stuck and
+drift scenarios both run their flight recorder and launch auditor (raise
+mode): the recorder events (``health`` transitions, ``heal`` phases,
+admissions, evictions, ticks) and the per-tick batched calls are equal,
+and the port counts the canary expectation's fused calls outside every
+auditor region.  Small config:
 ``sample_len=640``, ``hop=64``; the net is the port's, carried to JAX as
 numpy leaves (``test_torch_noise.jax_hw``).
 """
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jobs
 from repro.core import faults as jflt
 from repro.core import imc as jimc
 from repro.models import kws as jkws
@@ -27,6 +33,7 @@ from repro.serving import StreamServer as JStreamServer
 from repro_torch.core import imc, jaxrand
 from repro_torch.kernels.imc_mav import ops
 from repro_torch.models import kws
+from repro_torch.obs import ObsConfig
 from repro_torch.serving import (CustomizationResult, FaultConfig,
                                  HealthConfig, StreamServer)
 from test_torch_noise import CHANS, jax_hw
@@ -50,20 +57,22 @@ def nets():
     return jax_hw(hw_t), hw_t, chip_j, chip_t
 
 
-def _pair(nets, chip=False, faults=None, health=None, **kw):
-    """A JAX server and the port's, built alike (``faults`` and
-    ``health`` as dicts of their configs' fields)."""
+def _pair(nets, chip=False, faults=None, health=None, obs=None, **kw):
+    """A JAX server and the port's, built alike (``faults``, ``health``
+    and ``obs`` as dicts of their configs' fields)."""
     hw_j, hw_t, chip_j, chip_t = nets
     ref = JStreamServer(
         hw_j, JCFG, hop=HOP, use_kernel=False, compiled=None,
         chip_offsets=chip_j if chip else None,
         faults=None if faults is None else jflt.FaultConfig(**faults),
-        health=None if health is None else JHealthConfig(**health), **kw)
+        health=None if health is None else JHealthConfig(**health),
+        obs=jobs.ObsConfig(**(obs or {})), **kw)
     port = StreamServer(
         hw_t, CFG, hop=HOP, device="cpu",
         chip_offsets=chip_t if chip else None,
         faults=None if faults is None else FaultConfig(**faults),
-        health=None if health is None else HealthConfig(**health), **kw)
+        health=None if health is None else HealthConfig(**health),
+        obs=ObsConfig(**(obs or {})), **kw)
     return ref, port
 
 
@@ -186,7 +195,17 @@ def _scenario(servers, inject, before, after):
     assert any(e["degraded"] for evs in ev_port for e in evs)
     _same_state(servers[1], servers[0])
     _same_health(servers[1], servers[0])
-    return servers[1].health.stats(), tr_port
+    ref, port = servers
+    assert port.recorder.events() == ref.recorder.events()
+    phases = [e["phase"] for e in port.recorder.events("heal")]
+    assert phases[0] == "ideal" and "layers" in phases and "apply" in phases
+    assert port.auditor.violations == ref.auditor.violations == []
+    assert ([(h["tick"], h["calls"]) for h in port.auditor.history()]
+            == [(h["tick"], h["calls"]) for h in ref.auditor.history()])
+    # two B = 1 forwards per expectation, outside every region
+    assert port.auditor.stats()["outside_regions"] % 10 == 0
+    assert port.auditor.stats()["outside_regions"] >= 10
+    return port.health.stats(), tr_port
 
 
 def test_stuck_columns_detected_localized_and_masked(nets):
@@ -194,7 +213,8 @@ def test_stuck_columns_detected_localized_and_masked(nets):
     quarantined, healed as far as the clip allows, masked at their own
     layer, and back to healthy; the port walks JAX's path tick by tick."""
     servers = _pair(nets, slots=3, faults=dict(seed=3),
-                    health=dict(interval=4, layers_per_tick=2))
+                    health=dict(interval=4, layers_per_tick=2),
+                    obs=dict(recorder=512, audit="raise"))
     h, trace = _scenario(
         servers, lambda s: s.faults.inject_stuck("conv3", [2, 7]), 12, 22)
     assert trace[-1] == "healthy" and h["masked_channels"] == {
@@ -213,7 +233,8 @@ def test_drift_heals_back_to_healthy(nets):
         s.faults._dirty = True
 
     servers = _pair(nets, chip=True, slots=3, faults=dict(seed=3),
-                    health=dict(interval=4))
+                    health=dict(interval=4),
+                    obs=dict(recorder=512, audit="raise"))
     h, trace = _scenario(servers, drift, 12, 18)
     assert trace[-1] == "healthy" and h["recoveries"] == 1
     assert h["masked_channels"] == {}

@@ -3,6 +3,11 @@ one (``compiled=None``, fused kernel on), on the CPU: SA noise 1.0, chip
 offsets from ``sample_chip_offsets(PRNGKey(0))``, VAD on, with constant
 and with retention silence fills.
 
+Both servers run with the flight recorder and the launch auditor (raise
+mode) on: their recorder events (admissions, evictions, ticks with
+their composition and modelled uJ) must be equal, every field, and so
+must the auditor's per-tick batched calls, with no violation.
+
 Tolerances: events equal on stream, hop, keyword and trigger, ``score``
 within 1e-6 absolute (softmax and the smoothing sum round differently in
 the last ulps between the libraries, as in ``test_torch_server.py``);
@@ -16,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jobs
 from repro.core import imc as jimc
 from repro.models import kws as jkws
 from repro.serving import DecisionConfig as JDecisionConfig
@@ -23,6 +29,7 @@ from repro.serving import StreamServer as JStreamServer
 from repro.serving import VADConfig as JVADConfig
 from repro_torch.core import imc, jaxrand
 from repro_torch.models import kws
+from repro_torch.obs import ObsConfig
 from repro_torch.serving.decision import DecisionConfig
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
@@ -63,18 +70,21 @@ def _duty(n, seed, duty=0.45, period=3 * HOP):
 
 @pytest.mark.parametrize("fill", ["constant", "retention"])
 def test_noisy_server_matches_jax(nets, fill):
-    """SA noise 1.0, chip offsets, VAD on: events (``score`` within 1e-6)
-    and serving counters equal JAX's interpreted server."""
+    """SA noise 1.0, chip offsets, VAD on: events (``score`` within 1e-6),
+    serving counters, recorder events and the auditor's per-tick calls
+    equal JAX's interpreted server."""
     hw_j, hw_t, chip_j, chip_t = nets
     auds = [_duty(L + (14 + 3 * i) * HOP, 300 + i) for i in range(3)]
     ref = JStreamServer(hw_j, JCFG, hop=HOP, slots=2, use_kernel=True,
                         chip_offsets=chip_j, sa_noise_std=STD, seed=7,
                         vad=JVADConfig(), silence_fill=fill,
-                        decision=JDecisionConfig(**DECISION), compiled=None)
+                        decision=JDecisionConfig(**DECISION), compiled=None,
+                        obs=jobs.ObsConfig(recorder=256, audit="raise"))
     port = StreamServer(hw_t, CFG, hop=HOP, slots=2, use_kernel=True,
                         chip_offsets=chip_t, sa_noise_std=STD, seed=7,
                         vad=VADConfig(), silence_fill=fill,
-                        decision=DecisionConfig(**DECISION), device="cpu")
+                        decision=DecisionConfig(**DECISION), device="cpu",
+                        obs=ObsConfig(recorder=256, audit="raise"))
     evs = []
     for srv in (ref, port):
         for i, x in enumerate(auds):
@@ -93,6 +103,11 @@ def test_noisy_server_matches_jax(nets, fill):
               "batched_calls"):
         assert st_port[k] == st_ref[k], k
     assert st_port["gated_hops"] > 0 and st_port["batched_calls"]["replay"]
+    assert port.recorder.events() == ref.recorder.events()
+    assert port.recorder.events("evict") and port.recorder.events("tick")
+    assert port.auditor.violations == ref.auditor.violations == []
+    assert ([(h["tick"], h["calls"]) for h in port.auditor.history()]
+            == [(h["tick"], h["calls"]) for h in ref.auditor.history()])
     if fill == "retention":
         for a, b in zip(port._fills, ref._fills):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
