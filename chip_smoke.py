@@ -149,7 +149,28 @@ result line):
    leaf; the auditor's count of fused calls equal to K1's launches tick
    by tick; the recorder's tick events equal to the server's counts; the
    trace dump valid JSON (under ``build/``); wall decisions/s off and on
-   in alternating pairs, with their spread.
+   in alternating pairs, with their spread;
+13. crash-safe snapshots (``phase_snapshot``): phase 9's faulted,
+   canary-monitored run on the noisy chip snapshotted to a file under
+   ``build/`` at tick 10 and played 12 more ticks, against a fresh card
+   server restored from the file (events, every state leaf, health and
+   fault stats equal; K1's launches equal but for 10 per canary
+   expectation the restored monitor recomputes); the same file restored
+   into a CPU server for 3 ticks (the card's events, ``score`` within
+   1e-6, and its carries bit for bit); four concurrent enrollment
+   sessions snapshotted mid-calibration and mid-training, each restore
+   reaching every ``CustomizationResult`` bit for bit; the bytes on disk
+   and the walls of ``snapshot(path)`` and ``restore(path)`` at 8 live
+   slots;
+14. the sharded fleet (``phase_sharded``): phase 3's traffic through
+   ``ShardedStreamServer(devices=2, slots=4)``, two pools on the card,
+   noise-free and on the noisy chip: each stream's events equal one
+   8-slot server's, placement balanced, K1 launched once per IMC layer
+   and pool per batched call; ``parallel=True`` under the raising launch
+   auditor equal to the sequential fleet; a fleet snapshot under
+   ``build/`` restored into a fresh fleet equal to the uninterrupted
+   one; wall decisions/s of the sequential fleet, the parallel fleet and
+   one server in alternating runs, with their spread.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -163,12 +184,15 @@ least time the card could take for the same bytes and operations.
 ``launches_front_door`` K1's counts on the front door's paths and
 ``launches_reliability`` those of phase 9's kernel runs,
 ``launches_pipeline`` phase 11's (its ``evaluate_hw`` and ``hw_features``
-calls) and ``launches_obs`` phase 12's served run with telemetry on; phase 2's
+calls), ``launches_obs`` phase 12's served run with telemetry on,
+``launches_snapshot`` phase 13's restored server's 12 ticks and
+``launches_sharded`` phase 14's noise-free fleet run; phase 2's
 totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
 JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
 (three session rows of 10 utterances, budgets 10, 7, 10) with its
-launches in phase 4's run; the ``sga_update_rows`` row counts the RGP
+launches in phase 4's run (``launches_sessions4``: phase 13's four
+sessions); the ``sga_update_rows`` row counts the RGP
 run's launches.  The ``imc_mav`` row is one per-group forward's 41
 launches at a full window (its launches counted in phase 6; its
 ``library_ms`` is the float32 ``torch.matmul`` of the 41 products alone),
@@ -3192,6 +3216,475 @@ def phase_obs(torch, dev):
     return out
 
 
+SNAP_CUT, SNAP_AFTER, SNAP_CPU = 10, 12, 3   # (a), (b): the cut, the ticks
+SNAP_REPS = 5                     # (d): walls per median
+SNAP_SESSIONS = 4                 # (c): concurrent enrollment sessions
+
+
+def _leaves_of(srv):
+    """A server's state, decision and VAD leaves, as host copies."""
+    out = []
+    for tree in (srv._state, srv._dstate, srv._vstate):
+        for a in tree:
+            out.extend(a if isinstance(a, tuple) else (a,))
+    return [t.detach().cpu().clone() for t in out]
+
+
+def _same_leaves(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _same_events_scored(a, b, atol=1e-6):
+    """Events equal field for field, ``score`` within ``atol`` (the stated
+    tolerance between the card's softmax sums and the CPU's)."""
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    return strip(a) == strip(b) and all(
+        abs(x["score"] - y["score"]) <= atol for x, y in zip(a, b))
+
+
+def phase_snapshot(torch, dev):
+    """Phase 13: crash-safe snapshots on the card, at full width
+    (``PAPER_KWS``, hop 1024, VAD on).
+
+    (a) phase 9's faulted, canary-monitored run on a noisy chip (offsets
+        of std 4, SA noise 1.0, a drift walk and trim-bit flips, health
+        every 8 ticks, 8 slots, 7 live streams of phase 3's traffic):
+        ``snapshot(path)`` under ``build/`` at tick ``SNAP_CUT``, then
+        ``SNAP_AFTER`` more ticks; a fresh card server restored from the
+        file plays the same ticks: events, every state leaf,
+        ``health.stats()`` and ``faults.stats()`` equal, and K1's
+        launches equal but for 10 per canary expectation the restored
+        monitor recomputes (it is not in the snapshot);
+    (b) the same file restored into a ``device="cpu"`` server plays
+        ``SNAP_CPU`` ticks: the card's events (``score`` within 1e-6) and
+        carries, rings, decision and VAD state, bit for bit;
+    (c) ``SNAP_SESSIONS`` concurrent enrollment sessions (phase 4's
+        shapes: 10 utterances each, compensation on, 200 epochs on the
+        fused route) beside two live streams, snapshotted in memory
+        mid-calibration and mid-training: each restore into a fresh card
+        server reaches every session's ``CustomizationResult`` bit for
+        bit, with ``head_train_rows`` launched once per remaining
+        training tick;
+    (d) at 8 live slots, the snapshot's bytes on disk and the median of
+        ``SNAP_REPS`` walls of ``snapshot(path)`` and of ``restore(path)``
+        (numbers to read, not gates)."""
+    import numpy as np
+    from repro_torch.core import jaxrand
+    from repro_torch.core.onchip_training import OnChipTrainConfig
+    from repro_torch.data import audio
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    from repro_torch.serving import (CustomizeConfig, FaultConfig,
+                                     HealthConfig, StreamServer, VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    hw_cpu = _to(hw, "cpu")
+    chip = _noisy_chip(torch, cfg)
+    streams = _traffic(cfg)[:SLOTS - 1]       # the eighth slot: canaries
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    out = {}
+
+    # -- (a), (b) ------------------------------------------------------------
+    def monitored(hw_d, device):
+        srv = StreamServer(hw_d, cfg, hop=HOP, slots=SLOTS, device=device,
+                           chip_offsets=chip, sa_noise_std=SA_STD,
+                           vad=VADConfig(),
+                           faults=FaultConfig(drift_std=0.2, seed=3),
+                           health=HealthConfig(interval=REL_INTERVAL))
+        return srv
+
+    def count_expectations(mon):
+        """Count the monitor's computations of the expected canary state
+        (two B = 1 forwards, 10 K1 launches each time)."""
+        mon.expectations = 0
+        inner = mon._ensure_expected
+
+        def counted():
+            mon.expectations += mon._expected is None
+            inner()
+        mon._ensure_expected = counted
+
+    def play(srv, n, leaves_at=None):
+        events, per_tick, leaves = [], [], None
+        for t in range(n):
+            n0 = ops.COUNTS.launches
+            events.append(srv.step())
+            per_tick.append(ops.COUNTS.launches - n0)
+            if leaves_at == t + 1:
+                leaves = _leaves_of(srv)
+        torch.cuda.synchronize()
+        return events, per_tick, leaves
+
+    srv = monitored(hw, dev)
+    for s, x in enumerate(streams):
+        srv.submit(f"s{s}", x)
+        srv.finish(f"s{s}")
+    srv.faults.inject_bit_flips(n=6)
+    ops.COUNTS.reset()                      # the path's run starts
+    play(srv, SNAP_CUT)
+    path = os.path.join(build, "phase13_server.npz")
+    srv.snapshot(path)
+    passes0 = srv._imc_passes
+    count_expectations(srv.health)
+    ops.COUNTS.reset()
+    ev1, ticks1, leaves3 = play(srv, SNAP_AFTER, leaves_at=SNAP_CPU)
+    n1 = ops.COUNTS.launches
+    srv2 = monitored(hw, dev)
+    srv2.restore(path)
+    count_expectations(srv2.health)
+    ops.COUNTS.reset()
+    ev2, ticks2, _ = play(srv2, SNAP_AFTER)
+    n2 = ops.COUNTS.launches                # ... and ends: read the count
+    # the expectation is not in the snapshot: the restored monitor makes
+    # at most one computation more than the uninterrupted one
+    recomputed = srv2.health.expectations - srv.health.expectations
+    if ev1 != ev2 or not any(ev1):
+        raise AssertionError("snapshot: the restored card server's events "
+                             "differ from the uninterrupted one's")
+    if not _same_leaves(torch, _leaves_of(srv), _leaves_of(srv2)):
+        raise AssertionError("snapshot: a state leaf differs after restore")
+    if (srv.health.stats() != srv2.health.stats()
+            or srv.faults.stats() != srv2.faults.stats()):
+        raise AssertionError("snapshot: health or fault state differs "
+                             "after restore")
+    if (n1 != 5 * (srv._imc_passes - passes0)
+            or n2 != 5 * (srv2._imc_passes - passes0)
+            or n2 != n1 + 10 * recomputed or recomputed not in (0, 1)):
+        raise AssertionError(f"snapshot: K1 launched {n2} times after the "
+                             f"restore and {n1} without it ({recomputed} "
+                             f"recomputed canary expectations)")
+    size = os.path.getsize(path)
+    log(f"[snapshot] (a) faulted, monitored, noisy run cut at tick "
+        f"{SNAP_CUT} ({size} bytes under build/): the restored card server "
+        f"plays the next {SNAP_AFTER} ticks as the uninterrupted one "
+        f"({sum(map(len, ev1))} events, every state leaf, health "
+        f"{srv2.health.state}, {srv2.health.stats()['canaries']} canaries, "
+        f"faults drift_rms {srv2.faults.stats()['drift_rms']}); K1 "
+        f"launches {n2} after the restore, {n1} without it "
+        f"(+10 x {recomputed} recomputed canary expectation); per tick "
+        f"{ticks2} vs {ticks1}")
+    srv_c = StreamServer(hw_cpu, cfg, hop=HOP, slots=SLOTS, device="cpu",
+                         chip_offsets=chip, sa_noise_std=SA_STD,
+                         vad=VADConfig(),
+                         faults=FaultConfig(drift_std=0.2, seed=3),
+                         health=HealthConfig(interval=REL_INTERVAL))
+    srv_c.restore(path)
+    t0 = time.perf_counter()
+    ev_c, _, _ = play(srv_c, SNAP_CPU)
+    cpu_s = time.perf_counter() - t0
+    # the leaves: the stream state, then the decision state's five, then
+    # the VAD state's four
+    cpu_leaves = _leaves_of(srv_c)
+    if not (_same_events_scored(sum(ev1[:SNAP_CPU], []), sum(ev_c, []))
+            and _same_leaves(torch, leaves3[:-9], cpu_leaves[:-9])):
+        raise AssertionError("snapshot: the CPU server restored from the "
+                             "card's file differs from the card")
+    # the posteriors within the score's tolerance, the rest exact
+    if not all(torch.equal(a, b) if a.dtype != torch.float32
+               else bool((a - b).abs().max() <= 1e-6)
+               for a, b in zip(leaves3[-9:-4], cpu_leaves[-9:-4])) \
+            or not _same_leaves(torch, leaves3[-4:], cpu_leaves[-4:]):
+        raise AssertionError("snapshot: decision or VAD state differs on "
+                             "the CPU")
+    log(f"[snapshot] (b) the card's file restored into a CPU server: "
+        f"{SNAP_CPU} ticks ({cpu_s:.2f} s) with the card's events (score "
+        f"within 1e-6), carries, rings and VAD state bit for bit")
+    out.update(bytes=size, launches_after=n2, launches_uninterrupted=n1,
+               recomputed_expectations=recomputed,
+               events=sum(map(len, ev1)))
+
+    # -- (c) four sessions mid-flight ----------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    chip4 = {name: 4.0 * torch.randn(cfg.channels[i], generator=gen)
+             for i, name in enumerate(cfg.imc_layer_names(), start=1)}
+    live, _, _, _ = _session_audio(cfg)
+    enroll, labels = audio.make_dataset(seed=7, n_per_class=4, n_speakers=2,
+                                        accent_shift=0.3, augment=False,
+                                        length=cfg.sample_len)
+    tcfg = OnChipTrainConfig(epochs=EPOCHS, fixed_error_scale=1.375)
+
+    def session_server():
+        return StreamServer(hw, cfg, hop=HOP, slots=SLOTS,
+                            chip_offsets=chip4, vad=VADConfig(), device=dev)
+
+    def feed(srv, tick):
+        for s in range(2):
+            a = cfg.sample_len + tick * HOP
+            if a < len(live[s]):
+                srv.submit(f"live{s}", live[s][a:a + HOP])
+
+    def finish(srv, tick, cuts=None):
+        sessions = srv._cust.sessions
+        heads, events = [], []
+        while not all(s.done for s in sessions):
+            if tick > 2000:
+                raise AssertionError(f"sessions stuck: "
+                                     f"{[s.phase for s in sessions]}")
+            feed(srv, tick)
+            h0 = sga_ops.COUNTS_HEAD.launches
+            events.extend(srv.step())
+            heads.append(sga_ops.COUNTS_HEAD.launches - h0)
+            tick += 1
+            if cuts is not None:
+                p = sessions[0]
+                if "calibrating" not in cuts and p.phase == "calibrating" \
+                        and p._calib_idx > 0:
+                    cuts["calibrating"] = (tick, srv.snapshot(), len(heads))
+                if "training" not in cuts and p.phase == "training" \
+                        and p._epoch > 0:
+                    cuts["training"] = (tick, srv.snapshot(), len(heads))
+        torch.cuda.synchronize()
+        return [s.result for s in sessions], heads, events
+
+    srv = session_server()
+    for s in range(2):
+        srv.submit(f"live{s}", live[s][:cfg.sample_len])
+    for k in range(SNAP_SESSIONS):
+        sess = srv.customize(f"user{k}", CustomizeConfig(
+            train=tcfg, epochs_per_tick=PER_TICK[0], calib_seed=k,
+            calib_sa_noise_std=0.0))
+        for j in range(N_UTTS):
+            sess.enroll(int(labels[k * N_UTTS + j]),
+                        enroll[k * N_UTTS + j])
+        sess.finish_enrollment()
+    cuts = {}
+    sga_ops.COUNTS_HEAD.reset()
+    t0 = time.perf_counter()
+    want, heads, _ = finish(srv, 0, cuts)
+    wall = time.perf_counter() - t0
+    if sum(heads) != sum(1 for h in heads if h) or not sum(heads) or \
+            sorted(cuts) != ["calibrating", "training"]:
+        raise AssertionError(f"sessions: head_train_rows launches {heads}, "
+                             f"cuts {sorted(cuts)}")
+
+    def same(r1, r2):
+        return (np.array_equal(r1.fc_w, r2.fc_w)
+                and np.array_equal(r1.fc_b, r2.fc_b)
+                and r1.history == r2.history
+                and all(np.array_equal(r1.bias[n], r2.bias[n])
+                        for n in cfg.imc_layer_names()))
+
+    restored = {}
+    for name, (tick, snap, done) in sorted(cuts.items()):
+        srv_r = session_server()
+        srv_r.restore(snap)
+        sga_ops.COUNTS_HEAD.reset()
+        got, heads_r, _ = finish(srv_r, tick)
+        if not all(same(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"sessions restored {name}: a result "
+                                 f"differs from the uninterrupted run")
+        if sum(heads_r) != sum(heads[done:]):
+            raise AssertionError(f"sessions restored {name}: "
+                                 f"head_train_rows launched {sum(heads_r)} "
+                                 f"times for {sum(heads[done:])} remaining "
+                                 f"training ticks")
+        restored[name] = dict(tick=tick, launches_head=sum(heads_r))
+    log(f"[snapshot] (c) {SNAP_SESSIONS} concurrent sessions (10 "
+        f"utterances, compensation, {EPOCHS} epochs, fused route): "
+        f"uninterrupted {len(heads)} ticks, {wall:.2f} s, head_train_rows "
+        f"{sum(heads)} launches; restored mid-calibration (tick "
+        f"{restored['calibrating']['tick']}) and mid-training (tick "
+        f"{restored['training']['tick']}): every result bit-identical, "
+        f"head_train_rows {restored['calibrating']['launches_head']} and "
+        f"{restored['training']['launches_head']} launches (= the "
+        f"remaining training ticks)")
+    out.update(sessions=SNAP_SESSIONS, launches_head=sum(heads),
+               restored=restored)
+
+    # -- (d) bytes and walls at 8 live slots ---------------------------------
+    def served():
+        return StreamServer(hw, cfg, hop=HOP, slots=SLOTS, device=dev,
+                            chip_offsets=chip, sa_noise_std=SA_STD,
+                            vad=VADConfig())
+
+    srv = served()
+    for s, x in enumerate(_traffic(cfg)):
+        srv.submit(f"s{s}", x)
+    for _ in range(SNAP_CUT):
+        srv.step()
+    if len(srv.active_streams()) != SLOTS:
+        raise AssertionError("snapshot (d): not 8 live slots")
+    path = os.path.join(build, "phase13_8slots.npz")
+    snap_ms, rest_ms = [], []
+    for _ in range(SNAP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.snapshot(path)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        fresh = served()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.restore(path)
+        torch.cuda.synchronize()
+        rest_ms.append((time.perf_counter() - t0) * 1e3)
+    size8 = os.path.getsize(path)
+    log(f"[snapshot] (d) 8 live slots: {size8} bytes on disk; "
+        f"snapshot(path) median {statistics.median(snap_ms):.2f} ms "
+        f"{[round(v, 2) for v in snap_ms]}, restore(path) median "
+        f"{statistics.median(rest_ms):.2f} ms "
+        f"{[round(v, 2) for v in rest_ms]}")
+    out.update(bytes_8_slots=size8, snapshot_ms=snap_ms, restore_ms=rest_ms,
+               snapshot_ms_median=statistics.median(snap_ms),
+               restore_ms_median=statistics.median(rest_ms),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[snapshot] phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+SHARD_POOLS, SHARD_SLOTS, SHARD_RUNS = 2, 4, 3
+
+
+def phase_sharded(torch, dev):
+    """Phase 14: the sharded fleet on the card, at full width.
+
+    (a) phase 3's traffic through ``ShardedStreamServer(devices=2,
+        slots=4)`` (two pools on the one card) and through one 8-slot
+        server, noise-free and with SA noise 1.0 and chip offsets: each
+        stream's decision events bitwise equal, the placement balanced
+        (4 and 4), K1 launched 5 x each pool's IMC forwards (once per
+        layer per pool and batched call), with the launches per tick;
+    (b) the same with ``parallel=True`` (a thread per pool) and
+        ``ObsConfig(audit="raise")``: the sequential fleet's events and
+        launches, no violation;
+    (c) the fleet snapshotted mid-run under ``build/``, restored into a
+        fresh fleet and drained: the uninterrupted fleet's events;
+    (d) wall decisions/s of the sequential fleet, the parallel fleet and
+        the single server in ``SHARD_RUNS`` alternating runs, with their
+        spread (a finding, not a claim)."""
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import (ShardedStreamServer, StreamServer,
+                                     VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    streams = _traffic(cfg)
+    modes = {"clean": dict(vad=VADConfig()),
+             "noisy": dict(vad=VADConfig(), sa_noise_std=SA_STD,
+                           chip_offsets=_noisy_chip(torch, cfg))}
+
+    def make(kind, mode, **kw):
+        if kind == "single":
+            return StreamServer(hw, cfg, hop=HOP, slots=SLOTS, device=dev,
+                                **modes[mode], **kw)
+        return ShardedStreamServer(hw, cfg, hop=HOP, devices=SHARD_POOLS,
+                                   slots=SHARD_SLOTS,
+                                   parallel=kind == "parallel",
+                                   **modes[mode], **kw)
+
+    def passes(srv):
+        pools = getattr(srv, "pools", [srv])
+        return sum(p._imc_passes for p in pools)
+
+    def run(kind, mode, cut=None, **kw):
+        srv = make(kind, mode, **kw)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        torch.cuda.synchronize()
+        ops.COUNTS.reset()                  # the path's run starts
+        events, per_tick, snap = [], [], None
+        t0 = time.perf_counter()
+        while srv.active_streams():
+            if cut is not None and len(per_tick) == cut:
+                snap = srv.snapshot(os.path.join(ROOT, "build",
+                                                 "phase14_fleet.npz"))
+                n_cut = len(events)
+            n0 = ops.COUNTS.launches
+            events.extend(srv.step())
+            per_tick.append(ops.COUNTS.launches - n0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ops.COUNTS.launches             # ... and ends: read the count
+        if getattr(srv, "close", None):
+            srv.close()
+        if n != 5 * passes(srv):
+            raise AssertionError(f"sharded {kind}/{mode}: K1 launched {n} "
+                                 f"times for {passes(srv)} IMC forwards")
+        out = dict(srv=srv, events=events, per_tick=per_tick, launches=n,
+                   wall=wall)
+        if snap is not None:
+            out.update(snap=snap, n_cut=n_cut, cut_tick=cut)
+        return out
+
+    def per_stream(events):
+        out = {}
+        for e in events:
+            e = {k: v for k, v in e.items() if k != "device"}
+            out.setdefault(e.pop("stream"), []).append(e)
+        return out
+
+    res = {}
+    for mode in modes:
+        one = run("single", mode)
+        seq = run("sequential", mode, cut=SNAP_CUT)
+        par = run("parallel", mode, obs=ObsConfig(audit="raise"))
+        sh = seq["srv"]
+        if per_stream(seq["events"]) != per_stream(one["events"]) \
+                or not one["events"]:
+            raise AssertionError(f"sharded {mode}: a stream's events differ "
+                                 f"from the single server's")
+        places = [sum(1 for s in range(len(streams))
+                      if sh.where(f"s{s}") == d) for d in range(SHARD_POOLS)]
+        if places != [len(streams) // SHARD_POOLS] * SHARD_POOLS:
+            raise AssertionError(f"sharded {mode}: placement {places}")
+        if par["events"] != seq["events"] or \
+                par["launches"] != seq["launches"]:
+            raise AssertionError(f"sharded {mode}: the parallel fleet "
+                                 f"differs from the sequential one")
+        aud = par["srv"].stats()["audit"]
+        if aud["violations"]:
+            raise AssertionError(f"sharded {mode}: audit {aud}")
+        fleet = make("sequential", mode)
+        fleet.restore(seq["snap"])
+        tail = fleet.drain()
+        if tail != seq["events"][seq["n_cut"]:] or not tail:
+            raise AssertionError(f"sharded {mode}: the restored fleet's "
+                                 f"events differ from the uninterrupted "
+                                 f"fleet's")
+        log(f"[sharded] {mode}: pools on {[str(d) for d in sh.devices]}, "
+            f"placement {places}; {len(seq['events'])} events, each "
+            f"stream's equal to one {SLOTS}-slot server's; K1 launches "
+            f"fleet {seq['launches']} (= 5 x {passes(sh)} IMC forwards), "
+            f"single server {one['launches']}; per tick fleet "
+            f"{seq['per_tick']}, single {one['per_tick']}; parallel=True "
+            f"under the raising auditor: the same events and launches, "
+            f"{aud['violations']} violations; restored from "
+            f"build/phase14_fleet.npz at tick {SNAP_CUT}: the remaining "
+            f"{len(tail)} events equal")
+        res[mode] = dict(launches=seq["launches"],
+                         launches_single=one["launches"], placement=places,
+                         events=len(seq["events"]))
+    dps = {k: [] for k in ("sequential", "parallel", "single")}
+    for _ in range(SHARD_RUNS):
+        for kind in dps:
+            r = run(kind, "clean")
+            dps[kind].append(len(r["events"]) / r["wall"])
+    spread = {k: max(v) / min(v) for k, v in dps.items()}
+    log(f"[sharded] (d) wall decisions/s in alternating runs: "
+        + "; ".join(f"{k} {[round(x, 1) for x in v]} (spread "
+                    f"{spread[k]:.3f})" for k, v in dps.items()))
+    out = dict(modes=res, wall_dps=dps, spread=spread,
+               launches=res["clean"]["launches"],
+               seconds=time.perf_counter() - t_phase)
+    log(f"[sharded] phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3251,6 +3744,8 @@ def main() -> int:
     learning = phase_learning(torch, dev)
     pipeline = phase_pipeline(torch, dev)
     obs = phase_obs(torch, dev)
+    snap = phase_snapshot(torch, dev)
+    sharded = phase_sharded(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -3262,7 +3757,8 @@ def main() -> int:
                       "int8_matmul": i8, "grouploop": group,
                       "noisy": noisy, "front_door": front,
                       "reliability": rel, "learning": learning,
-                      "pipeline": pipeline, "obs": obs}),
+                      "pipeline": pipeline, "obs": obs,
+                      "snapshot": snap, "sharded": sharded}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -3309,6 +3805,20 @@ def main() -> int:
         f"{[round(v, 1) for v in obs['wall_dps_on']]} (median on / off "
         f"{obs['median_ratio']:.3f}); K1 {obs['launches']} launches with "
         f"telemetry on, each counted by the auditor")
+    log(f"[summary] {smi}: snapshots: {snap['bytes_8_slots']} bytes at 8 "
+        f"live slots, snapshot(path) {snap['snapshot_ms_median']:.2f} ms, "
+        f"restore(path) {snap['restore_ms_median']:.2f} ms (medians of "
+        f"{SNAP_REPS}); K1 {snap['launches_after']} launches after the "
+        f"restore ({snap['launches_uninterrupted']} uninterrupted); "
+        f"{snap['sessions']} sessions restored mid-flight bit for bit, "
+        f"head_train_rows {snap['launches_head']} launches")
+    log(f"[summary] {smi}: sharded fleet ({SHARD_POOLS} pools x "
+        f"{SHARD_SLOTS} slots on one card): wall decisions/s sequential "
+        f"{[round(v, 1) for v in sharded['wall_dps']['sequential']]}, "
+        f"parallel {[round(v, 1) for v in sharded['wall_dps']['parallel']]}"
+        f", single server "
+        f"{[round(v, 1) for v in sharded['wall_dps']['single']]}; K1 "
+        f"{sharded['launches']} launches in the clean fleet run")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -3328,7 +3838,9 @@ def main() -> int:
         "library_ms": None, "launches_front_door": front["launches"],
         "launches_reliability": rel["launches"],
         "launches_pipeline": pipeline["launches"],
-        "launches_obs": obs["launches"]}]
+        "launches_obs": obs["launches"],
+        "launches_snapshot": snap["launches_after"],
+        "launches_sharded": sharded["launches"]}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):
@@ -3339,6 +3851,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    kernels[1]["launches_sessions4"] = snap["launches_head"]
     log(f"[summary] {smi}: imc_mav, one per-group forward's "
         f"{group['launches']['imc_mav']} launches (B={B}): kernel "
         f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, float32 "

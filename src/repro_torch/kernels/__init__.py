@@ -108,14 +108,22 @@ def load_library(name: str, sources: Sequence[pathlib.Path],
 
 
 class LaunchCount:
-    """Launches of one kernel since the last ``reset``.  A wrapper adds
-    one where it launches its kernel, and nowhere else."""
+    """Launches of one kernel since the last ``reset``, in every thread.
+    A wrapper adds one where it launches its kernel, and nowhere else
+    (``add``, under a lock: the pools of a sharded server may launch from
+    threads of their own)."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self.launches += n
 
     def reset(self) -> None:
-        self.launches = 0
+        with self._lock:
+            self.launches = 0
 
 
 def check_launch(lib: ctypes.CDLL, name: str, status: int) -> None:

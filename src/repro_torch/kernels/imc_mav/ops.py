@@ -23,9 +23,10 @@ converts them as it stages them.  Each launch picks its own block tile
 (``block_tile``, ``mav_tile`` report them).
 ``COUNTS`` (K1) and ``COUNTS_MAV`` (K5) count kernel launches, and
 nothing else.  ``CALLS`` counts the fused layer's calls on either route
-(the kernel on a CUDA tensor, the plain version on a CPU tensor): the
-launch auditor (``obs.audit``) reads it where the JAX package's patched
-``pl.pallas_call``, and on the card it moves with ``COUNTS``.
+(the kernel on a CUDA tensor, the plain version on a CPU tensor), per
+thread: the launch auditor (``obs.audit``) reads it where the JAX
+package's patched ``pl.pallas_call``, and on the card it moves with
+``COUNTS``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import pathlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -50,10 +52,21 @@ COUNTS_MAV = kernels.LaunchCount()      # K5: imc_mav
 
 class CallCount:
     """Calls of ``fused_conv_mav`` since the last ``reset``, on either
-    route."""
+    route, counted per thread: the pools of a sharded server that tick on
+    threads of their own (``ShardedStreamServer(parallel=True)``) each
+    read only their own calls.  ``calls`` and ``reset`` act on the
+    calling thread's count."""
 
     def __init__(self):
-        self.calls = 0
+        self._local = threading.local()
+
+    @property
+    def calls(self) -> int:
+        return getattr(self._local, "calls", 0)
+
+    @calls.setter
+    def calls(self, value: int) -> None:
+        self._local.calls = value
 
     def reset(self) -> None:
         self.calls = 0
@@ -195,7 +208,7 @@ def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
                          f"{cpg} -> {cog} channels fits the shared memory "
                          f"of a block of the card")
     kernels.check_launch(lib, "imc_fused", status)
-    COUNTS.launches += 1
+    COUNTS.add()
     return out
 
 
@@ -252,7 +265,7 @@ def imc_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             None if noise is None else noise.data_ptr(), out.data_ptr(),
             m, k, n, int(x.dtype == torch.bfloat16), _sm_count(dev), stream)
     kernels.check_launch(lib, "imc_mav", status)
-    COUNTS_MAV.launches += 1
+    COUNTS_MAV.add()
     return out
 
 

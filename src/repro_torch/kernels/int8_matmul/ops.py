@@ -77,7 +77,7 @@ def int8_matmul_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
             m, k, n, int(shift), int(out_max), stream)
     kernels.check_launch(lib, "int8_matmul", status)
-    COUNTS.launches += 1
+    COUNTS.add()
     return out
 
 

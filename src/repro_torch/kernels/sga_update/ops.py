@@ -123,7 +123,7 @@ def sga_update_rows(w: torch.Tensor, g: torch.Tensor, accum: torch.Tensor,
             g_th.data_ptr(), new_w.data_ptr(), new_a.data_ptr(), b, n,
             w_scale, lo, hi, a_scale, stream)
     kernels.check_launch(lib, "sga_update_rows", status)
-    COUNTS_ROWS.launches += 1
+    COUNTS_ROWS.add()
     return new_w, new_a
 
 
@@ -148,7 +148,7 @@ def sga_update_flat(w: torch.Tensor, g: torch.Tensor, accum: torch.Tensor,
             float(g_th), new_w.data_ptr(), new_a.data_ptr(), n, w_scale, lo,
             hi, a_scale, stream)
     kernels.check_launch(lib, "sga_update", status)
-    COUNTS_FLAT.launches += 1
+    COUNTS_FLAT.add()
     return new_w, new_a
 
 
@@ -346,7 +346,7 @@ def head_train_rows(w: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
                     f"{max(a[6] for a in chunk)} utterances does not fit "
                     f"the shared memory of a block of the card")
             kernels.check_launch(lib, "head_train_rows", status)
-            COUNTS_HEAD.launches += 1
+            COUNTS_HEAD.add()
 
 
 def head_error_exponent(m: torch.Tensor, mode: str = "ceil",

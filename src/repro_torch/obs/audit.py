@@ -13,9 +13,10 @@ The auditor combines two kinds of evidence:
   ``compiled``, kept as pure logic for a whole-tick block).  Each compute
   call implies ``imc_layers`` fused launches (conv0 is plain tensor ops);
 * **counted calls**: instead of patching ``pl.pallas_call``, a region
-  reads the fused layer's call count (``kernels.imc_mav.ops.CALLS``),
-  which ``fused_conv_mav`` / ``fused_conv_mav_step`` advance on both
-  routes: the kernel's launch on a CUDA tensor (where it moves with
+  reads the fused layer's call count (``kernels.imc_mav.ops.CALLS``, the
+  calling thread's: pools of a sharded server that tick on threads of
+  their own count apart), which ``fused_conv_mav`` /
+  ``fused_conv_mav_step`` advance on both routes: the kernel's launch on a CUDA tensor (where it moves with
   ``ops.COUNTS.launches``) and the plain version on a CPU tensor.  The
   reference counts fresh traces, which are 0 on a jit cache hit; the
   port counts every call, so ``traced_launches`` counts calls, and a

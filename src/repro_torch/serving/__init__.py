@@ -20,6 +20,9 @@
                   the healthy / degraded / quarantined / recovering state
                   machine, online recompensation of a faulted chip
                   (``core.faults``)
+  shard.py      — ShardedStreamServer: per-device slot pools behind the
+                  placement router (``sharding.placement``), a global
+                  uid per stream, the fleet rollup, sharded snapshots
 """
 
 from repro_torch.core.faults import FaultConfig, FaultModel
@@ -30,6 +33,7 @@ from repro_torch.serving.decision import DecisionConfig
 from repro_torch.serving.health import HealthConfig, HealthMonitor
 from repro_torch.serving.scheduler import (AdmissionConfig,
                                            DynamicHopConfig, StreamServer)
+from repro_torch.serving.shard import ShardedStreamServer
 from repro_torch.serving.stream import (StreamEngine, StreamGeometry,
                                         StreamState, WindowState,
                                         gated_step, gated_window_step,
@@ -47,7 +51,8 @@ __all__ = [
     "AdmissionConfig", "CustomizationResult", "CustomizationSession",
     "CustomizeConfig", "DecisionConfig", "DynamicHopConfig",
     "FaultConfig", "FaultModel", "HealthConfig", "HealthMonitor",
-    "StreamEngine", "StreamGeometry", "StreamServer", "StreamState",
+    "ShardedStreamServer", "StreamEngine", "StreamGeometry",
+    "StreamServer", "StreamState",
     "VADConfig", "WindowState", "gated_step", "gated_window_step",
     "hop_alignment", "hop_sa_noise_fields", "make_stream_geometry",
     "retention_fills", "silence_fills", "stream_init", "stream_multi_step",

@@ -517,3 +517,100 @@ class HealthMonitor:
             "accepted_layers": list(self.accepted_layers),
             "history": list(self.history),
         }
+
+    # -- crash safety --------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The monitor's state as plain data and numpy arrays (taken by
+        ``StreamServer.snapshot``), the reference's fields: a recovery in
+        flight keeps its ideal counts, its measurement keys (the JAX
+        package's uint32 words) and its new biases.  The expected canary
+        state is NOT serialized: it is a function of the server's
+        configuration and the reserved uid, recomputed when the next
+        canary needs it (on the card: two B = 1 forwards through the
+        server's engine, 10 fused-layer calls outside every auditor
+        region)."""
+        r = self._recovery
+        return {
+            "state": self.state, "uid": self._uid,
+            "canary_n": self._canary_n, "last_spawn": self._last_spawn,
+            "fail_streak": self._fail_streak, "ok_streak": self._ok_streak,
+            "post_heal_fails": self._post_heal_fails,
+            "canaries": self.canaries,
+            "failed_canaries": self.failed_canaries,
+            "recoveries": self.recoveries,
+            "recovery_energy_uj": self.recovery_energy_uj,
+            "detected_tick": self.detected_tick,
+            "quarantined_tick": self.quarantined_tick,
+            "pending": dict(self._pending) if self._pending else None,
+            "implicated": {k: list(v) for k, v in self.implicated.items()},
+            "divergence": dict(self.divergence),
+            "masked": {k: v.copy() for k, v in self.masked.items()},
+            "ref_delta": {k: v.copy() for k, v in self._ref_delta.items()},
+            "accepted_layers": list(self.accepted_layers),
+            "healed": list(self._healed),
+            "frozen_layers": list(self._frozen_layers),
+            "history": [dict(h) for h in self.history],
+            "recovery": ({
+                "phase": r["phase"],
+                "layers": list(r["layers"]),
+                "idx": r["idx"],
+                "ideal": (None if r["ideal"] is None else
+                          {k: v.detach().cpu().numpy()
+                           for k, v in r["ideal"].items()}),
+                "keys": (None if r["keys"] is None else
+                         {k: jaxrand.key_to_numpy(v)
+                          for k, v in r["keys"].items()}),
+                "bias": {k: v.detach().cpu().numpy()
+                         for k, v in r["bias"].items()},
+            } if r else None),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Resume from a ``snapshot()`` (this package's or the JAX
+        package's); a recovery in flight continues on the server's
+        device."""
+        dev = self.srv.device
+        self.state = str(snap["state"])
+        self._uid = int(snap["uid"])
+        self._canary_n = int(snap["canary_n"])
+        self._last_spawn = int(snap["last_spawn"])
+        self._fail_streak = int(snap["fail_streak"])
+        self._ok_streak = int(snap["ok_streak"])
+        self._post_heal_fails = int(snap["post_heal_fails"])
+        self.canaries = int(snap["canaries"])
+        self.failed_canaries = int(snap["failed_canaries"])
+        self.recoveries = int(snap["recoveries"])
+        self.recovery_energy_uj = float(snap["recovery_energy_uj"])
+        self.detected_tick = (None if snap["detected_tick"] is None
+                              else int(snap["detected_tick"]))
+        self.quarantined_tick = (None if snap["quarantined_tick"] is None
+                                 else int(snap["quarantined_tick"]))
+        self._pending = (dict(snap["pending"]) if snap["pending"]
+                         else None)
+        self.implicated = {k: [int(c) for c in v]
+                           for k, v in snap["implicated"].items()}
+        self.divergence = {k: float(v)
+                           for k, v in snap["divergence"].items()}
+        for name in self.masked:
+            self.masked[name] = np.asarray(snap["masked"][name], bool).copy()
+            self._ref_delta[name] = np.asarray(snap["ref_delta"][name],
+                                               np.float32).copy()
+        self.accepted_layers = [str(n) for n in snap["accepted_layers"]]
+        self._healed = [str(n) for n in snap["healed"]]
+        self._frozen_layers = [str(n) for n in snap["frozen_layers"]]
+        self.history = [dict(h) for h in snap["history"]]
+        r = snap["recovery"]
+        self._recovery = (None if r is None else {
+            "phase": str(r["phase"]), "layers": list(r["layers"]),
+            "idx": int(r["idx"]),
+            "ideal": (None if r["ideal"] is None else
+                      {k: torch.tensor(np.asarray(v), device=dev)
+                       for k, v in r["ideal"].items()}),
+            "keys": (None if r["keys"] is None else
+                     {k: jaxrand.key_from_numpy(v, dev)
+                      for k, v in r["keys"].items()}),
+            "bias": {k: torch.tensor(np.asarray(v), device=dev)
+                     for k, v in r["bias"].items()},
+        })
+        self._expected = None

@@ -106,7 +106,20 @@ counts the fused layer's calls inside it; ``trace=True`` records the
 ``init``, ``replay``, ``hop``, ``gate``, ``decide``, ``riders`` and
 ``tick`` spans.  Telemetry reads the tick and changes nothing it serves.
 
-Not in this port yet: compiled ticks and snapshots.
+**Crash-safe snapshots**: ``snapshot(path)`` writes the whole serving
+state (carries, rings, decision and VAD state, buffers, the queue, the
+noise-field keys, the registry and the recorder, the fault, health and
+heal state and every mid-flight customization session) as one ``.npz``,
+atomically; ``restore(path)`` on a freshly built, identically configured
+server continues bit for bit.  A snapshot holds arrays and plain data
+only (tensors go to numpy, keys to the JAX package's uint32 words), so a
+card server's snapshot restores into a CPU server and the reverse, and
+its leaves equal the JAX server's at the same tick.
+
+``device_label`` names the server's pool in a sharded deployment
+(``serving.shard``): it rides the launch auditor and ``stats()``.
+
+Not in this port yet: compiled ticks.
 """
 
 from __future__ import annotations
@@ -114,6 +127,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import json
+import os
+import pickle
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -250,6 +267,161 @@ def _scatter_slot(state, one, slot: int):
     return _tree_map(put, state, one)
 
 
+# -- crash-safe snapshot codec ----------------------------------------------
+#
+# A tree -> (JSON spec, array table) encoder, the JAX package's format:
+# arrays are stored losslessly as .npz entries (so restore is bit-exact),
+# registered NamedTuples round-trip by class name, and other objects
+# (config dataclasses, results) are pickled into uint8 arrays.  Tensors
+# leave as numpy copies; a NamedTuple's ``key`` field leaves as the JAX
+# package's (2,) uint32 words, which is how ``_tensors`` recognizes keys
+# on the way back.  Snapshots are an own-file trust domain (like the
+# profile store): only restore snapshots you wrote.
+
+def _snap_class(name: str):
+    if name == "HeadState":
+        from repro_torch.core.onchip_training import HeadState
+        return HeadState
+    return {"StreamState": sv.StreamState,
+            "WindowState": sv.WindowState,
+            "DecisionState": dec.DecisionState,
+            "VADState": vd.VADState}[name]
+
+
+def _host(obj):
+    """``obj`` with every tensor inside it (containers and dataclass
+    fields) replaced by a numpy copy: what is pickled holds no device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy().copy()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_host(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        fields = {f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init}
+        host = {k: _host(v) for k, v in fields.items()}
+        if any(host[k] is not v for k, v in fields.items()):
+            return dataclasses.replace(obj, **host)
+    return obj
+
+
+def _snap_encode(obj, arrays: Dict[str, np.ndarray]) -> dict:
+    if obj is None:
+        return {"t": "none"}
+    if isinstance(obj, (bool, int, float, str)):
+        return {"t": "v", "v": obj}
+    if isinstance(obj, np.integer):
+        return {"t": "v", "v": int(obj)}
+    if isinstance(obj, np.floating):
+        return {"t": "v", "v": float(obj)}
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        k = f"a{len(arrays)}"
+        arrays[k] = (obj.detach().cpu().numpy().copy()
+                     if isinstance(obj, torch.Tensor) else np.array(obj))
+        return {"t": "arr", "k": k}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        items = [jaxrand.key_to_numpy(x)
+                 if f == "key" and isinstance(x, torch.Tensor) else x
+                 for f, x in zip(obj._fields, obj)]
+        return {"t": "nt", "c": type(obj).__name__,
+                "items": [_snap_encode(x, arrays) for x in items]}
+    if isinstance(obj, tuple):
+        return {"t": "tuple", "items": [_snap_encode(x, arrays)
+                                        for x in obj]}
+    if isinstance(obj, list):
+        return {"t": "list", "items": [_snap_encode(x, arrays)
+                                       for x in obj]}
+    if isinstance(obj, dict):
+        keys = list(obj.keys())
+        if not all(isinstance(k, str) for k in keys):
+            raise TypeError(f"snapshot dicts need str keys: {keys!r}")
+        return {"t": "dict", "keys": keys,
+                "items": [_snap_encode(obj[k], arrays) for k in keys]}
+    k = f"a{len(arrays)}"
+    arrays[k] = np.frombuffer(pickle.dumps(_host(obj)), dtype=np.uint8)
+    return {"t": "pkl", "k": k}
+
+
+def _snap_decode(spec: dict, arrays: Dict[str, np.ndarray]):
+    t = spec["t"]
+    if t == "none":
+        return None
+    if t == "v":
+        return spec["v"]
+    if t == "arr":
+        return np.asarray(arrays[spec["k"]])
+    if t == "pkl":
+        return pickle.loads(bytes(np.asarray(arrays[spec["k"]])))
+    if t == "nt":
+        cls = _snap_class(spec["c"])
+        return cls(*[_snap_decode(x, arrays) for x in spec["items"]])
+    if t == "tuple":
+        return tuple(_snap_decode(x, arrays) for x in spec["items"])
+    if t == "list":
+        return [_snap_decode(x, arrays) for x in spec["items"]]
+    if t == "dict":
+        return {k: _snap_decode(x, arrays)
+                for k, x in zip(spec["keys"], spec["items"])}
+    raise ValueError(f"unknown snapshot node type {t!r}")
+
+
+def _tensors(tree, device):
+    """A decoded tree's arrays as tensors of their own on ``device``
+    (copies: the fused head training updates its state in place).  A
+    uint32 array is a key: it comes back as the port's int64 words."""
+    if isinstance(tree, np.ndarray):
+        if tree.dtype == np.uint32:
+            return jaxrand.key_from_numpy(tree, device)
+        return torch.tensor(tree, device=device)
+    if isinstance(tree, tuple):
+        items = [_tensors(x, device) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    if isinstance(tree, list):
+        return [_tensors(x, device) for x in tree]
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return tree
+
+
+def write_snapshot_file(path: str, spec: dict,
+                        arrays: Dict[str, np.ndarray],
+                        prefix: str = ".tmp.snapshot.") -> str:
+    """Write a snapshot's spec and arrays as one .npz at ``path``,
+    atomically (tmp + fsync + ``os.replace``, the profile store's idiom):
+    a crash mid-save leaves the previous file intact."""
+    payload = dict(arrays)
+    payload["meta"] = np.frombuffer(json.dumps(spec).encode("utf-8"),
+                                    dtype=np.uint8)
+    parent = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(parent, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=prefix, suffix=".npz", dir=parent)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)                      # atomic commit
+    except Exception:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    return path
+
+
+def read_snapshot(snap):
+    """(spec, arrays) of a snapshot given as a path or in memory."""
+    if isinstance(snap, (str, os.PathLike)):
+        with np.load(snap, allow_pickle=False) as data:
+            spec = json.loads(bytes(data["meta"]).decode("utf-8"))
+            arrays = {k: data[k] for k in data.files if k != "meta"}
+        return spec, arrays
+    return snap["spec"], snap["arrays"]
+
+
 class StreamServer:
     """Admit / batch / gate / decide / evict over an autoscaling pool of
     stream slots."""
@@ -290,6 +462,7 @@ class StreamServer:
                  faults=None, health=None, profiles=None,
                  silence_fill: str = "constant",
                  obs: Optional[ObsConfig] = None,
+                 device_label: Optional[int] = None,
                  seed: int = 0, device=None):
         if silence_fill not in ("constant", "retention"):
             raise ValueError(f"silence_fill={silence_fill!r}: use "
@@ -299,11 +472,16 @@ class StreamServer:
         # first counter write below
         self._metrics = MetricsRegistry()
         self.obs = obs if obs is not None else ObsConfig.from_env()
+        # ``device_label`` names this server's pool in a sharded
+        # deployment (serving.shard): the launch auditor and the fleet
+        # rollup attribute per-pool launches through it
+        self.device_label = device_label
         self._rec = (FlightRecorder(self.obs.recorder)
                      if self.obs.recorder else None)
         self._audit = (LaunchAuditor(cfg.num_conv_layers - 1,
                                      mode=self.obs.audit,
-                                     batch_init=batch_init)
+                                     batch_init=batch_init,
+                                     device=device_label)
                        if self.obs.audit != "off" else None)
         self.trace = TraceBuilder() if self.obs.trace else None
         self.cfg = cfg
@@ -1351,6 +1529,181 @@ class StreamServer:
                 break
         return events
 
+    # -- crash-safe snapshots -------------------------------------------------
+
+    def snapshot(self, path: Optional[str] = None):
+        """Serialize the complete serving state (slot carries and GAP
+        rings, decision and VAD state, per-stream buffers and noise-field
+        keys, the queue order, the registry and the recorder, the fault
+        and health state, the healing delta and every mid-flight
+        customization session), so that a restarted process can
+        ``restore()`` it and continue **bit-identically** to an
+        uninterrupted run.
+
+        Take snapshots between ``step()`` calls, the only consistent cut.
+        With ``path`` the snapshot is written as one .npz, atomically
+        (``write_snapshot_file``); without it the in-memory snapshot
+        ``{"spec": ..., "arrays": ...}`` is returned.  Either holds numpy
+        arrays and plain data only: it restores on any device."""
+        arrays: Dict[str, np.ndarray] = {}
+        spec = {
+            "version": 2,
+            "config": {"sample_len": self.cfg.sample_len,
+                       "base_hop": self.base_hop,
+                       "streaming": self.streaming,
+                       "sa_noise_std": float(
+                           self._engine_kw["sa_noise_std"]),
+                       "vad": self.vcfg is not None},
+            "slots_n": self.slots,
+            "mult": self._mult,
+            "uid": self._uid,
+            "base_key": _snap_encode(jaxrand.key_to_numpy(self._base_key),
+                                     arrays),
+            "state": _snap_encode(self._state, arrays),
+            "dstate": _snap_encode(self._dstate, arrays),
+            "vstate": _snap_encode(self._vstate, arrays),
+            "streams": {sid: _snap_encode(dict(vars(rec)), arrays)
+                        for sid, rec in self._streams.items()},
+            "queue": [rec.stream_id for rec in self._queue],
+            "slot_ids": [None if rec is None else rec.stream_id
+                         for rec in self._slots],
+            # v2: the whole metrics registry rides along, so every counter
+            # (serving, health, customization) round-trips
+            "counters": self._metrics.snapshot(),
+            "recorder": (self._rec.snapshot()
+                         if self._rec is not None else None),
+            "cust_on": self._cust_on,
+            "heal": _snap_encode(self._heal_delta, arrays),
+            "faults": _snap_encode(
+                self._faults.snapshot() if self._faults is not None
+                else None, arrays),
+            "health": _snap_encode(
+                self._health.snapshot() if self._health is not None
+                else None, arrays),
+            "cust": self._snap_sessions(arrays),
+        }
+        if path is None:
+            return {"spec": spec, "arrays": arrays}
+        return write_snapshot_file(path, spec, arrays)
+
+    # the back-reference, and the labels' tensor (rebuilt from ``labels``)
+    _SESS_SKIP = ("_mgr", "_labels_t")
+
+    def _snap_sessions(self, arrays):
+        if self._cust is None:
+            return None
+        sessions = []
+        for sess in self._cust.sessions:
+            d = {k: v for k, v in vars(sess).items()
+                 if k not in self._SESS_SKIP}
+            if d["_calib_keys"] is not None:
+                d["_calib_keys"] = {k: jaxrand.key_to_numpy(v)
+                                    for k, v in d["_calib_keys"].items()}
+            sessions.append(_snap_encode(d, arrays))
+        return {"next_sid": self._cust._next_sid, "sessions": sessions}
+
+    def restore(self, snap) -> None:
+        """Restore a snapshot (a path or an in-memory snapshot) into THIS
+        server, which must be freshly built with the same configuration:
+        model, hop, slot bounds, noise std and chip offsets, the decision,
+        VAD and admission configs and the same ``faults=`` / ``health=``
+        / ``profiles=`` wiring (the snapshot stores serving *state*; the
+        configuration is code).  The server may live on another device
+        than the one that took the snapshot.  It then continues
+        bit-identically to the uninterrupted original, SA-noise fields
+        and in-flight enrollment sessions included."""
+        spec, arrays = read_snapshot(snap)
+        if spec.get("version") not in (1, 2):
+            raise ValueError(f"unknown snapshot version: "
+                             f"{spec.get('version')!r}")
+        c = spec["config"]
+        if (c["sample_len"] != self.cfg.sample_len
+                or c["base_hop"] != self.base_hop
+                or bool(c["streaming"]) != self.streaming
+                or bool(c["vad"]) != (self.vcfg is not None)):
+            raise ValueError(f"snapshot/server configuration mismatch: "
+                             f"snapshot has {c}")
+        n = int(spec["slots_n"])
+        if not self.min_slots <= n <= self.max_slots:
+            raise ValueError(f"snapshot slot count {n} outside this "
+                             f"server's [{self.min_slots}, "
+                             f"{self.max_slots}]")
+        dev = self.device
+        self.slots = n
+        self._mult = int(spec["mult"])
+        self._engine_for(self._mult)              # the engine for this hop
+        self._uid = int(spec["uid"])
+        self._base_key = jaxrand.key_from_numpy(
+            _snap_decode(spec["base_key"], arrays), "cpu")
+        # carries and decision state on this server's device; the VAD
+        # state stays on the host, where the server runs it
+        self._state = _tensors(_snap_decode(spec["state"], arrays), dev)
+        self._dstate = _tensors(_snap_decode(spec["dstate"], arrays), dev)
+        v = _snap_decode(spec["vstate"], arrays)
+        self._vstate = _tensors(v, "cpu") if v is not None else None
+        self._streams = {}
+        for sid, s_spec in spec["streams"].items():
+            self._streams[sid] = _Stream(**_snap_decode(s_spec, arrays))
+        self._queue = collections.deque(self._streams[sid]
+                                        for sid in spec["queue"])
+        self._slots = [None if sid is None else self._streams[sid]
+                       for sid in spec["slot_ids"]]
+        counters = spec["counters"]
+        if spec["version"] >= 2:
+            self._metrics.restore(counters)
+        else:                       # v1: a per-attribute dict; the setattrs
+            for k, val in counters.items():   # write through the registry
+                setattr(self, k, val)         # properties
+        if spec.get("recorder") is not None and self._rec is not None:
+            self._rec.restore(spec["recorder"])
+        # the riders are rebuilt at the restored slot count: per-slot rows
+        # from each stream's ``custom``, the chip-global row from the heal
+        # and the fault state
+        self._cust_on = False
+        self._slot_delta = None
+        self._slot_head_w = None
+        self._slot_head_b = None
+        self._slot_fills = None
+        self._heal_delta = _snap_decode(spec["heal"], arrays)
+        f = _snap_decode(spec["faults"], arrays)
+        if (f is None) != (self._faults is None):
+            raise ValueError("snapshot fault-model mismatch: construct "
+                             "the server with the same faults= wiring")
+        if f is not None:
+            self._faults.restore(f)
+            self._faults.pop_dirty()
+        h = _snap_decode(spec["health"], arrays)
+        if (h is None) != (self._health is None):
+            raise ValueError("snapshot health mismatch: construct the "
+                             "server with the same health= wiring")
+        if h is not None:
+            self._health.restore(h)
+        if spec["cust_on"]:
+            self._enable_customization()
+        self._refresh_chip_delta()
+        cust = spec["cust"]
+        if cust is None:
+            self._cust = None
+            return
+        from repro_torch.serving import customize as cz
+        self._cust = cz.CustomizationManager(self)
+        self._cust._next_sid = int(cust["next_sid"])
+        for s_spec in cust["sessions"]:
+            d = _snap_decode(s_spec, arrays)
+            sess = cz.CustomizationSession.__new__(cz.CustomizationSession)
+            sess._mgr = self._cust
+            for k, val in d.items():
+                setattr(sess, k, val)
+            # the device-side working set; the feature origins' keys and
+            # the recorded windows stay on the host, as the session keeps
+            # them
+            for k in ("features", "_ideal", "_calib_keys", "_new_bias",
+                      "_head", "_featsq", "_onehot"):
+                setattr(sess, k, _tensors(getattr(sess, k), dev))
+            sess._labels_t = (torch.tensor(sess.labels, device=dev)
+                              if sess._head is not None else None)
+            self._cust.sessions.append(sess)
+
     # -- accounting ---------------------------------------------------------
 
     def active_streams(self) -> List[str]:
@@ -1366,6 +1719,7 @@ class StreamServer:
         out = {
             "mode": "streaming" if self.streaming else "recompute",
             "device": str(self.device),
+            "device_label": self.device_label,
             "silence_fill": self.silence_fill,
             "slots": self.slots,
             "slot_range": [self.min_slots, self.max_slots],

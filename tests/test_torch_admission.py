@@ -13,6 +13,7 @@ carried to JAX as numpy leaves (``test_torch_noise.jax_hw``); the JAX side
 runs its plain (``use_kernel=False``) route.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import numpy as np
 import pytest

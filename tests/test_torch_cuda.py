@@ -28,9 +28,13 @@ unconstrained fold through K1, and a ``train_base`` step of the recovery
 fine-tune on the card against the CPU; the hardware half of the learning
 path: ``evaluate_hw`` / ``hw_features`` through K1 (clean, fresh SA
 draws with a ragged chunk, a noise field) equal to the plain route and
-the CPU, 5 launches a chunk; and the serving telemetry: the launch
+the CPU, 5 launches a chunk; the serving telemetry: the launch
 auditor's count of fused calls equal to K1's launches, and telemetry on
-equal to off, on a gated, faulted, canary-monitored server.
+equal to off, on a gated, faulted, canary-monitored server; and crash
+safety and scale-out: a card server's snapshot restored on the card
+(10 more K1 launches for the recomputed canary expectation) and on the
+CPU, and a fleet of two pools on the card equal to one server,
+sequential and ``parallel=True``.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -1560,3 +1564,127 @@ def test_launch_auditor_counts_k1_launches(dev):
     assert s["outside_regions"] >= 10           # the canary expectation
     assert n_on == 5 * on.stats()["imc_passes"]
     assert on.health.stats() == off.health.stats()
+
+
+# ---------------------------------------------------------------------------
+# crash-safe snapshots and the sharded fleet on the card
+# ---------------------------------------------------------------------------
+
+
+def _state_leaves(state):
+    return [x for a in state for x in (a if isinstance(a, tuple) else (a,))]
+
+
+def test_card_snapshot_restores_on_the_cpu(dev, tmp_path):
+    """A faulted, noisy, gated, canary-monitored card server snapshotted
+    to a file at tick 8 with a recovery in flight: a fresh card server
+    restored from it plays the next 8 ticks as the uninterrupted one did
+    (events, every state leaf, health and faults), K1 launching 10 more
+    times for the recomputed canary expectation; a CPU server restored
+    from the same file serves the same events (``score`` within 1e-6)
+    and carries, bit for bit."""
+    from repro_torch.serving import FaultConfig, HealthConfig
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(9, "cpu"), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    rng = np.random.default_rng(0)
+    first = [rng.uniform(-1, 1, L).astype(np.float32) for _ in range(2)]
+    hops = [(rng.uniform(-1, 1, HOP).astype(np.float32),
+             ((1.0 if t % 5 < 2 else 1e-4)
+              * rng.uniform(-1, 1, HOP)).astype(np.float32))
+            for t in range(16)]
+
+    def make(hw, device):
+        return StreamServer(
+            hw, cfg, hop=HOP, slots=3, chip_offsets=chip, sa_noise_std=1.0,
+            vad=VADConfig(threshold_on_db=-40.0, threshold_off_db=-50.0,
+                          wake_margin=1, hang=0),
+            faults=FaultConfig(drift_std=0.2, seed=3),
+            health=HealthConfig(interval=2, quarantine_after=1,
+                                layers_per_tick=1), seed=7, device=device)
+
+    def play(srv, t0, t1):
+        events = []
+        for t in range(t0, t1):
+            if t == 1:
+                srv.faults.inject_stuck("conv2", [1, 4])
+                srv.faults.inject_bit_flips(n=2)
+            srv.submit("a", hops[t][0])
+            srv.submit("b", hops[t][1])
+            events.extend(srv.step())
+        return events
+
+    srv = make(hw, dev)
+    srv.submit("a", first[0])
+    srv.submit("b", first[1])
+    play(srv, 0, 8)
+    assert srv.health._recovery is not None
+    path = str(tmp_path / "card.npz")
+    srv.snapshot(path)
+    passes0 = srv._imc_passes
+    runs = []
+    for s in (srv, make(hw, dev), make(_to_cpu(hw), "cpu")):
+        if s is not srv:
+            s.restore(path)
+        ops.COUNTS.reset()
+        runs.append((play(s, 8, 16), ops.COUNTS.launches, s))
+    (ev, n, srv), (ev2, n2, card), (ev3, _, cpu) = runs
+    assert ev == ev2 and ev
+    assert n == 5 * (srv._imc_passes - passes0)
+    assert n2 == 5 * (card._imc_passes - passes0) == n + 10
+    for x, y, z in zip(_state_leaves(srv._state), _state_leaves(card._state),
+                       _state_leaves(cpu._state)):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    for x, y in zip(_state_leaves(srv._dstate), _state_leaves(card._dstate)):
+        assert torch.equal(x, y)
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "score"}
+                         for e in evs]
+    assert strip(ev) == strip(ev3)
+    np.testing.assert_allclose([e["score"] for e in ev],
+                               [e["score"] for e in ev3], rtol=0, atol=1e-6)
+    for s in (card, cpu):
+        assert s.health.stats() == srv.health.stats()
+        assert s.faults.stats() == srv.faults.stats()
+
+
+def test_two_pool_fleet_on_one_card_equals_one_server(dev):
+    """``ShardedStreamServer(devices=2)`` puts both pools on the card;
+    with SA noise and chip offsets each stream's events equal one 4-slot
+    card server's, each pool launches K1 once per IMC layer and forward,
+    and ``parallel=True`` under the raising auditor serves the same."""
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import ShardedStreamServer
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    chip = imc.sample_chip_offsets(jaxrand.PRNGKey(9, dev), chans,
+                                   imc.IMCNoiseParams(mav_offset_std=4.0))
+    kw = dict(hop=HOP, sa_noise_std=0.5, chip_offsets=chip, seed=0)
+    wavs = {f"s{i}": np.random.default_rng(100 + i).uniform(
+        -1, 1, L + 6 * HOP).astype(np.float32) for i in range(4)}
+    runs = []
+    for make in (lambda: StreamServer(hw, cfg, slots=4, device=dev, **kw),
+                 lambda: ShardedStreamServer(hw, cfg, devices=2, slots=2,
+                                             **kw),
+                 lambda: ShardedStreamServer(
+                     hw, cfg, devices=2, slots=2, parallel=True,
+                     obs=ObsConfig(audit="raise"), **kw)):
+        srv = make()
+        for sid, w in wavs.items():
+            srv.submit(sid, w)
+            srv.finish(sid)
+        ops.COUNTS.reset()
+        events = srv.drain()
+        runs.append((events, ops.COUNTS.launches, srv))
+    (ev1, n1, one), (ev2, n2, seq), (ev3, n3, par) = runs
+    par.close()
+    per = lambda evs: {s: [{k: v for k, v in e.items() if k != "device"}
+                           for e in evs if e["stream"] == s] for s in wavs}
+    assert per(ev2) == per(ev1) and ev3 == ev2 and ev1
+    assert seq.devices == [dev, dev]
+    assert sorted(seq.where(s) for s in wavs) == [0, 0, 1, 1]
+    passes = sum(p._imc_passes for p in seq.pools)
+    assert n2 == n3 == 5 * passes and n1 == 5 * one._imc_passes
+    assert par.stats()["audit"]["violations"] == 0

@@ -18,6 +18,7 @@ across as numpy leaves; audio is made with numpy.  The JAX session is run
 once per module.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ training-accuracy history are compared bitwise.  Small config:
 the JAX package as numpy leaves (``test_torch_noise.jax_hw``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

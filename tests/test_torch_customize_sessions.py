@@ -10,6 +10,7 @@ each library chooses, so it is held to 1e-5 (the largest difference seen
 is printed) and the integer biases it rounds into bitwise.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ the same drift walk) and ``energy.recovery_energy_summary``.  Everything
 is compared bitwise.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import numpy as np
 import pytest

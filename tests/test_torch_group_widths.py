@@ -19,6 +19,7 @@ Small config: ``sample_len=640``, ``hop=64``; the net is folded by the
 port and carried to the JAX package as numpy leaves.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

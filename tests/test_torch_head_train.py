@@ -17,6 +17,7 @@ land on the port's offline loop.  tests/test_torch_cuda.py holds the
 kernel against the plain version on a card.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ auditor region.  Small config:
 numpy leaves (``test_torch_noise.jax_hw``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import numpy as np
 import pytest

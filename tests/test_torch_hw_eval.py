@@ -16,6 +16,7 @@ Small config: ``sample_len=640``; the net is the port's
 (``test_torch_noise.jax_hw``); no training runs in this file.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import inspect
 
 import jax

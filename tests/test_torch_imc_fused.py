@@ -17,6 +17,7 @@ tests/test_torch_cuda.py holds the Hopper kernel itself against the plain
 version on a card.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ compared bitwise.  Inputs are made with numpy from a seed; noise keys are
 JAX keys carried across with ``jaxrand.key_from_numpy``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ reference kernel takes tile-padded operands, so the JAX side pads with
 zeros (as its ``quantized_fc`` does) and crops.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ walks its whole domain, all 2**23 mantissas, against the same ``erf_inv``
 chain compiled by XLA: the measured mismatch rate is 0.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

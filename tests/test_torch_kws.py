@@ -8,6 +8,7 @@ numpy.  The port runs on the CPU; the JAX side runs its Pallas kernel in
 interpret mode.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -27,6 +27,7 @@ The JAX side runs jitted, as ``train_base`` and ``evaluate`` run it.  One
 module-scoped net at ``KWSConfig(sample_len=600)``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

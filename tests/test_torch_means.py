@@ -16,6 +16,7 @@ discrepancies; and ``VADState.level_db`` over 4096 random hops at hops
 sums in XLA's order and uses XLA's float32 log and FMAs).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

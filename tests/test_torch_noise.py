@@ -11,6 +11,7 @@ as numpy leaves (``jax_hw``), which keeps the JAX side's compile time out
 of the file's budget.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ serving counters and the retention fills equal.  Small config:
 the JAX package as numpy leaves (``test_torch_noise.jax_hw``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ say "fused" where the reference's say "pallas", and its history and
 stats add ``k1_calls`` / ``outside_regions``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import re
 

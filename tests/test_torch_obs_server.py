@@ -18,6 +18,7 @@ names its process ``repro_torch.serving``.  Small config:
 ``sample_len=640``, ``hop=64``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 
 import numpy as np

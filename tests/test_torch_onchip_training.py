@@ -13,6 +13,7 @@ libraries may choose differently, so the estimate is held to 1e-5 and the
 compensated integer biases bitwise.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

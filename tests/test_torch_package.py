@@ -8,6 +8,7 @@
   ``fold_in(PRNGKey(seed), uid)``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import ast
 import pathlib
 

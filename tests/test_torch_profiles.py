@@ -24,6 +24,7 @@ round differently in the last ulps between the libraries, as in
 numpy leaves (``test_torch_noise.jax_hw``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 
 import jax

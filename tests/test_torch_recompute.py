@@ -23,6 +23,7 @@ port's, carried to JAX as numpy leaves (``test_torch_noise.jax_hw``); the
 JAX side runs its plain (``use_kernel=False``) route.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ by the JAX package and carried across as numpy leaves; audio is made with
 numpy.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ kernel against the same plain version (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

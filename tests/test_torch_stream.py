@@ -7,6 +7,7 @@ numpy on the 8-bit k/127 grid; the folded net and chip offsets are made
 by the JAX package and carried across as numpy leaves.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

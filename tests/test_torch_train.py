@@ -25,6 +25,7 @@ reference's soft-trained net.  ``evaluate`` of one net is the
 reference's exactly (bitwise logits).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import re
