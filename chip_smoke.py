@@ -170,7 +170,24 @@ result line):
    auditor equal to the sequential fleet; a fleet snapshot under
    ``build/`` restored into a fresh fleet equal to the uninterrupted
    one; wall decisions/s of the sequential fleet, the parallel fleet and
-   one server in alternating runs, with their spread.
+   one server in alternating runs, with their spread;
+15. compiled ticks (``phase_compiled``): ``StreamServer(compiled=
+   CompiledTickConfig(block=8))`` stepped in blocks, each step of a block
+   a CUDA graph replay with K1 inside, against the interpreted server on
+   (a) phase 3's traffic on a clean chip, (b) the noisy chip, (c) a fault
+   drift that changes the chip delta inside every block and stuck columns
+   injected at tick 6, (d) two streams with installed customization
+   riders: events, every state leaf, per-stream stats and every registry
+   cell but the wall time, ``serving.compiled`` and ``imc_passes`` equal,
+   most ticks served by blocks, K1 launched 5 x ``imc_passes`` (and from
+   the first block of replays on, its kernel records equal to
+   ``COUNTS``);
+   (e) phase 14's fleet with ``compiled=``, sequential and
+   ``parallel=True`` under the raising auditor, each stream's events equal
+   one server's; the capture wall per graph, host ms per tick, the device
+   busy share of a steady window, and wall decisions/s of compiled
+   against interpreted in alternating pairs, and of the compiled fleets
+   against one compiled server.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -185,8 +202,10 @@ least time the card could take for the same bytes and operations.
 ``launches_reliability`` those of phase 9's kernel runs,
 ``launches_pipeline`` phase 11's (its ``evaluate_hw`` and ``hw_features``
 calls), ``launches_obs`` phase 12's served run with telemetry on,
-``launches_snapshot`` phase 13's restored server's 12 ticks and
-``launches_sharded`` phase 14's noise-free fleet run; phase 2's
+``launches_snapshot`` phase 13's restored server's 12 ticks,
+``launches_sharded`` phase 14's noise-free fleet run and
+``launches_compiled`` phase 15's compiled run of phase 3's traffic on a
+clean chip (its replays' launches included); phase 2's
 totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
 JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
@@ -211,6 +230,11 @@ on this one in turns, in one chip call, to compare two versions of K1.
 
 runs phase 5 alone (K5 and K4: checks, planned tiles, times) against the
 port in DIR in the same way, to compare two versions of K5 and K4.
+
+    python3 chip_smoke.py --compiled
+
+builds the kernels and runs phase 15 alone (compiled ticks), and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -3685,6 +3709,356 @@ def phase_sharded(torch, dev):
     return out
 
 
+COMPILED_BLOCK = 8                # phase 15: ticks per compiled block
+COMPILED_PAIRS = 3                # (a), (b): interpreted / compiled pairs
+COMPILED_INJECT = 6               # (c): the tick of the fault injection
+# counters a block keeps apart from the interpreted tick: the wall time,
+# its own block and tick counts, and the IMC forwards (one per timeline
+# step that computes, where the interpreted tick counts one per call)
+COMPILED_EXCLUDES = ("serving.hop_wall_s", "serving.compiled",
+                     "serving.imc_passes")
+
+
+def phase_compiled(torch, dev):
+    """Phase 15: compiled ticks on the card, at full width (``PAPER_KWS``,
+    hop 1024, 8 slots, VAD on, ``CompiledTickConfig(block=8)``): each run
+    once on a compiled server (``step_block`` until no stream is left; on
+    the card every block step is a CUDA graph replay with K1 inside) and
+    once on an interpreted one, the two equal on events, every stream,
+    decision and VAD state leaf, per-stream stats and every registry cell
+    but the wall time, ``serving.compiled`` and ``serving.imc_passes``,
+    K1 launched 5 x ``imc_passes`` on both and most ticks served by
+    blocks:
+
+    (a) phase 3's traffic on a clean chip, profiled from the first block
+        of replays (both graphs captured) to the end, and the interpreted
+        run from the same tick: K1's kernel records equal to ``COUNTS``
+        and to 5 x the IMC forwards there, and the device busy share;
+    (b) the noisy chip (SA noise 1.0, offsets from
+        ``sample_chip_offsets(PRNGKey(0))``);
+    (c) a fault drift (``FaultConfig(drift_std=0.5)``) whose chip delta
+        changes at every tick, so inside every block, and stuck columns
+        injected at tick ``COMPILED_INJECT``;
+    (d) two streams carrying installed customization riders (bias deltas
+        and heads of their own) on the offset chip;
+    (e) phase 14's fleet (2 pools x 4 slots on the card) with
+        ``compiled=``, in blocks, sequential and ``parallel=True`` under
+        the raising launch auditor: each stream's events equal one
+        interpreted server's, no violation, K1 = 5 x the pools' IMC
+        forwards.
+
+    Reported: the capture wall per graph, the host ms per tick, the
+    device busy share, wall decisions/s of compiled against interpreted
+    in ``COMPILED_PAIRS`` alternating pairs for (a) and (b) (with and
+    without the capture walls), and the compiled fleets against one
+    compiled server."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.models import kws
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import (CompiledTickConfig, CustomizationResult,
+                                     FaultConfig, ShardedStreamServer,
+                                     StreamServer, VADConfig)
+
+    t_phase = time.perf_counter()
+    cfg = kws.PAPER_KWS
+    params = kws.init_params(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                             device=dev)
+    hw = kws.fold_params(params, kws.init_state(cfg, device=dev), cfg,
+                         pack=True)
+    streams = _traffic(cfg)
+    chip = _noisy_chip(torch, cfg)
+    ccfg = CompiledTickConfig(block=COMPILED_BLOCK)
+    hwp, _ = kws.as_hw_params(hw)
+    rng = np.random.default_rng(15)
+    results = [CustomizationResult(
+        bias={n: hwp.bias[n].cpu().numpy()
+              + 2.0 * rng.integers(-2, 3, hwp.bias[n].shape)
+              for n in cfg.imc_layer_names()},
+        fc_w=hwp.fc_w.cpu().numpy(),
+        fc_b=hwp.fc_b.cpu().numpy()
+        + rng.integers(-8, 9, hwp.fc_b.shape) / 128.0,
+        epochs=1, n_utterances=1, history=[], energy={}) for _ in range(2)]
+
+    def stuck(srv):
+        srv.faults.inject_stuck("conv3", [2, 7])
+
+    cases = {
+        "clean": dict(kw=dict(vad=VADConfig())),
+        "noisy": dict(kw=dict(vad=VADConfig(), sa_noise_std=SA_STD,
+                              chip_offsets=chip)),
+        "drift": dict(kw=dict(vad=VADConfig(), chip_offsets=chip,
+                              faults=FaultConfig(drift_std=0.5, seed=3)),
+                      inject=stuck),
+        "riders": dict(kw=dict(vad=VADConfig(), chip_offsets=chip),
+                       custom=results),
+    }
+
+    def cells(srv):
+        return {k: ((v.count, v.total, v.min, v.max)
+                    if hasattr(v, "count") else v)
+                for k, v in srv._metrics._cells.items()
+                if k[0] not in COMPILED_EXCLUDES}
+
+    def graphs_ready(srv):
+        """Both graphs captured and a block due: a block of replays."""
+        steps = list(srv._compiled._steps.values())
+        return (len(steps) == 1 and len(steps[0].graphs) == 2
+                and srv._compiled.horizon(COMPILED_BLOCK) > 0)
+
+    def run(case, compiled, window=None):
+        """One run of ``case``.  ``window``: profile from the first block
+        of replays (compiled) or from tick ``window`` (interpreted) to the
+        run's end."""
+        c = cases[case]
+        srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, device=dev,
+                           seed=0, compiled=ccfg if compiled else None,
+                           **c["kw"])
+        for s, res in enumerate(c.get("custom") or ()):
+            srv.install_custom(f"s{s}", res)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        torch.cuda.synchronize()
+        prof = ctx = None
+        ops.COUNTS.reset()                  # the path's run starts
+        t0 = time.perf_counter()
+        events = []
+        while srv.active_streams():
+            inject = c.get("inject")
+            if inject and srv._steps == COMPILED_INJECT:
+                inject(srv)
+            if window is not None and ctx is None and (
+                    graphs_ready(srv) if compiled
+                    else srv._steps >= window):
+                torch.cuda.synchronize()
+                ctx = profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                prof = ctx.__enter__()
+                w0, n_w0 = time.perf_counter(), ops.COUNTS.launches
+                tick_w0, p_w0 = srv._steps, srv._imc_passes
+                continue
+            if compiled and inject and srv._steps < COMPILED_INJECT:
+                events.extend(srv.step_block(COMPILED_INJECT - srv._steps))
+            else:
+                events.extend(srv.step_block() if compiled
+                              else srv.step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+            prof = dict(prof=prof, wall=time.perf_counter() - w0,
+                        launches=ops.COUNTS.launches - n_w0, tick=tick_w0,
+                        ticks=srv._steps - tick_w0,
+                        passes=srv._imc_passes - p_w0)
+        if window is not None and ctx is None:
+            raise AssertionError(f"compiled {case}: no steady window")
+        n = ops.COUNTS.launches             # ... and ends: read the count
+        st = srv.stats()
+        if n != 5 * st["imc_passes"]:
+            raise AssertionError(f"compiled {case}: K1 launched {n} times "
+                                 f"for {st['imc_passes']} IMC forwards "
+                                 f"(compiled={compiled})")
+        capture = ({f"{kind} {list(key)}": s_
+                    for key, steps in srv._compiled._steps.items()
+                    for kind, s_ in steps.capture_s.items()}
+                   if compiled else {})
+        return dict(srv=srv, events=events, launches=n, wall=wall, st=st,
+                    leaves=_leaves_of(srv), cells=cells(srv),
+                    prof=prof, capture=capture,
+                    per_stream={sid: {k: v for k, v in p.items()
+                                      if k != "wall_s"}
+                                for sid, p in st["per_stream"].items()})
+
+    def same(a, b, what):
+        if a["events"] != b["events"] or not a["events"]:
+            raise AssertionError(f"compiled {what}: events differ")
+        if not _same_leaves(torch, a["leaves"], b["leaves"]):
+            raise AssertionError(f"compiled {what}: state differs")
+        if a["cells"] != b["cells"]:
+            diff = {k: (a["cells"].get(k), b["cells"].get(k))
+                    for k in set(a["cells"]) | set(b["cells"])
+                    if a["cells"].get(k) != b["cells"].get(k)}
+            raise AssertionError(f"compiled {what}: counters differ {diff}")
+        if a["per_stream"] != b["per_stream"]:
+            raise AssertionError(f"compiled {what}: per-stream stats differ")
+
+    out = {"cases": {}}
+    run("clean", True), run("clean", False)      # warm-up: first uses
+    for case in cases:
+        cand = run(case, True)
+        ref = run(case, False)
+        same(cand, ref, case)
+        st = cand["st"]
+        ticks = st["compiled"]["ticks"]
+        keys = list(cand["srv"]._compiled._steps)
+        if (case == "drift" and not any(k[3] for k in keys)) or (
+                case in ("drift", "riders") and not all(k[2] for k in keys)):
+            raise AssertionError(f"compiled {case}: graphs of keys {keys} "
+                                 f"(slots, mult, riders, per-step chip "
+                                 f"delta, gated)")
+        if ticks * 2 <= st["steps"]:
+            raise AssertionError(f"compiled {case}: blocks served {ticks} "
+                                 f"of {st['steps']} ticks")
+        row = dict(events=len(cand["events"]), steps=st["steps"],
+                   compiled=st["compiled"], launches=cand["launches"],
+                   launches_interpreted=ref["launches"],
+                   imc_passes=st["imc_passes"],
+                   imc_passes_interpreted=ref["st"]["imc_passes"],
+                   capture_ms={k: v * 1e3
+                               for k, v in cand["capture"].items()},
+                   host_ms_per_tick=cand["wall"] / st["steps"] * 1e3,
+                   host_ms_per_tick_interpreted=(ref["wall"] / st["steps"]
+                                                 * 1e3))
+        row["graph_keys"] = [list(k) for k in keys]
+        log(f"[compiled] ({case}) {row['events']} events in {row['steps']} "
+            f"ticks, {ticks} served by {st['compiled']['blocks']} blocks "
+            f"(graph keys {keys}); "
+            f"events, every state leaf, counters and per-stream stats equal "
+            f"to the interpreted server's; K1 {cand['launches']} (= 5 x "
+            f"{st['imc_passes']} IMC forwards), interpreted "
+            f"{ref['launches']} (= 5 x {ref['st']['imc_passes']}); capture "
+            f"wall " + ", ".join(f"{k} {v:.1f} ms"
+                                 for k, v in row["capture_ms"].items())
+            + f"; host ms per tick {row['host_ms_per_tick']:.3f} "
+            f"(interpreted {row['host_ms_per_tick_interpreted']:.3f})")
+        if case == "clean":
+            # profiled apart: the profiler's own cost stays out of the
+            # walls above
+            pc = run(case, True, window=0)
+            pi = run(case, False, window=pc["prof"]["tick"])
+            busy = {}
+            for name, r in (("compiled", pc), ("interpreted", pi)):
+                w = r["prof"]
+                busy_us, rows = device_time(torch, w["prof"])
+                records = sum(cnt for k, (_, cnt) in rows.items()
+                              if "imc_fused" in k)
+                if not records == w["launches"] == 5 * w["passes"] \
+                        or not w["passes"]:
+                    raise AssertionError(
+                        f"compiled {name} window: {records} K1 kernel "
+                        f"records, COUNTS {w['launches']}, {w['passes']} "
+                        f"IMC forwards")
+                busy[name] = dict(busy_ms=busy_us / 1e3,
+                                  wall_ms=w["wall"] * 1e3,
+                                  share=busy_us / 1e6 / w["wall"],
+                                  k1_records=records, passes=w["passes"],
+                                  ticks=w["ticks"], from_tick=w["tick"])
+            row["busy"] = out["busy"] = busy
+            log(f"[compiled] (clean) profiled from the first block of "
+                f"replays (tick {busy['compiled']['from_tick']}) to the "
+                f"end: " + "; ".join(
+                    f"{k}: wall {v['wall_ms']:.2f} ms for {v['ticks']} "
+                    f"ticks, device busy {v['busy_ms']:.3f} ms (share "
+                    f"{v['share']:.4f}), K1 kernel records "
+                    f"{v['k1_records']} = COUNTS = 5 x {v['passes']} IMC "
+                    f"forwards" for k, v in busy.items()))
+        out["cases"][case] = row
+
+    # decisions/s in alternating pairs, with and without the capture walls
+    dps = {}
+    for case in ("clean", "noisy"):
+        d = {"interpreted": [], "compiled": [], "compiled_no_capture": []}
+        for p in range(COMPILED_PAIRS):
+            for compiled in ((False, True) if p % 2 == 0 else (True, False)):
+                r = run(case, compiled)
+                n_dec = r["st"]["decisions"]
+                if compiled:
+                    d["compiled"].append(n_dec / r["wall"])
+                    d["compiled_no_capture"].append(
+                        n_dec / (r["wall"] - sum(r["capture"].values())))
+                else:
+                    d["interpreted"].append(n_dec / r["wall"])
+        d["spread"] = {k: max(v) / min(v) for k, v in d.items()}
+        d["median_ratio"] = (statistics.median(d["compiled"])
+                             / statistics.median(d["interpreted"]))
+        dps[case] = d
+        log(f"[compiled] ({case}) wall decisions/s in alternating pairs: "
+            + "; ".join(f"{k} {[round(x, 1) for x in d[k]]} (spread "
+                        f"{d['spread'][k]:.3f})"
+                        for k in ("interpreted", "compiled",
+                                  "compiled_no_capture"))
+            + f"; median compiled / interpreted {d['median_ratio']:.3f}")
+    out["wall_dps"] = dps
+
+    # (e) the fleet in blocks
+    kw = dict(vad=VADConfig(), seed=0)
+
+    def fleet_run(kind):
+        if kind in ("one", "one_compiled"):
+            srv = StreamServer(hw, cfg, hop=HOP, slots=SLOTS, device=dev,
+                               compiled=ccfg if kind == "one_compiled"
+                               else None, **kw)
+        else:
+            srv = ShardedStreamServer(hw, cfg, hop=HOP, devices=SHARD_POOLS,
+                                      slots=SHARD_SLOTS, compiled=ccfg,
+                                      parallel=kind == "parallel",
+                                      obs=ObsConfig(audit="raise"), **kw)
+        for s, x in enumerate(streams):
+            srv.submit(f"s{s}", x)
+            srv.finish(f"s{s}")
+        torch.cuda.synchronize()
+        ops.COUNTS.reset()
+        t0 = time.perf_counter()
+        events = []
+        while srv.active_streams():
+            events.extend(srv.step_block())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ops.COUNTS.launches
+        pools = getattr(srv, "pools", [srv])
+        if getattr(srv, "close", None):
+            srv.close()
+        passes = sum(p._imc_passes for p in pools)
+        if n != 5 * passes:
+            raise AssertionError(f"compiled fleet {kind}: K1 {n} for "
+                                 f"{passes} IMC forwards")
+        return dict(srv=srv, events=events, wall=wall, launches=n,
+                    pools=pools)
+
+    def per_stream(events):
+        res = {}
+        for e in events:
+            e = {k: v for k, v in e.items() if k != "device"}
+            res.setdefault(e.pop("stream"), []).append(e)
+        return res
+
+    one = fleet_run("one")
+    fleets = {k: fleet_run(k) for k in ("sequential", "parallel")}
+    for kind, r in fleets.items():
+        if per_stream(r["events"]) != per_stream(one["events"]):
+            raise AssertionError(f"compiled fleet {kind}: a stream's events "
+                                 f"differ from one server's")
+        aud = r["srv"].stats()["audit"]
+        if aud["violations"] or not all(p._compiled_ticks
+                                        for p in r["pools"]):
+            raise AssertionError(f"compiled fleet {kind}: audit {aud}")
+    fdps = {k: [] for k in ("sequential", "parallel", "one_compiled")}
+    for _ in range(COMPILED_PAIRS):
+        for kind in fdps:
+            r = fleet_run(kind)
+            fdps[kind].append(len(r["events"]) / r["wall"])
+    fspread = {k: max(v) / min(v) for k, v in fdps.items()}
+    out["fleet"] = dict(
+        launches={k: r["launches"] for k, r in fleets.items()},
+        compiled_ticks={k: [p._compiled_ticks for p in r["pools"]]
+                        for k, r in fleets.items()},
+        wall_dps=fdps, spread=fspread)
+    log(f"[compiled] (e) fleet of {SHARD_POOLS} compiled pools x "
+        f"{SHARD_SLOTS} slots in blocks: each stream's events equal one "
+        f"interpreted server's, sequential and parallel=True, raising "
+        f"auditor clean; K1 {out['fleet']['launches']}; ticks in blocks "
+        f"per pool {out['fleet']['compiled_ticks']}; wall decisions/s "
+        + "; ".join(f"{k} {[round(x, 1) for x in v]} (spread "
+                    f"{fspread[k]:.3f})" for k, v in fdps.items()))
+    out["launches"] = out["cases"]["clean"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[compiled] phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3695,9 +4069,12 @@ def main() -> int:
                     metavar="DIR", help="run phase 5 alone (K5, K4), "
                     "against the port in the checkout DIR (default: this "
                     "one)")
+    ap.add_argument("--compiled", action="store_true",
+                    help="build the kernels and run phase 15 alone")
     args = ap.parse_args()
-    if args.layers is not None and args.tiles is not None:
-        ap.error("--layers and --tiles are separate runs")
+    if sum((args.layers is not None, args.tiles is not None,
+            args.compiled)) > 1:
+        ap.error("--layers, --tiles and --compiled are separate runs")
     root = os.path.abspath(args.layers or args.tiles or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
@@ -3727,6 +4104,11 @@ def main() -> int:
         print(json.dumps({"card": smi, "root": root, "imc_mav": mav,
                           "int8_matmul": i8}), flush=True)
         return 0
+    if args.compiled:
+        smi = phase_build(torch)
+        compiled = phase_compiled(torch, dev)
+        print(json.dumps({"card": smi, "compiled": compiled}), flush=True)
+        return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
     widths = phase_widths(torch, dev)
@@ -3746,6 +4128,7 @@ def main() -> int:
     obs = phase_obs(torch, dev)
     snap = phase_snapshot(torch, dev)
     sharded = phase_sharded(torch, dev)
+    compiled = phase_compiled(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -3758,7 +4141,8 @@ def main() -> int:
                       "noisy": noisy, "front_door": front,
                       "reliability": rel, "learning": learning,
                       "pipeline": pipeline, "obs": obs,
-                      "snapshot": snap, "sharded": sharded}),
+                      "snapshot": snap, "sharded": sharded,
+                      "compiled": compiled}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -3819,6 +4203,18 @@ def main() -> int:
         f", single server "
         f"{[round(v, 1) for v in sharded['wall_dps']['single']]}; K1 "
         f"{sharded['launches']} launches in the clean fleet run")
+    cd = compiled["wall_dps"]
+    log(f"[summary] {smi}: compiled ticks (block {COMPILED_BLOCK}): wall "
+        f"decisions/s clean interpreted "
+        f"{[round(v, 1) for v in cd['clean']['interpreted']]}, compiled "
+        f"{[round(v, 1) for v in cd['clean']['compiled']]} (median ratio "
+        f"{cd['clean']['median_ratio']:.3f}); noisy interpreted "
+        f"{[round(v, 1) for v in cd['noisy']['interpreted']]}, compiled "
+        f"{[round(v, 1) for v in cd['noisy']['compiled']]} (median ratio "
+        f"{cd['noisy']['median_ratio']:.3f}); device busy share "
+        f"{compiled['busy']['compiled']['share']:.4f} compiled, "
+        f"{compiled['busy']['interpreted']['share']:.4f} interpreted; K1 "
+        f"{compiled['launches']} launches in the clean compiled run")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -3840,7 +4236,8 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"],
         "launches_obs": obs["launches"],
         "launches_snapshot": snap["launches_after"],
-        "launches_sharded": sharded["launches"]}]
+        "launches_sharded": sharded["launches"],
+        "launches_compiled": compiled["launches"]}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):

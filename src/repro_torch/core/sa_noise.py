@@ -22,6 +22,7 @@ object with ``num_conv_layers``, ``kernels``, ``strides``, ``pools``,
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, NamedTuple
 
 import torch
@@ -58,6 +59,18 @@ def sa_noise_columns(key: torch.Tensor, layer: int, cols: torch.Tensor,
     return std * jaxrand.normal(col_keys, (c_out,))
 
 
+@functools.lru_cache(maxsize=None)
+def _layer_ids(layers: tuple, device: torch.device) -> torch.Tensor:
+    """The layer indices as an int64 tensor on ``device``, made once and
+    by fills on the device, not by a copy from the host: a hop's noise
+    evaluation syncs with nothing, so it can be captured in a CUDA graph
+    (``serving.compiled``)."""
+    ids = torch.zeros((len(layers),), dtype=torch.int64, device=device)
+    for i, layer in enumerate(layers):
+        ids[i].fill_(layer)
+    return ids
+
+
 def columns_noise(keys: torch.Tensor, cols: Mapping[int, torch.Tensor],
                   channels, std: float) -> Dict[int, torch.Tensor]:
     """Field values of several layers at once: streams ``keys`` (B, 2),
@@ -70,8 +83,8 @@ def columns_noise(keys: torch.Tensor, cols: Mapping[int, torch.Tensor],
     layers = list(cols)
     b = keys.shape[0]
     dev = keys.device
-    lid = torch.tensor(layers, dtype=torch.int64, device=dev)
-    base = jaxrand.fold_in(keys[:, None, :], lid)          # (B, L, 2)
+    base = jaxrand.fold_in(keys[:, None, :],
+                           _layer_ids(tuple(layers), dev))   # (B, L, 2)
     widths = [cols[layer].shape[1] for layer in layers]
     base_cols = torch.cat([base[:, j:j + 1].expand(b, n, 2)
                            for j, n in enumerate(widths)], dim=1)

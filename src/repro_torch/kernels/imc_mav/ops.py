@@ -26,7 +26,10 @@ nothing else.  ``CALLS`` counts the fused layer's calls on either route
 (the kernel on a CUDA tensor, the plain version on a CPU tensor), per
 thread: the launch auditor (``obs.audit``) reads it where the JAX
 package's patched ``pl.pallas_call``, and on the card it moves with
-``COUNTS``.
+``COUNTS``.  A call made while the current stream captures a CUDA graph
+launches nothing (the launch is recorded and runs at each replay), so
+neither count moves for it; the compiled tick (``serving.compiled``) adds
+a replay's launches to ``COUNTS`` itself.
 """
 
 from __future__ import annotations
@@ -208,7 +211,8 @@ def imc_fused(x: torch.Tensor, wq: torch.Tensor, bias: torch.Tensor,
                          f"{cpg} -> {cog} channels fits the shared memory "
                          f"of a block of the card")
     kernels.check_launch(lib, "imc_fused", status)
-    COUNTS.add()
+    if not torch.cuda.is_current_stream_capturing():
+        COUNTS.add()    # a launch recorded into a CUDA graph runs at replays
     return out
 
 
@@ -373,7 +377,9 @@ def fused_conv_mav(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                                  chip_offset=chip_offset, sa_noise=sa_noise)
     else:
         raise ValueError(f"fused_conv_mav: no kernel for {x.device}")
-    CALLS.calls += 1
+    if (x.device.type == "cpu"
+            or not torch.cuda.is_current_stream_capturing()):
+        CALLS.calls += 1
     return out
 
 

@@ -22,10 +22,16 @@
                   (``core.faults``)
   shard.py      — ShardedStreamServer: per-device slot pools behind the
                   placement router (``sharding.placement``), a global
-                  uid per stream, the fleet rollup, sharded snapshots
+                  uid per stream, the fleet rollup, sharded snapshots,
+                  compiled blocks per pool
+  compiled.py   — compiled ticks: K steady ticks as one block (the VAD
+                  over the block, a host fate simulation, one masked hop
+                  and one masked fill per timeline step), replayed as
+                  CUDA graphs on a card
 """
 
 from repro_torch.core.faults import FaultConfig, FaultModel
+from repro_torch.serving.compiled import CompiledTick, CompiledTickConfig
 from repro_torch.serving.customize import (CustomizationResult,
                                            CustomizationSession,
                                            CustomizeConfig)
@@ -45,10 +51,11 @@ from repro_torch.serving.stream import (StreamEngine, StreamGeometry,
                                         window_init, window_multi_step,
                                         window_sa_noise, window_step,
                                         zeros_window_state)
-from repro_torch.serving.vad import VADConfig
+from repro_torch.serving.vad import VADConfig, vad_scan
 
 __all__ = [
-    "AdmissionConfig", "CustomizationResult", "CustomizationSession",
+    "AdmissionConfig", "CompiledTick", "CompiledTickConfig",
+    "CustomizationResult", "CustomizationSession",
     "CustomizeConfig", "DecisionConfig", "DynamicHopConfig",
     "FaultConfig", "FaultModel", "HealthConfig", "HealthMonitor",
     "ShardedStreamServer", "StreamEngine", "StreamGeometry",
@@ -57,6 +64,6 @@ __all__ = [
     "hop_alignment", "hop_sa_noise_fields", "make_stream_geometry",
     "retention_fills", "silence_fills", "stream_init", "stream_multi_step",
     "stream_step", "streaming_layer_stats", "window_init",
-    "window_multi_step", "window_sa_noise", "window_step",
+    "vad_scan", "window_multi_step", "window_sa_noise", "window_step",
     "zeros_window_state",
 ]

@@ -119,7 +119,15 @@ its leaves equal the JAX server's at the same tick.
 ``device_label`` names the server's pool in a sharded deployment
 (``serving.shard``): it rides the launch auditor and ``stats()``.
 
-Not in this port yet: compiled ticks.
+**Compiled ticks** (``compiled=True`` or ``CompiledTickConfig(block=K)``,
+``serving.compiled``): ``step()`` serves a steady-state tick as a
+one-tick block and ``step_block()`` up to K ticks as one block; on a card
+each step of a block is a CUDA graph replay, on the CPU it runs eagerly.
+A tick the block does not model (admissions, sheds, resizes, sessions,
+health, profiles, a trace) runs interpreted.  Both give the same events,
+state and counters, bit for bit, but for the wall time, the
+``serving.compiled`` counts and ``imc_passes``; ``drain()`` steps in
+blocks.  Snapshots carry no compiled state.
 """
 
 from __future__ import annotations
@@ -449,6 +457,9 @@ class StreamServer:
     # of a recompute replay
     _imc_passes = counter_property("serving.imc_passes")
     _profile_swaps = counter_property("serving.profile_swaps")
+    # compiled blocks and the ticks they served (serving.compiled)
+    _compiled_blocks = counter_property("serving.compiled", what="blocks")
+    _compiled_ticks = counter_property("serving.compiled", what="ticks")
 
     def __init__(self, hw, cfg: kws.KWSConfig, *, hop: int, slots: int = 4,
                  chip_offsets: Optional[Dict[str, torch.Tensor]] = None,
@@ -463,6 +474,7 @@ class StreamServer:
                  silence_fill: str = "constant",
                  obs: Optional[ObsConfig] = None,
                  device_label: Optional[int] = None,
+                 compiled=None,
                  seed: int = 0, device=None):
         if silence_fill not in ("constant", "retention"):
             raise ValueError(f"silence_fill={silence_fill!r}: use "
@@ -579,6 +591,18 @@ class StreamServer:
         self._gate_calls = 0
         self._imc_passes = 0
         self._profile_swaps = 0
+        self._compiled_blocks = 0
+        self._compiled_ticks = 0
+        # compiled ticks (serving.compiled): ``compiled=True`` (the
+        # defaults) or a CompiledTickConfig serves steady-state ticks as
+        # blocks; imported here, as compiled.py imports this module
+        self._compiled = None
+        if compiled:
+            from repro_torch.serving.compiled import (CompiledTick,
+                                                      CompiledTickConfig)
+            ccfg = (compiled if isinstance(compiled, CompiledTickConfig)
+                    else CompiledTickConfig())
+            self._compiled = CompiledTick(self, ccfg)
 
         # -- faults and health monitoring ------------------------------------
         self._heal_delta = None           # {conv_i: (C_i,) float32} heal
@@ -1281,14 +1305,40 @@ class StreamServer:
         return ev
 
     def step(self) -> List[dict]:
-        """One scheduler tick: the profile sweep, the fault drift, SLO
+        """One scheduler tick.  Returns this tick's decision events (one
+        per deciding stream; gated hops emit none).  With ``compiled=`` a
+        steady-state tick runs as a one-tick block (``serving.compiled``)
+        and any other tick interpreted, with the same events, state and
+        counters."""
+        if self._compiled is not None and self._compiled.horizon(1) == 1:
+            return self._compiled.run(1)
+        return self._step_interpreted()
+
+    def step_block(self, max_ticks: Optional[int] = None) -> List[dict]:
+        """Serve up to ``max_ticks`` steady-state ticks as ONE compiled
+        block and return their events in tick order: the events of as
+        many ``step()`` calls.  The config's ``block`` caps the block (it
+        sizes the graphs' static buffers), and the block ends early at
+        any structural boundary (``CompiledTick.horizon``); a tick the
+        block cannot model runs interpreted.  Without ``compiled=`` this
+        is one interpreted ``step()``."""
+        if self._compiled is None:
+            return self._step_interpreted()
+        cap = self._compiled.cfg.block
+        k = self._compiled.horizon(cap if max_ticks is None
+                                   else min(max_ticks, cap))
+        if k < 1:
+            return self._step_interpreted()
+        return self._compiled.run(k)
+
+    def _step_interpreted(self) -> List[dict]:
+        """One interpreted tick: the profile sweep, the fault drift, SLO
         shedding and autoscaling, admissions, VAD classification, wake
         replays, ONE batched hop over every speech-ready slot, ONE masked
         no-op fill over every gated slot, the batched decision update, the
         session and canary captures, retirements, the hop retarget and the
         sessions' and health monitor's background work, then the tick's
-        telemetry.  Returns this tick's decision events (gated hops emit
-        none)."""
+        telemetry.  The compiled block is held against it."""
         tick = self._steps
         t_tick = time.perf_counter()
         if self._audit is not None:
@@ -1515,19 +1565,37 @@ class StreamServer:
         return events
 
     def drain(self, max_steps: int = 10_000) -> List[dict]:
-        """Step until no slot can make progress and the queue is empty."""
+        """Step until a tick moves no buffer and leaves the queue as it
+        was.  With ``compiled=`` it steps in blocks and applies that rule
+        to each block's last tick (the only tick of a block whose buffers
+        can stay put: a widening hop retarget pushes the deferred hops
+        back), so it stops after the same tick as one-tick stepping."""
         events: List[dict] = []
         for _ in range(max_steps):
-            before = (len(self._queue),
-                      [None if r is None else len(r.buf)
-                       for r in self._slots])
-            events.extend(self.step())
-            after = (len(self._queue),
-                     [None if r is None else len(r.buf)
-                      for r in self._slots])
-            if after == before:
+            before = self._drain_view()
+            events.extend(self._drain_step())
+            if self._drain_view() == self._tick_start_view(before):
                 break
         return events
+
+    def _drain_view(self) -> tuple:
+        return (len(self._queue),
+                [None if r is None else len(r.buf) for r in self._slots])
+
+    def _drain_step(self) -> List[dict]:
+        """One step of ``drain()``: a tick, or a block with ``compiled=``."""
+        if self._compiled is None:
+            return self.step()
+        self._compiled.last_view = None
+        return self.step_block()
+
+    def _tick_start_view(self, before: tuple) -> tuple:
+        """The drain view at the start of the last tick ``_drain_step``
+        served: ``before`` unless that step was a compiled block."""
+        if self._compiled is not None and \
+                self._compiled.last_view is not None:
+            return self._compiled.last_view
+        return before
 
     # -- crash-safe snapshots -------------------------------------------------
 
@@ -1774,6 +1842,10 @@ class StreamServer:
             out["obs"]["audit"] = self._audit.stats()
         if self._profiles is not None:
             out["profile_swaps"] = self._profile_swaps
+        if self._compiled is not None:
+            out["compiled"] = {"block": self._compiled.cfg.block,
+                               "blocks": self._compiled_blocks,
+                               "ticks": self._compiled_ticks}
         if self._cust is not None:
             out["customization"] = self._cust.stats()
         if self._faults is not None:

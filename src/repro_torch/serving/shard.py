@@ -43,8 +43,12 @@ when fewer cards exist: on one card ``devices=2`` is two pools on
 ``cuda:0``, which is how the reference runs N logical pools on one
 device.  Without a card a count raises; pass ``devices=["cpu", "cpu"]``.
 
-Not in this port yet: ``step_block``, which waits for the compiled tick
-(``StreamServer(compiled=)``); ``drain`` steps.
+**Compiled blocks**: with ``compiled=`` every pool serves compiled
+ticks (``serving.compiled``); ``step_block()`` serves one block per pool
+(each as long as its own boundaries allow, so pools leave tick lockstep
+while each stream's events stay those of one server), and ``drain()``
+steps in blocks.  A pool built without ``compiled=`` runs one
+interpreted tick per ``step_block()``.
 """
 
 from __future__ import annotations
@@ -247,40 +251,56 @@ class ShardedStreamServer:
 
     # -- ticking ------------------------------------------------------------
 
-    def _tick_pool(self, d: int) -> List[dict]:
+    def _run_pool(self, d: int, fn) -> List[dict]:
         with _on(self.devices[d]):
-            events = self.pools[d].step()
+            events = fn(self.pools[d])
         for ev in events:
             ev["device"] = d
         return events
+
+    def _each_pool(self, fn) -> List[dict]:
+        """``fn(pool)`` for every pool on its device, in turn or one
+        thread per pool; the events in pool order, tagged with their
+        pool."""
+        if self._pool_exec is not None:
+            futs = [self._pool_exec.submit(self._run_pool, d, fn)
+                    for d in range(self.n_devices)]
+            return [ev for f in futs for ev in f.result()]
+        return [ev for d in range(self.n_devices)
+                for ev in self._run_pool(d, fn)]
 
     def step(self) -> List[dict]:
         """One fleet tick: every pool steps exactly once (in turn, or one
         thread per pool with ``parallel=True``).  Events come in pool
         order, each tagged with its ``device``."""
-        if self._pool_exec is not None:
-            futs = [self._pool_exec.submit(self._tick_pool, d)
-                    for d in range(self.n_devices)]
-            events = [ev for f in futs for ev in f.result()]
-        else:
-            events = [ev for d in range(self.n_devices)
-                      for ev in self._tick_pool(d)]
+        events = self._each_pool(StreamServer.step)
+        self._steps += 1
+        return events
+
+    def step_block(self, max_ticks: Optional[int] = None) -> List[dict]:
+        """Up to ``max_ticks`` steady-state ticks per pool, one compiled
+        block each (``StreamServer.step_block``).  Each pool's block is as
+        long as its own boundaries allow, so pools leave tick lockstep;
+        streams never interact across pools, so each stream's events are
+        still one server's.  Events come in pool order, tagged with their
+        ``device``.  A pool without ``compiled=`` runs one interpreted
+        tick."""
+        events = self._each_pool(lambda srv: srv.step_block(max_ticks))
         self._steps += 1
         return events
 
     def drain(self, max_steps: int = 10_000) -> List[dict]:
-        """Step the fleet until no pool can make progress."""
+        """Step the fleet until a step moves no pool's buffers (in
+        compiled blocks when the pools were built with ``compiled=``, each
+        pool judged by its block's last tick, as ``StreamServer.drain``
+        does)."""
         events: List[dict] = []
-
-        def view():
-            return [(len(srv._queue),
-                     [None if r is None else len(r.buf)
-                      for r in srv._slots]) for srv in self.pools]
-
         for _ in range(max_steps):
-            before = view()
-            events.extend(self.step())
-            if view() == before:
+            before = [srv._drain_view() for srv in self.pools]
+            events.extend(self._each_pool(StreamServer._drain_step))
+            self._steps += 1
+            if all(srv._drain_view() == srv._tick_start_view(b)
+                   for srv, b in zip(self.pools, before)):
                 break
         return events
 

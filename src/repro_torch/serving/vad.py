@@ -5,7 +5,8 @@ by an EMA and classified speech/silence through hysteresis thresholds,
 with a hangover that holds "speech" for ``hang`` hops after the level
 falls below the off threshold.  ``wake_margin`` is consumed by the
 scheduler (deferred silent hops replayed on a speech onset).  ``force``
-pins the classification.  Batched over streams and mask-aware.
+pins the classification.  Batched over streams and mask-aware;
+``vad_scan`` classifies a block of K hops in sequence.
 
 The smoothed level is the reference's bit for bit as its server runs it
 (``vad_step`` under ``jit``): the mean square summed in XLA's CPU order,
@@ -150,6 +151,25 @@ def vad_step(vcfg: VADConfig, state: VADState, audio: torch.Tensor,
                          speech=out(speech, was), hang=out(new_hang, hang),
                          seen=out(seen + 1, seen).to(torch.int32))
     return new_state, out(speech, was)
+
+
+def vad_scan(vcfg: VADConfig, state: VADState, audio: torch.Tensor,
+             active: torch.Tensor) -> Tuple[VADState, torch.Tensor]:
+    """Classify K hops in sequence: audio (K, B, hop) and active (K, B)
+    -> (final state, speech flags (K, B)).  The detector runs on the host,
+    so a compiled serving block (``serving.compiled``) classifies its K
+    ticks as K ``vad_step`` calls, equal to them by construction; an
+    all-inactive step is an exact no-op (the masked writes keep every
+    row), as it is in the reference's ``lax.scan``."""
+    flags = []
+    for a, act in zip(audio, active):
+        state, f = vad_step(vcfg, state, a, act)
+        flags.append(f)
+    if not flags:
+        return state, torch.zeros((0,) + tuple(active.shape[1:]),
+                                  dtype=torch.bool,
+                                  device=state.speech.device)
+    return state, torch.stack(flags)
 
 
 def vad_reset_slot(state: VADState, slot: int) -> VADState:

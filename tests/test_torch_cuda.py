@@ -57,7 +57,7 @@ from repro_torch.kernels.sga_update import ops as sga_ops
 from repro_torch.kernels.sga_update import ref as sga_ref
 from repro_torch.kernels.sga_update.ref import sga_update_ref
 from repro_torch.models import kws
-from repro_torch.serving import CustomizeConfig
+from repro_torch.serving import CompiledTickConfig, CustomizeConfig
 from repro_torch.serving import stream as sv
 from repro_torch.serving.scheduler import StreamServer
 from repro_torch.serving.vad import VADConfig
@@ -1688,3 +1688,193 @@ def test_two_pool_fleet_on_one_card_equals_one_server(dev):
     passes = sum(p._imc_passes for p in seq.pools)
     assert n2 == n3 == 5 * passes and n1 == 5 * one._imc_passes
     assert par.stats()["audit"]["violations"] == 0
+
+
+# -- compiled ticks: blocks replayed as CUDA graphs -------------------------
+
+
+def _duty_wave(n, seed, period=3 * HOP):
+    """Uniform noise with seeded runs of near-silence (the compiled
+    tests' traffic), so gating and wake replays happen."""
+    r = np.random.default_rng(seed)
+    x = r.uniform(-1.0, 1.0, n).astype(np.float32)
+    for t in range(0, n, period):
+        if r.random() > 0.45:
+            x[t:t + period] *= 1e-4
+    return x
+
+
+def test_captured_k1_replays_equal_eager_launches(dev):
+    """K1 recorded into a CUDA graph: its replay equals the eager launch
+    bit for bit on new operands written into the same buffers, the
+    recorded call counts no launch, and the profiler sees the kernel in
+    a replay."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, bias, flip, off, noise = _inputs(3, 8, 40, 96, 192, 4, 1, dev)
+    packed = ops.pack_weights_s8(w, 4)
+
+    def call():
+        return ops.fused_conv_mav(x, w, bias, flip, groups=4, pool=2,
+                                  chip_offset=off, sa_noise=noise,
+                                  packed=packed)
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        call()                                  # warm-up
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    ops.COUNTS.reset()
+    calls = ops.CALLS.calls
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = call()
+    assert ops.COUNTS.launches == 0 and ops.CALLS.calls == calls
+    for seed in (4, 5):
+        x2, _, _, _, off2, noise2 = _inputs(seed, 8, 40, 96, 192, 4, 1, dev)
+        x.copy_(x2)
+        off.copy_(off2)
+        noise.copy_(noise2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        names = [e.key for e in prof.key_averages()]
+        assert any("imc_fused_kernel" in k for k in names), names
+
+
+def _compiled_pair(dev, cfg, hw, block=8, **kw):
+    return (StreamServer(hw, cfg, hop=HOP, slots=3, device=dev, **kw),
+            StreamServer(hw, cfg, hop=HOP, slots=3, device=dev,
+                         compiled=CompiledTickConfig(block=block), **kw))
+
+
+def _advance_to(srv, ticks):
+    events = []
+    while srv._steps < ticks:
+        events += (srv.step_block(ticks - srv._steps)
+                   if srv._compiled is not None else srv.step())
+    return events
+
+
+def _same_servers(a, b):
+    for x, y in zip(_state_leaves(a._state), _state_leaves(b._state)):
+        assert torch.equal(x, y)
+    for x, y in zip(a._dstate, b._dstate):
+        assert torch.equal(x, y)
+    for x, y in zip(a._vstate, b._vstate):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noise"])
+def test_compiled_blocks_equal_interpreted_ticks_on_the_card(dev, noisy):
+    """Blocks replayed as CUDA graphs serve the interpreted ticks' events
+    and state bit for bit, gated, with wake replays (and SA noise and
+    chip offsets), K1 launching 5 x ``imc_passes`` on both servers."""
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    kw = dict(vad=VADConfig())
+    if noisy:
+        chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+        kw.update(sa_noise_std=0.5, chip_offsets=imc.sample_chip_offsets(
+            jaxrand.PRNGKey(9, dev), chans,
+            imc.IMCNoiseParams(mav_offset_std=4.0)))
+    ref, cand = _compiled_pair(dev, cfg, hw, **kw)
+    for srv in (ref, cand):
+        for i in range(3):
+            srv.submit(f"s{i}", _duty_wave(L + 22 * HOP, 100 + i))
+    runs = []
+    for srv in (ref, cand):
+        ops.COUNTS.reset()
+        events = _advance_to(srv, 30)
+        runs.append((events, ops.COUNTS.launches))
+    (ev_ref, n_ref), (ev_cand, n_cand) = runs
+    assert ev_ref == ev_cand and ev_ref
+    _same_servers(ref, cand)
+    assert n_ref == 5 * ref._imc_passes and n_cand == 5 * cand._imc_passes
+    assert cand._compiled_ticks > 15
+    (steps,) = cand._compiled._steps.values()
+    assert set(steps.graphs) == {"compute", "fill"}
+    assert ref.stats()["batched_calls"]["replay"] > 0
+
+
+def test_compiled_blocks_through_resize_restore_and_faults(dev):
+    """Blocks interleaved with interpreted ticks, a pool resize, a
+    restore into a fresh server and a fault injection, on the card: every
+    tensor the graphs read is copied in at each block, so the run stays
+    the interpreted one's, bit for bit."""
+    from repro_torch.serving import AdmissionConfig, FaultConfig
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    chans = {f"conv{i}": cfg.channels[i] for i in range(1, 6)}
+    kw = dict(vad=VADConfig(), sa_noise_std=0.2,
+              chip_offsets=imc.sample_chip_offsets(
+                  jaxrand.PRNGKey(9, dev), chans,
+                  imc.IMCNoiseParams(mav_offset_std=4.0)),
+              faults=FaultConfig(drift_std=0.2, seed=4),
+              admission=AdmissionConfig(min_slots=2, max_slots=4))
+
+    def make(compiled):
+        return StreamServer(hw, cfg, hop=HOP, slots=2, device=dev,
+                            compiled=CompiledTickConfig(block=4) if compiled
+                            else None, **kw)
+
+    ref, cand = make(False), make(True)
+    for srv in (ref, cand):
+        for i in range(2):
+            srv.submit(f"s{i}", _duty_wave(L + 30 * HOP, 200 + i))
+    ev = [_advance_to(ref, 5), _advance_to(cand, 5)]
+    for i, srv in enumerate((ref, cand)):
+        ev[i] += srv.step()
+        srv._resize(4)
+        srv.submit("s2", _duty_wave(L + 12 * HOP, 202))
+        ev[i] += _advance_to(srv, 12)
+    fresh = make(True)
+    fresh.restore(cand.snapshot())
+    cand = fresh
+    launches = []
+    for i, srv in enumerate((ref, cand)):
+        srv.faults.inject_stuck("conv3", [2, 7])
+        ops.COUNTS.reset()
+        p0 = srv._imc_passes
+        ev[i] += _advance_to(srv, 24)
+        launches.append((ops.COUNTS.launches, srv._imc_passes - p0))
+    assert ev[0] == ev[1] and ev[0]
+    _same_servers(ref, cand)
+    assert all(n == 5 * p for n, p in launches)
+    assert cand._compiled_ticks > 0
+
+
+def test_parallel_fleet_of_compiled_pools_on_one_card(dev):
+    """Two compiled pools on the card capture and replay on threads of
+    their own (``parallel=True``) under the raising auditor: each
+    stream's events equal one server's, K1 = 5 x the pools'
+    ``imc_passes``."""
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import ShardedStreamServer
+    cfg = kws.KWSConfig(sample_len=L)
+    hw = _hw(dev, cfg)
+    kw = dict(hop=HOP, sa_noise_std=0.5, vad=VADConfig(), seed=0)
+    wavs = {f"s{i}": _duty_wave(L + 12 * HOP, 500 + i) for i in range(4)}
+    one = StreamServer(hw, cfg, slots=4, device=dev, **kw)
+    fleets = [ShardedStreamServer(hw, cfg, devices=2, slots=2,
+                                  parallel=parallel,
+                                  compiled=CompiledTickConfig(block=8),
+                                  obs=ObsConfig(audit="raise"), **kw)
+              for parallel in (False, True)]
+    runs = []
+    for srv in [one] + fleets:
+        for sid, w in wavs.items():
+            srv.submit(sid, w)
+            srv.finish(sid)
+        ops.COUNTS.reset()
+        runs.append((srv.drain(), ops.COUNTS.launches))
+    fleets[1].close()
+    per = lambda evs: {s: [{k: v for k, v in e.items() if k != "device"}
+                           for e in evs if e["stream"] == s] for s in wavs}
+    (ev1, _), (ev_seq, n_seq), (ev_par, n_par) = runs
+    assert per(ev_seq) == per(ev1) and per(ev_par) == per(ev1) and ev1
+    for fleet, n in zip(fleets, (n_seq, n_par)):
+        assert n == 5 * sum(p._imc_passes for p in fleet.pools)
+        assert all(p._compiled_ticks > 0 for p in fleet.pools)
+        assert fleet.stats()["audit"]["violations"] == 0

@@ -7,8 +7,7 @@ state) on the CPU.
   run with a recovery in flight, have the same spec tree, and every
   array leaf and scalar is equal in value, dtype and shape, bitwise.  The
   stated exceptions: wall fields (``wall_s``, ``serving.hop_wall_s``),
-  the port-only ``serving.imc_passes`` counter and JAX's
-  ``serving.compiled`` counters, and the score tolerance
+  the port-only ``serving.imc_passes`` counter, and the score tolerance
   (1e-6 on the decision state's posteriors and on trigger scores).  A
   port server restored from the JAX snapshot then serves JAX's events.
 * Round trips, port against port (``tests/test_reliability.py``'s
@@ -137,9 +136,8 @@ def _same_state(a, b):
 # ---------------------------------------------------------------------------
 
 _WALL = ("wall_s", "hop_wall_s")
-# the port counts its IMC forwards; the JAX package counts its
-# compiled blocks and ticks, which the port does not have yet
-_ONE_SIDED_COUNTERS = ("serving.imc_passes", "serving.compiled")
+# the port counts its IMC forwards, which the JAX package does not
+_ONE_SIDED_COUNTERS = ("serving.imc_passes",)
 _NODES = ("none", "v", "arr", "nt", "tuple", "list", "dict", "pkl")
 
 
