@@ -187,7 +187,20 @@ result line):
    one server's; the capture wall per graph, host ms per tick, the device
    busy share of a steady window, and wall decisions/s of compiled
    against interpreted in alternating pairs, and of the compiled fleets
-   against one compiled server.
+   against one compiled server;
+16. the examples and the LM stack's serving path (``phase_examples``): (a)
+   the three KWS examples of ``repro_torch.examples`` (``quickstart``,
+   ``stream_kws``, ``customize_onchip``) at their full sizes, each with
+   its wall time and its K1 and ``head_train_rows`` launches, then each
+   example's hardware-path calls at its own shapes through K1 and on the
+   plain route, bitwise equal; (b) the reduced qwen2.5-14b, starcoder2-15b
+   and internvl2-2b on the card against the port on the CPU with the same
+   parameters (``repro_torch.launch.crosscheck``: prefill and 8 decode
+   steps within ``LM_ULPS`` bfloat16 ulps, the server's greedy tokens);
+   (c) ``Server("qwen2.5-14b", reduced=False)`` at full width
+   answering ``main()``'s 4 requests: parameter bytes, peak memory, ms per
+   decode step beside the least time the card could take, tokens/s, and
+   the teacher-forced decode against ``prefill`` on one 8-token prompt.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -205,7 +218,8 @@ calls), ``launches_obs`` phase 12's served run with telemetry on,
 ``launches_snapshot`` phase 13's restored server's 12 ticks,
 ``launches_sharded`` phase 14's noise-free fleet run and
 ``launches_compiled`` phase 15's compiled run of phase 3's traffic on a
-clean chip (its replays' launches included); phase 2's
+clean chip (its replays' launches included) and ``launches_examples``
+phase 16's three examples (``head_train_rows`` too); phase 2's
 totals at every shape of ``K1_SHAPES`` are under ``layers_totals`` in the
 JSON object printed before the summaries.  The
 ``head_train_rows`` row is one launch at the customization path's shape
@@ -235,6 +249,11 @@ port in DIR in the same way, to compare two versions of K5 and K4.
 
 builds the kernels and runs phase 15 alone (compiled ticks), and prints
 no result line.
+
+    python3 chip_smoke.py --examples
+
+builds the kernels and runs phase 16 alone (the examples and the LM
+server), and prints no result line.
 """
 
 from __future__ import annotations
@@ -257,6 +276,7 @@ H100_BYTES_PER_S = 3.35e12
 H100_TF32_OPS_PER_S = 495e12
 H100_FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 H100_INT8_OPS_PER_S = 1979e12    # int8 tensor-core operations/s
+H100_BF16_OPS_PER_S = 989e12     # bfloat16 tensor-core operations/s
 KERNEL_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_fused.cu"
 REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:141"
 SGA_SOURCE = "src/repro_torch/kernels/sga_update/csrc/sga_update.cu"
@@ -4059,6 +4079,286 @@ def phase_compiled(torch, dev):
     return out
 
 
+# phase 16: the examples and the LM server
+EXAMPLES = ("quickstart", "stream_kws", "customize_onchip")
+LM_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b")
+LM_FULL = "qwen2.5-14b"
+LM_REQUESTS, LM_MAX_NEW, LM_STEPS = 4, 8, 8
+def _example_run(torch, dev, name):
+    """One example's ``main`` at its full size on the card, its output
+    captured: wall seconds and the K1 / K2 launch counts of the run, each
+    count set to 0 just before it and read just after, its output and
+    what ``main`` returned."""
+    import contextlib
+    import importlib
+    import io
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    counts = {"imc_fused": ops.COUNTS, "head_train_rows": sga_ops.COUNTS_HEAD,
+              "sga_update_rows": sga_ops.COUNTS_ROWS,
+              "sga_update": sga_ops.COUNTS_FLAT,
+              "imc_mav": ops.COUNTS_MAV}
+    os.environ.pop("REPRO_EXAMPLES_SMOKE", None)
+    buf = io.StringIO()
+    for c in counts.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = module.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counts.items()}
+    return dict(wall_s=wall, launches=launches, out=buf.getvalue(),
+                ret=ret)
+
+
+def _example_routes(torch, dev, name, ret, triggers):
+    """An example's hardware-path calls (``main``'s return) on the card
+    through K1 and on the plain route: logits and features bitwise equal
+    and finite; for ``stream_kws``, its streams served on both routes give
+    the same events, and the TRIGGER lines ``main`` printed are the plain
+    route's.  Returns the number of comparisons."""
+    from repro_torch.examples import stream_kws
+    from repro_torch.training import kws as tr
+    if name == "stream_kws":
+        from repro_torch.models import kws
+        window, hop, n, tail = stream_kws.sizes(False)
+        cfg = kws.KWSConfig(sample_len=window)
+        hw = stream_kws.folded_net(cfg, dev)
+        streams = stream_kws.make_streams(window, hop, n, tail)
+        _, ek = stream_kws.serve(hw, cfg, hop, streams, dev)
+        _, ep = stream_kws.serve(hw, cfg, hop, streams, dev,
+                                 use_kernel=False)
+        fields = ("stream", "hop", "keyword", "trigger", "score")
+        if [[e[f] for f in fields] for e in ek] != \
+                [[e[f] for f in fields] for e in ep] or not ep:
+            raise AssertionError("stream_kws: events through K1 differ "
+                                 "from the plain route's")
+        want = [stream_kws.trigger_line(e) for e in ep if e["trigger"]]
+        if triggers != want:
+            raise AssertionError(f"stream_kws: printed {triggers}, the "
+                                 f"plain route's {want}")
+        return len(ep)
+    n = 0
+    for what, hw, x, kw in ret["calls"]:
+        for out_index in (0, 1):                  # logits, features
+            k, p = (tr._hw_batched(hw, x, ret["cfg"], out_index,
+                                   use_kernel=u, device=dev, **_hw_kw(**kw))
+                    for u in (True, False))
+            if not torch.equal(k, p) or not torch.isfinite(k).all():
+                raise AssertionError(f"{name} ({what}): the outputs "
+                                     f"through K1 differ from the plain "
+                                     f"route's")
+            n += 1
+    return n
+
+
+def _lm_full(torch, dev):
+    """(c): ``Server(LM_FULL, reduced=False)`` on the card: ``main()``'s
+    traffic, walls, the device time per step, bytes and the bound, and
+    the teacher-forced decode against ``prefill`` on one 8-token
+    prompt."""
+    import gc
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import crosscheck, serve
+    from repro_torch.models import lm as LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = serve.Server(LM_FULL, reduced=False, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = srv.cfg
+    pbytes = LM.param_bytes(srv.params)
+    n_params = sum(a.numel() for a in LM.leaves(srv.params))
+    prompts = serve.prompts_for(cfg, LM_REQUESTS)
+    srv.submit_and_run(prompts[:1], max_new=2)          # warm-up
+    torch.cuda.synchronize()
+    stamps = []                         # the host clock at each step
+    decode = srv.decode
+
+    def stamped(params, caches, batch):
+        stamps.append(time.perf_counter())
+        return decode(params, caches, batch)
+    srv.decode = stamped
+    t0 = time.perf_counter()
+    outs = srv.submit_and_run(prompts, max_new=LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    srv.decode = decode
+    n_steps = len(stamps)
+    n_tokens = sum(len(o) for o in outs)
+    # a greedy step ends in its argmax on the host, so the gap from one
+    # greedy step's start to the next's is one step's latency
+    greedy, i = [], 0
+    for p in prompts:
+        i += len(p) - 1
+        greedy += [stamps[j + 1] - stamps[j]
+                   for j in range(i, i + LM_MAX_NEW - 1)]
+        i += LM_MAX_NEW
+    step_ms = statistics.median(greedy) * 1e3
+    # a short request under the profiler (3 prompt steps and 2 greedy
+    # ones): device busy time and launches a step
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        srv.submit_and_run([prompts[0][:4]], max_new=2)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    steps_prof = 3 + 2
+    dev_us, rows = device_time(torch, prof)
+    prof_s = time.perf_counter() - t_prof
+    kernels_n = sum(n for _, n in rows.values())
+    busy_ms = dev_us / 1e3 / steps_prof if kernels_n else None
+    launches_per_step = kernels_n / steps_prof
+    busy_share = dev_us / 1e6 / prof_wall if kernels_n else None
+    # the least bytes a step moves: every parameter once but the embedding
+    # table (one row of it), the valid K/V read, the new K/V written
+    row = cfg.d_model * 2
+    emb = srv.params["embed"].numel() * 2
+    kv_pos = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    mean_pos = np.mean([len(p) - 1 + LM_MAX_NEW for p in prompts]) / 2
+    step_bytes = pbytes - emb + row + kv_pos * (mean_pos + 1)
+    flops = 2 * (n_params - srv.params["embed"].numel())
+    bound = max(step_bytes / H100_BYTES_PER_S,
+                flops / H100_BF16_OPS_PER_S) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the teacher-forced decode against prefill at full width
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab_size, (1, 8))
+    last, _ = LM.prefill(srv.params, cfg, prompt)
+    caches = LM.init_cache(cfg, 1, 8, device=dev)
+    for t in range(8):
+        logits, caches = LM.decode_step(srv.params, cfg, prompt[:, t:t + 1],
+                                        caches, t)
+    tf_ulps = crosscheck.ulps_apart(logits, last)
+    same_top = int(torch.argmax(logits[0, -1, :cfg.vocab_size])) == int(
+        torch.argmax(last[0, -1, :cfg.vocab_size]))
+    if not tf_ulps <= crosscheck.LM_ULPS:
+        raise AssertionError(f"full width: teacher-forced decode "
+                             f"{tf_ulps:.2f} ulps from prefill")
+    if not all(len(o) == LM_MAX_NEW for o in outs):
+        raise AssertionError(f"full width: {outs}")
+    out = dict(arch=LM_FULL, params=n_params, param_bytes=pbytes,
+               init_s=init_s, peak_bytes=peak, requests=len(outs),
+               tokens=outs, steps=n_steps, wall_s=wall,
+               ms_per_step_wall=wall / n_steps * 1e3,
+               ms_per_greedy_step=step_ms, tokens_per_s=n_tokens / wall,
+               busy_ms_per_step=busy_ms, busy_share=busy_share,
+               launches_per_step=launches_per_step,
+               bound_ms=float(bound), bound_by=("bytes" if step_bytes
+                                         / H100_BYTES_PER_S >= flops
+                                         / H100_BF16_OPS_PER_S
+                                         else "operations"),
+               step_bytes=float(step_bytes), teacher_forced_ulps=tf_ulps,
+               teacher_forced_same_top=same_top, profile_s=prof_s)
+    log(f"[examples] (c) {LM_FULL} full width ({n_params / 1e9:.3f} B "
+        f"parameters, {pbytes / 1e9:.3f} GB bf16, init {init_s:.1f} s): "
+        f"{len(outs)} requests, {n_steps} decode steps in {wall:.3f} s, "
+        f"{out['ms_per_step_wall']:.3f} ms per step (greedy step median "
+        f"{step_ms:.3f} ms), {out['tokens_per_s']:.2f} tokens/s; device "
+        f"busy {busy_ms} ms (share {busy_share} under the profiler) and "
+        f"{launches_per_step:.0f} launches per step; bound {bound:.3f} ms "
+        f"({out['bound_by']}); peak memory "
+        f"{peak / 1e9:.3f} GB; teacher-forced decode against prefill "
+        f"{tf_ulps:.2f} ulps, same top token {same_top}; the profile took "
+        f"{prof_s:.1f} s")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_examples(torch, dev):
+    """Phase 16: the examples and the LM stack's serving path on the card.
+
+    (a) the three KWS examples (``repro_torch.examples``) at their full,
+        non-smoke sizes, each run by its ``main`` with ``--device cuda``:
+        its wall time and its launches of K1 (``imc_fused``, every example)
+        and of the fused head training (``head_train_rows``, the
+        enrollment session of ``customize_onchip``), each count set to 0
+        just before the run and read just after; ``customize_onchip``
+        asserts its session (K1 and ``head_train_rows``) bit-identical to
+        the offline loop on the plain route; then each example's
+        hardware-path calls at its own shapes (``quickstart`` at a
+        1000-sample window, clean, noisy and compensated; the others at
+        2000 with hop-256 tails) through K1 and on the plain route,
+        bitwise equal (``_example_routes``);
+    (b) the reduced qwen2.5-14b, starcoder2-15b and internvl2-2b (its
+        prefix frames too) on the card against the port on the CPU with
+        the same parameters (``launch.crosscheck.card_against_cpu``, which
+        the card tests run too): prefill's last logits and caches and 8
+        teacher-forced decode steps within ``LM_ULPS``, and the server's
+        greedy tokens on ``main()``'s traffic equal (or forked only where
+        the CPU's top-2 margin is within the tolerance);
+    (c) ``Server("qwen2.5-14b", reduced=False)``: 48 layers at d 5120,
+        14.77 B parameters in bfloat16 on the card, answering ``main()``'s
+        4 requests (4-9-token prompts, 8 new tokens each): parameter bytes,
+        peak memory, ms per decode step against the least time the card
+        could take for a step, tokens/s, device busy time and launches per
+        step (``torch.profiler`` over a 5-step request), and the
+        teacher-forced decode against ``prefill``'s last logits on one
+        8-token prompt."""
+    t_phase = time.perf_counter()
+    out = {"examples": {}}
+    for name in EXAMPLES:
+        r = _example_run(torch, dev, name)
+        lines = [ln for ln in r["out"].splitlines()
+                 if ln.startswith(("==", "   hw", "   noisy", "   comp",
+                                   "   before", "   after", "   TRIGGER",
+                                   "before", "+ ", "baseline", "quantized",
+                                   "enrollment"))]
+        for ln in lines:
+            log(f"[examples] {name}: {ln.strip()}")
+        if r["launches"]["imc_fused"] == 0:
+            raise AssertionError(f"{name}: K1 was not launched")
+        if name == "customize_onchip":
+            if r["launches"]["head_train_rows"] == 0:
+                raise AssertionError("customize_onchip: head_train_rows "
+                                     "was not launched")
+            if "bit-identical to the offline loop" not in r["out"]:
+                raise AssertionError("customize_onchip: no session line")
+        triggers = [ln for ln in r.pop("out").splitlines()
+                    if "TRIGGER" in ln]
+        r["triggers"] = len(triggers)
+        t0 = time.perf_counter()
+        r["route_checks"] = _example_routes(torch, dev, name, r.pop("ret"),
+                                            triggers)
+        r["route_check_s"] = time.perf_counter() - t0
+        out["examples"][name] = r
+        log(f"[examples] (a) {name}: {r['wall_s']:.2f} s, launches "
+            f"{r['launches']}; through K1 and the plain route bitwise "
+            f"equal in {r['route_checks']} comparisons "
+            f"({r['route_check_s']:.1f} s)")
+    out["a_s"] = time.perf_counter() - t_phase
+    from repro_torch.launch import crosscheck
+    t0 = time.perf_counter()
+    out["reduced"] = {}
+    for arch in LM_ARCHS:
+        r = out["reduced"][arch] = crosscheck.card_against_cpu(
+            arch, dev, steps=LM_STEPS, requests=LM_REQUESTS,
+            max_new=LM_MAX_NEW)
+        log(f"[examples] (b) {arch} reduced, card against CPU: prefill "
+            f"{r['prefill_ulps']:.2f} ulps (caches "
+            f"{r['prefill_cache_ulps']:.2f}), {LM_STEPS} decode steps "
+            f"{r['decode_ulps']:.2f} ulps (caches "
+            f"{r['decode_cache_ulps']:.2f}), tolerance "
+            f"{crosscheck.LM_ULPS}; greedy tokens equal: "
+            f"{r['tokens_equal']} {r['forks']}")
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"] = _lm_full(torch, dev)
+    out["c_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[examples] phase 16 took {out['seconds']:.1f} s: (a) "
+        f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4071,10 +4371,13 @@ def main() -> int:
                     "one)")
     ap.add_argument("--compiled", action="store_true",
                     help="build the kernels and run phase 15 alone")
+    ap.add_argument("--examples", action="store_true",
+                    help="build the kernels and run phase 16 alone")
     args = ap.parse_args()
     if sum((args.layers is not None, args.tiles is not None,
-            args.compiled)) > 1:
-        ap.error("--layers, --tiles and --compiled are separate runs")
+            args.compiled, args.examples)) > 1:
+        ap.error("--layers, --tiles, --compiled and --examples are "
+                 "separate runs")
     root = os.path.abspath(args.layers or args.tiles or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
@@ -4109,6 +4412,11 @@ def main() -> int:
         compiled = phase_compiled(torch, dev)
         print(json.dumps({"card": smi, "compiled": compiled}), flush=True)
         return 0
+    if args.examples:
+        smi = phase_build(torch)
+        examples = phase_examples(torch, dev)
+        print(json.dumps({"card": smi, "examples": examples}), flush=True)
+        return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
     widths = phase_widths(torch, dev)
@@ -4129,6 +4437,7 @@ def main() -> int:
     snap = phase_snapshot(torch, dev)
     sharded = phase_sharded(torch, dev)
     compiled = phase_compiled(torch, dev)
+    examples = phase_examples(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -4142,7 +4451,7 @@ def main() -> int:
                       "reliability": rel, "learning": learning,
                       "pipeline": pipeline, "obs": obs,
                       "snapshot": snap, "sharded": sharded,
-                      "compiled": compiled}),
+                      "compiled": compiled, "examples": examples}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -4215,6 +4524,24 @@ def main() -> int:
         f"{compiled['busy']['compiled']['share']:.4f} compiled, "
         f"{compiled['busy']['interpreted']['share']:.4f} interpreted; K1 "
         f"{compiled['launches']} launches in the clean compiled run")
+    ex, lm_full = examples["examples"], examples["full"]
+    log(f"[summary] {smi}: examples at full size (phase 16): "
+        + "; ".join(f"{k} {v['wall_s']:.2f} s, K1 "
+                    f"{v['launches']['imc_fused']}, head_train_rows "
+                    f"{v['launches']['head_train_rows']}"
+                    for k, v in ex.items()))
+    log(f"[summary] {smi}: LM server {LM_FULL} full width: "
+        f"{lm_full['param_bytes']} parameter bytes, peak "
+        f"{lm_full['peak_bytes']} bytes; {lm_full['ms_per_step_wall']:.3f} "
+        f"ms per decode step (greedy step median "
+        f"{lm_full['ms_per_greedy_step']:.3f} ms, device busy "
+        f"{lm_full['busy_ms_per_step']} ms, "
+        f"{lm_full['launches_per_step']:.0f} launches), bound "
+        f"{lm_full['bound_ms']:.3f} ms; {lm_full['tokens_per_s']:.2f} "
+        f"tokens/s; reduced card against CPU (ulps): "
+        + ", ".join(f"{a} prefill {r['prefill_ulps']:.2f} decode "
+                    f"{r['decode_ulps']:.2f}"
+                    for a, r in examples["reduced"].items()))
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
@@ -4237,7 +4564,9 @@ def main() -> int:
         "launches_obs": obs["launches"],
         "launches_snapshot": snap["launches_after"],
         "launches_sharded": sharded["launches"],
-        "launches_compiled": compiled["launches"]}]
+        "launches_compiled": compiled["launches"],
+        "launches_examples": sum(v["launches"]["imc_fused"]
+                                 for v in ex.values())}]
     for name, n in (("head_train_rows", custom["launches_head"]),
                     ("sga_update_rows", rgp["launches_rows"]),
                     ("sga_update", custom["launches_flat"])):
@@ -4249,6 +4578,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
     kernels[1]["launches_sessions4"] = snap["launches_head"]
+    kernels[1]["launches_examples"] = sum(
+        v["launches"]["head_train_rows"] for v in ex.values())
     log(f"[summary] {smi}: imc_mav, one per-group forward's "
         f"{group['launches']['imc_mav']} launches (B={B}): kernel "
         f"{mav['ms']:.4f} ms, plain {mav['plain_ms']:.4f} ms, float32 "

@@ -1,0 +1,316 @@
+"""Shared layer library of the LM stack, the parts its dense and VLM
+families run: norms, rotary position embeddings, dense projections,
+attention (MHA / GQA, optional QK-norm and bias) with its KV cache, and the
+SwiGLU / GeLU MLP.
+
+Every layer is an (init, apply) pair over explicit parameter dicts, as in
+the JAX package's ``models/layers.py``.  Products run in bfloat16 with
+float32 accumulation (``float32_accumulation``, which the LM's entry points
+hold), reductions in float32.  The reference keeps float32
+leaves and casts them to bfloat16 at every use; the port stores that cast
+once (``dense_init`` returns bfloat16 leaves), which gives the same
+numbers, and keeps the norm scales in float32, where the reference uses
+them.  The reference's ``ShardingPolicy`` is not carried over: on one card
+it is the identity.
+
+Numerics against the reference on the CPU: ``rmsnorm`` and ``layernorm``
+take their means as ``core.means`` does (the sum times the float32
+reciprocal, as XLA compiles ``jnp.mean``), but XLA's CPU code sums the
+squares in another order and takes ``rsqrt`` as an estimate refined by a
+Newton step (about one in seven results is an ulp off the correctly
+rounded one), and its jitted ``pow``, ``sin`` and ``cos`` are not torch's
+either.  The bfloat16 products sum in another order than XLA's, and XLA
+may skip a bfloat16 rounding inside a fusion.  So a float32 result can
+differ from the reference's by an ulp or a few, and a bfloat16 one by an
+ulp (``tests/test_torch_lm.py`` states each tolerance and its cause).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import means
+
+COMPUTE_DTYPE = torch.bfloat16
+MASK_VALUE = -1e30
+
+
+@contextlib.contextmanager
+def float32_accumulation():
+    """cuBLAS accumulates bfloat16 products in float32 inside (torch's
+    default lets it reduce them at lower precision); the setting is
+    restored on exit.  On the CPU it changes nothing."""
+    matmul = torch.backends.cuda.matmul
+    keep = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = keep
+
+
+def draw_normal(gen: torch.Generator, shape, scale: float,
+            device) -> torch.Tensor:
+    """One float32 normal draw of ``shape`` on ``device``, times ``scale``,
+    stored once as bfloat16 (the reference's cast at use)."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, device=None) -> Dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = means.mean(xf * xf, -1).unsqueeze(-1)
+    y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def layernorm_init(d: int, device=None) -> Dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = means.mean(xf, -1).unsqueeze(-1)
+    centered = xf - mu
+    var = means.mean(centered * centered, -1).unsqueeze(-1)
+    y = centered * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device=None) -> torch.Tensor:
+    """``1 / theta ** (2i / head_dim)`` for i < head_dim / 2, float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of (B, S, 1, hd/2) for positions (B, S) or (S,): what
+    a rotation multiplies by (``lm.decode_step`` makes them once for every
+    layer of a step)."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs            # (B, S, hd/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def _rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (B, S, H, hd) rotated by ``rope_tables``' (cos, sin)."""
+    cos, sin = tables
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    return _rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Dense projections
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               bias: bool = False, scale: Optional[float] = None,
+               device=None) -> Dict:
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": draw_normal(gen, (d_in, d_out), scale, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=COMPUTE_DTYPE, device=device)
+    return p
+
+
+def dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Attention (MHA / GQA, optional QK-norm & bias), with KV-cache support
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False            # qwen3 style
+    rope_theta: float = 1e4
+    causal: bool = True
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, device=None) -> Dict:
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device),
+        "wo": dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model,
+                         device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg.head_dim, device)
+        p["k_norm"] = rmsnorm_init(cfg.head_dim, device)
+    return p
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, Hkv * n_rep, hd), each kv head repeated
+    ``n_rep`` times in place (``jnp.repeat`` on the head axis)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, index: int) -> None:
+    """``dynamic_update_slice_in_dim(buf, new, index, axis=1)`` written
+    into ``buf``: the start is clamped so that the slice fits, as XLA
+    clamps it."""
+    s = new.shape[1]
+    start = min(max(int(index), 0), buf.shape[1] - s)
+    buf[:, start:start + s] = new.to(buf.dtype)
+
+
+def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache: Optional[Dict] = None,
+              cache_index=None,
+              kv_override: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self- (or cross-, via ``kv_override``) attention.
+
+    rope: ``rope_tables`` of the positions of x's tokens, which rotate q
+    and k; ``None`` means ``arange(s)`` (plus ``cache_index``), the only
+    positions the reference's LM passes.
+    cache: {"k", "v"} of (B, S_max, Hkv, hd) for incremental decoding; the
+    new kv is written into these buffers at ``cache_index`` (an int or a
+    0-dim tensor), and they are returned as the new cache (callers that
+    keep the old cache pass a copy: ``lm.decode_step`` copies each stacked
+    cache once per step).  Returns (out, new_cache)."""
+    b, s, _ = x.shape
+    dev = x.device
+    q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    kv_src = x if kv_override is None else kv_override
+    sk = kv_src.shape[1]
+    k = dense(p["wk"], kv_src).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(p["wv"], kv_src).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    if kv_override is None:                     # RoPE only for self-attn
+        if rope is None:
+            rope = rope_tables(torch.arange(s, device=dev) + (
+                0 if cache_index is None else int(cache_index)),
+                cfg.head_dim, cfg.rope_theta)
+        q = _rotate(q, rope)
+        k = _rotate(k, rope)
+
+    new_cache = None
+    if cache is not None:
+        # decode: write the new kv at cache_index, attend over the cache
+        _write_cache(cache["k"], k, cache_index)
+        _write_cache(cache["v"], v, cache_index)
+        new_cache = cache
+        k, v = cache["k"], cache["v"]
+        sk = k.shape[1]
+
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+
+    # the reference scales the bfloat16 logits by a weakly typed scalar,
+    # so by the scale rounded to bfloat16; XLA then skips the product's
+    # bfloat16 rounding before the float32 cast (excess precision), and so
+    # does the port: the product is taken and kept in float32
+    scale = float(torch.tensor(cfg.head_dim ** -0.5, dtype=q.dtype))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if cfg.causal and cache is None and kv_override is None and s == sk:
+        future = torch.ones((s, sk), dtype=torch.bool, device=dev).triu(1)
+        logits = logits.masked_fill(future[None, None], MASK_VALUE)
+    elif cache is not None:
+        # decode: mask future cache slots
+        future = torch.arange(sk, device=dev)[None, None, None, :] > (
+            int(cache_index)
+            + torch.arange(s, device=dev)[None, None, :, None])
+        logits = logits.masked_fill(future, MASK_VALUE)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    w = (e / torch.sum(e, dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return dense(p["wo"], out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP: SwiGLU (llama family) or GeLU (starcoder2 family)
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             gated: bool = True, bias: bool = False, device=None) -> Dict:
+    p = {"w_up": dense_init(gen, d_model, d_ff, bias, device=device),
+         "w_down": dense_init(gen, d_ff, d_model, bias, device=device)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, bias, device=device)
+    return p
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA compiles it: ``x * 1 / (1 + exp(-x))``, each
+    step rounded to ``x``'s dtype (bitwise the reference's on bfloat16)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, as XLA compiles
+    it: each step rounded to ``x``'s dtype, the constants too (bitwise the
+    reference's on bfloat16; ``F.gelu(approximate="tanh")`` rounds once
+    and parts from it in about half the values)."""
+    c1, c2 = (float(torch.tensor(c, dtype=x.dtype))
+              for c in (0.044715, (2.0 / math.pi) ** 0.5))
+    inner = (x + x * x * x * c1) * c2
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def mlp(p: Dict, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
+    up = dense(p["w_up"], x)
+    if gated:
+        h = silu(dense(p["w_gate"], x)) * up
+    else:
+        h = gelu_tanh(up)
+    return dense(p["w_down"], h)

@@ -1,0 +1,375 @@
+"""The decoder LM of the LM stack: its dense and VLM families.
+
+As in the JAX package's ``models/lm.py``, a model is a static plan of
+homogeneous layer segments (``seg_plan``), each segment's parameters
+stacked on a leading layer axis; one code path serves the full-sequence
+forward (``forward_lm``), the prefill that writes the KV cache
+(``prefill``) and the one-token decode against it (``decode_step``).  The
+reference scans over the stack; the port loops over it in Python, one
+layer's slice at a time.
+
+Ported so far: the ``attn_mlp`` segment, which is the whole plan of the
+``dense`` and ``vlm`` families (qwen2.5-14b, starcoder2-15b, internlm2-20b,
+mistral-large-123b, internvl2-2b).  Every other segment kind raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+
+Parameters are bfloat16 where the reference casts them at use (the
+embedding, the unembedding, every dense weight and bias) and float32 where
+it uses them so (the norm scales).  ``init_lm`` draws them on the device;
+``params_from_numpy`` carries the JAX package's.  ``forward_lm``,
+``decode_step`` and ``prefill`` run their bfloat16 products with float32
+accumulation on the card (``layers.float32_accumulation``), whoever calls
+them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import resolve_device
+from repro_torch.models import layers as L
+
+COMPUTE = torch.bfloat16
+
+# the ROADMAP.md item that ports each segment kind still missing
+_NOT_PORTED = {
+    "attn_moe": "ROADMAP.md queue 1, item 7c (MoE)",
+    "mamba": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 hybrid)",
+    "zamba_group": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 "
+                   "hybrid)",
+    "mlstm": "ROADMAP.md queue 1, item 7e (xLSTM)",
+    "slstm": "ROADMAP.md queue 1, item 7e (xLSTM)",
+}
+
+
+# ---------------------------------------------------------------------------
+# Segments: a static plan of homogeneous layer groups
+# ---------------------------------------------------------------------------
+
+
+def seg_plan(cfg: ArchConfig):
+    """Returns a list of (kind, count) with kind in
+    {'attn_mlp','attn_moe','mlstm','slstm','zamba_group','mamba'}."""
+    if cfg.family in ("dense", "vlm"):
+        return [("attn_mlp", cfg.n_layers)]
+    if cfg.family == "moe":
+        return [("attn_moe", cfg.n_layers)]
+    if cfg.family == "xlstm":
+        plan, run = [], 0
+        for i in range(cfg.n_layers):
+            if i in cfg.slstm_positions:
+                if run:
+                    plan.append(("mlstm", run))
+                    run = 0
+                plan.append(("slstm", 1))
+            else:
+                run += 1
+        if run:
+            plan.append(("mlstm", run))
+        return plan
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        groups, rem = divmod(cfg.n_layers, k)
+        plan = [("zamba_group", groups * k)]      # groups x (attn + k mamba)
+        if rem:
+            plan.append(("mamba", rem))
+        return plan
+    raise ValueError(cfg.family)
+
+
+def _require_ported(kind: str) -> None:
+    if kind != "attn_mlp":
+        raise NotImplementedError(
+            f"segment kind {kind!r} is not ported yet: "
+            f"{_NOT_PORTED.get(kind, 'not a segment kind of the LM')}")
+
+
+def _check_plan(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    plan = seg_plan(cfg)
+    for kind, _ in plan:
+        _require_ported(kind)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init/apply
+# ---------------------------------------------------------------------------
+
+
+def _attn_block_init(gen: torch.Generator, cfg: ArchConfig, with_moe: bool,
+                     device=None) -> Dict:
+    if with_moe:
+        _require_ported("attn_moe")
+    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+            "attn": L.attn_init(gen, cfg.attn_cfg(), device),
+            "ln2": L.rmsnorm_init(cfg.d_model, device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              device=device)}
+
+
+def _attn_block_apply(p, cfg: ArchConfig, h, cache=None, cache_index=None,
+                      rope=None):
+    """Returns (h, new_cache, aux_loss); the dense block's aux loss is
+    0.0.  ``cache`` is written in place (``L.attention``)."""
+    a, new_cache = L.attention(p["attn"], cfg.attn_cfg(),
+                               L.rmsnorm(p["ln1"], h), rope=rope,
+                               cache=cache, cache_index=cache_index)
+    if "moe" in p:
+        _require_ported("attn_moe")
+    # the reference's ``h + a`` is a bfloat16 sum, but XLA keeps it in
+    # float32 where the second norm reads it (excess precision) and rounds
+    # it only for the residual add after the MLP; the port does the same
+    mid = h.float() + a.float()
+    m = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], mid).to(h.dtype),
+              cfg.gated_mlp)
+    return mid.to(h.dtype) + m, new_cache, 0.0
+
+
+def tree_map(fn, tree):
+    """``fn`` over every tensor of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def layer(seg: Dict, i: int) -> Dict:
+    """Layer ``i``'s parameters of a stacked segment (views, no copy)."""
+    return tree_map(lambda a: a[i], seg)
+
+
+def _seg_init(gen: torch.Generator, cfg: ArchConfig, kind: str, count: int,
+              device=None) -> Dict:
+    """Stacked params for one segment: each layer drawn in turn and
+    written into its slice of the stack."""
+    _require_ported(kind)
+    first = _attn_block_init(gen, cfg, False, device)
+    stacked = tree_map(lambda a: torch.empty(
+        (count, *a.shape), dtype=a.dtype, device=a.device), first)
+    for i in range(count):
+        one = first if i == 0 else _attn_block_init(gen, cfg, False, device)
+        for dst, src in zip(leaves(layer(stacked, i)), leaves(one)):
+            dst.copy_(src)
+    return stacked
+
+
+# ---------------------------------------------------------------------------
+# Model init, and the reference's parameters carried over
+# ---------------------------------------------------------------------------
+
+
+def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+            device=None, seed: int = 0) -> Dict:
+    """Random parameters at the reference's scales, drawn on ``device``
+    (``None`` means CUDA) from ``generator`` (one seeded with ``seed`` when
+    none is given): each leaf a float32 normal cast once to bfloat16
+    (embed x 0.02, unembed x d^-0.5, dense x d_in^-0.5), norm scales ones
+    in float32, biases zeros."""
+    dev = resolve_device(device)
+    plan = _check_plan(cfg)
+    if generator is None and dev.type != "meta":
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": L.draw_normal(generator, (cfg.vocab_padded, cfg.d_model),
+                               0.02, dev),
+        "ln_f": L.rmsnorm_init(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.draw_normal(
+            generator, (cfg.d_model, cfg.vocab_padded),
+            cfg.d_model ** -0.5, dev)
+    params["segments"] = [_seg_init(generator, cfg, kind, count, dev)
+                          for kind, count in plan]
+    return params
+
+
+def _carry(path: Tuple[str, ...], a, dev) -> torch.Tensor:
+    # norm scales (and layer-norm biases) are used in float32; every other
+    # leaf is cast to bfloat16 at each use by the reference
+    dtype = (torch.float32 if path[-1] in ("scale", "bias")
+             else COMPUTE)
+    return torch.tensor(np.asarray(a, dtype=np.float32),
+                        device=dev).to(dtype)
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Dict:
+    """The JAX package's LM parameters (``init_lm``'s pytree, its leaves as
+    numpy arrays) as the port's, on ``device`` (``None`` means CUDA):
+    bfloat16 where the reference casts at use, float32 norm scales."""
+    dev = resolve_device(device)
+    _check_plan(cfg)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path) for v in node]
+        return _carry(path, node, dev)
+    return walk(tree, ())
+
+
+def param_bytes(params) -> int:
+    """Bytes the parameters hold on their device."""
+    return sum(a.numel() * a.element_size() for a in leaves(params))
+
+
+def _device_of(params) -> torch.device:
+    return params["embed"].device
+
+
+def _tokens(tokens, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(tokens) if not isinstance(
+        tokens, torch.Tensor) else tokens, device=dev).long()
+
+
+def _embed(params, tokens) -> torch.Tensor:
+    return params["embed"].to(COMPUTE)[tokens]
+
+
+def _unembed(params, cfg: ArchConfig, h) -> torch.Tensor:
+    unembed = (params["embed"].T if cfg.tie_embeddings
+               else params["unembed"]).to(COMPUTE)
+    return h @ unembed
+
+
+# ---------------------------------------------------------------------------
+# Segment forward (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h):
+    """Full-seq forward of one segment. Returns (h, aux)."""
+    _require_ported(kind)
+    for i in range(count):
+        h, _, _ = _attn_block_apply(layer(seg_params, i), cfg, h)
+    # the attn_mlp block has no auxiliary loss (only MoE routing has one)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# Full forward (scoring)
+# ---------------------------------------------------------------------------
+
+
+@L.float32_accumulation()
+def forward_lm(params, cfg: ArchConfig, tokens,
+               prefix_embeds: Optional[torch.Tensor] = None,
+               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int.  prefix_embeds: (B, P, D) modality stub.
+    Returns (logits (B, S_total, Vpad) bf16, aux_loss).  ``train`` only
+    selects rematerialization in the reference; the port has no backward
+    yet (``ROADMAP.md`` queue 1, item 7b)."""
+    plan = _check_plan(cfg)
+    dev = _device_of(params)
+    h = _embed(params, _tokens(tokens, dev))
+    if prefix_embeds is not None:
+        h = torch.cat([torch.as_tensor(prefix_embeds, device=dev).to(COMPUTE),
+                       h], dim=1)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for (kind, count), seg in zip(plan, params["segments"]):
+        h, aux = _seg_forward(seg, cfg, kind, count, h)
+        aux_total = aux_total + aux
+    h = L.rmsnorm(params["ln_f"], h)
+    return _unembed(params, cfg, h), aux_total
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE,
+               device=None) -> list:
+    """Cache list mirroring the segment plan, on ``device`` (``None``
+    means CUDA): per attention segment {"k", "v"} of (count, batch,
+    max_len, n_kv_heads, head_dim) zeros."""
+    dev = resolve_device(device)
+    caches = []
+    for kind, count in _check_plan(cfg):
+        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Decode step and prefill
+# ---------------------------------------------------------------------------
+
+
+@L.float32_accumulation()
+def decode_step(params, cfg: ArchConfig, tokens, caches: list, index
+                ) -> Tuple[torch.Tensor, list]:
+    """tokens: (B, 1); index: the position to write in the cache (an int
+    or a 0-dim tensor).  Returns (logits (B, 1, Vpad), new_caches); the
+    given caches are not written (each stacked cache is copied once, and
+    the layers write their slices of the copy)."""
+    plan = _check_plan(cfg)
+    dev = _device_of(params)
+    index = int(index)
+    h = _embed(params, _tokens(tokens, dev))
+    rope = L.rope_tables(torch.arange(h.shape[1], device=dev)[None, :]
+                         + index, cfg.head_dim, cfg.rope_theta)
+    new_caches = []
+    for (kind, count), seg, cache in zip(plan, params["segments"], caches):
+        nk, nv = cache["k"].clone(), cache["v"].clone()
+        for i in range(count):
+            h, _, _ = _attn_block_apply(
+                layer(seg, i), cfg, h, cache={"k": nk[i], "v": nv[i]},
+                cache_index=index, rope=rope)
+        new_caches.append({"k": nk, "v": nv})
+    h = L.rmsnorm(params["ln_f"], h)
+    return _unembed(params, cfg, h), new_caches
+
+
+@L.float32_accumulation()
+def prefill(params, cfg: ArchConfig, tokens,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence prefill: returns (last-position logits, caches filled
+    for positions [0, S)).  The K/V of the whole sequence are recomputed
+    per layer into the cache (K with RoPE applied, V without); each cache
+    is S positions long, S counting the prefix."""
+    plan = _check_plan(cfg)
+    dev = _device_of(params)
+    tokens = _tokens(tokens, dev)
+    b, s = tokens.shape
+    h = _embed(params, tokens)
+    if prefix_embeds is not None:
+        h = torch.cat([torch.as_tensor(prefix_embeds, device=dev).to(COMPUTE),
+                       h], dim=1)
+        s = h.shape[1]
+    acfg = cfg.attn_cfg()
+    positions = torch.arange(s, device=dev)[None, :]
+    caches = []
+    for (kind, count), seg in zip(plan, params["segments"]):
+        ks, vs = [], []
+        for i in range(count):
+            lp = layer(seg, i)
+            xn = L.rmsnorm(lp["ln1"], h)
+            k = L.dense(lp["attn"]["wk"], xn).reshape(
+                b, s, acfg.n_kv_heads, acfg.head_dim)
+            v = L.dense(lp["attn"]["wv"], xn).reshape(
+                b, s, acfg.n_kv_heads, acfg.head_dim)
+            if acfg.qk_norm:
+                k = L.rmsnorm(lp["attn"]["k_norm"], k)
+            ks.append(L.apply_rope(k, positions, acfg.rope_theta))
+            vs.append(v)
+            h, _, _ = _attn_block_apply(lp, cfg, h)
+        caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+    h = L.rmsnorm(params["ln_f"], h[:, -1:])
+    return _unembed(params, cfg, h), caches

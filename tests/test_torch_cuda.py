@@ -1878,3 +1878,39 @@ def test_parallel_fleet_of_compiled_pools_on_one_card(dev):
         assert n == 5 * sum(p._imc_passes for p in fleet.pools)
         assert all(p._compiled_ticks > 0 for p in fleet.pools)
         assert fleet.stats()["audit"]["violations"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The LM stack's serving path and the examples on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
+                                  "internvl2-2b"])
+def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
+    """Prefill (the VLM with its prefix frames) and 8 teacher-forced
+    decode steps on the card against the CPU on the same parameters, and
+    ``Server(device="cuda")``'s greedy tokens on ``main()``'s traffic
+    against the CPU server's: ``launch.crosscheck``'s tolerance and fork
+    rule, which ``chip_smoke.py`` phase 16 (b) applies too."""
+    from repro_torch.launch import crosscheck
+    out = crosscheck.card_against_cpu(arch, dev)
+    for key in ("prefill_ulps", "prefill_cache_ulps", "decode_ulps",
+                "decode_cache_ulps"):
+        assert out[key] <= crosscheck.LM_ULPS, (key, out[key])
+
+
+def test_stream_kws_example_on_the_card(dev, monkeypatch, capsys):
+    """The ``stream_kws`` example at its smoke size on the card: K1 five
+    launches per IMC forward, and the same lines as on the CPU but the
+    device and the decisions/s."""
+    from repro_torch.examples import stream_kws
+    monkeypatch.setenv("REPRO_EXAMPLES_SMOKE", "1")
+    keep = lambda out: [ln for ln in out.splitlines()
+                        if "decisions/s" not in ln and "serving" not in ln]
+    stream_kws.main(["--device", "cpu"])
+    want = keep(capsys.readouterr().out)
+    ops.COUNTS.reset()
+    stream_kws.main(["--device", "cuda"])
+    got = keep(capsys.readouterr().out)
+    assert ops.COUNTS.launches > 0 and ops.COUNTS.launches % 5 == 0
+    assert got == want
