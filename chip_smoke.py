@@ -194,13 +194,27 @@ result line):
    its wall time and its K1 and ``head_train_rows`` launches, then each
    example's hardware-path calls at its own shapes through K1 and on the
    plain route, bitwise equal; (b) the reduced qwen2.5-14b, starcoder2-15b
-   and internvl2-2b on the card against the port on the CPU with the same
-   parameters (``repro_torch.launch.crosscheck``: prefill and 8 decode
-   steps within ``LM_ULPS`` bfloat16 ulps, the server's greedy tokens);
-   (c) ``Server("qwen2.5-14b", reduced=False)`` at full width
+   and internvl2-2b on the card against the port on the CPU, each server
+   with its own ``jaxrand`` draw from ``PRNGKey(0)``, bitwise equal
+   (``repro_torch.launch.crosscheck``: prefill and 8 decode steps within
+   ``LM_ULPS`` bfloat16 ulps, the server's greedy tokens); (c)
+   ``Server("qwen2.5-14b", reduced=False)`` at full width, its 14.77 B
+   parameters drawn through ``jaxrand`` on the card (the draw's wall time),
    answering ``main()``'s 4 requests: parameter bytes, peak memory, ms per
    decode step beside the least time the card could take, tokens/s, and
-   the teacher-forced decode against ``prefill`` on one 8-token prompt.
+   the teacher-forced decode against ``prefill`` on one 8-token prompt;
+17. LM training (``phase_train``): (a) the reduced qwen2.5-14b,
+   starcoder2-15b and internvl2-2b: the float32 and bfloat16 ``jaxrand``
+   draws on the card bitwise the CPU's, one train step on the card against
+   the CPU within the training tolerances of ``launch.crosscheck``, and a
+   12-step ``train_loop`` failing at step 9 and resumed from its
+   checkpoint against the straight run (within 1e-4; bit for bit or not,
+   and which parameter leaves differ); (b)
+   ``train_loop("internvl2-2b", 6, reduced=False, batch=8, seq=64)``:
+   parameters and bytes, the draw's wall time, the step-1 loss in (0.5 ln
+   V, 2.5 ln V), the parameters moved, ms per step against
+   ``train_bound``, tokens/s, device busy time and launches in a profiled
+   step, peak memory, and the bytes a checkpoint would hold.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -254,6 +268,11 @@ no result line.
 
 builds the kernels and runs phase 16 alone (the examples and the LM
 server), and prints no result line.
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs phase 17 alone (LM training), and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -4359,6 +4378,225 @@ def phase_examples(torch, dev):
     return out
 
 
+# phase 17: LM training
+TRAIN_ARCHS = LM_ARCHS
+TRAIN_FULL = "internvl2-2b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 64
+ADAM_PASSES = 7        # float32 passes of an Adam step: p, g, m, v in; p, m, v out
+MOVED_SAMPLE = 4096    # elements of each leaf compared before and after
+GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
+
+
+def train_bound(n_params, n_dense, tokens):
+    """(ms, bound_by, flops, bytes): the least time one training step
+    could take on the card, the larger of two times: 6 FLOPs per parameter
+    per token (a forward and a backward of every product; ``n_dense``, the
+    parameters but the embedding table, whose forward is a gather) over
+    the bfloat16 dense peak, and Adam's ``ADAM_PASSES`` float32 passes over
+    every leaf over the memory rate."""
+    flops = 6 * n_dense * tokens
+    nbytes = ADAM_PASSES * 4 * n_params
+    t_ops = flops / H100_BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _train_reduced(torch, dev):
+    """(a): the reduced configs, card against CPU: the ``jaxrand`` draw
+    (float32 and bfloat16 leaves) bitwise, one train step within the
+    training tolerances, and a 12-step ``train_loop`` failing at step 9
+    and resumed from its step-8 checkpoint against the straight run."""
+    import shutil
+    from repro_torch.launch import crosscheck
+    out = {}
+    for arch in TRAIN_ARCHS:
+        r = out[arch] = {"init": crosscheck.init_card_against_cpu(arch, dev),
+                         "step": crosscheck.train_step_card_against_cpu(
+                             arch, dev)}
+        st = r["step"]
+        log(f"[train] (a) {arch} reduced: the jaxrand draw on the card "
+            f"equals the CPU's ({r['init']['leaves']} leaves, float32 and "
+            f"bfloat16); one train step card against CPU: loss "
+            f"{st['loss_card']:.6f} / {st['loss_cpu']:.6f} (rtol "
+            f"{st['loss_rtol']:.2e}), gradients {st['grad_share']:.2e}, mu "
+            f"{st['mu_share']:.2e}, nu {st['nu_share']:.2e} of each leaf's "
+            f"largest, parameters bit-equal {st['params_equal']:.4f}")
+    arch = TRAIN_ARCHS[0]
+    root = os.path.join(ROOT, "build", "phase17_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    out["resume"] = crosscheck.resume_against_straight(arch, dev, root)
+    shutil.rmtree(root, ignore_errors=True)
+    rs = out["resume"]
+    log(f"[train] (a) {arch} reduced, 12 steps straight against a failure "
+        f"at step 9 resumed from step 8: final loss {rs['straight']:.7f} / "
+        f"{rs['resumed']:.7f} (gap {rs['gap']:.2e}, within "
+        f"{crosscheck.RESUME_ATOL}); bit for bit: {rs['bitwise']} (leaves "
+        f"that differ: {rs['leaves_differ']})")
+    return out
+
+
+def _train_full(torch, dev):
+    """(b): ``train_loop(TRAIN_FULL, TRAIN_STEPS, reduced=False)`` at batch
+    ``TRAIN_BATCH`` and seq ``TRAIN_SEQ`` on the card, each step timed
+    between two synchronisations by a wrapper of the step it builds, the
+    draw timed the same way; then one more step under the profiler."""
+    import gc
+    import math
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+    from repro_torch.launch import steps, train
+    from repro_torch.optim.optimizers import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    draw_s, step_s, losses, first = [], [], [], []
+    make, init = train.make_train_step, train.init_params_for
+
+    def sample(x):
+        return x.detach().flatten()[::max(1, x.numel() // MOVED_SAMPLE)]
+
+    def timed_init(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init(*args, **kw)
+        torch.cuda.synchronize()
+        draw_s.append(time.perf_counter() - t0)
+        first.extend(sample(x).clone() for x in tree_leaves(params))
+        return params
+
+    def timed_make(cfg, optimizer):
+        step = make(cfg, optimizer)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(out[2]["loss"]))
+            return out
+        return timed
+    train.make_train_step, train.init_params_for = timed_make, timed_init
+    try:
+        t0 = time.perf_counter()
+        params, metrics = train.train_loop(
+            TRAIN_FULL, TRAIN_STEPS, reduced=False, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, device=dev, log_every=1)
+        wall = time.perf_counter() - t0
+    finally:
+        train.make_train_step, train.init_params_for = make, init
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = get_config(TRAIN_FULL)
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    n_dense = n_params - params["embed"].numel()
+    moved = sum(not torch.equal(sample(x), f) for x, f in zip(leaves, first))
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(losses[0]) and 0.5 * ln_v < losses[0] < 2.5 * ln_v):
+        raise AssertionError(f"full width: step-1 loss {losses[0]} outside "
+                             f"({0.5 * ln_v:.3f}, {2.5 * ln_v:.3f})")
+    if not moved or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"full width: losses {losses}, {moved} leaves "
+                             f"moved")
+    tokens = TRAIN_BATCH * (cfg.frontend_len + TRAIN_SEQ)
+    ms = statistics.median(step_s[1:]) * 1e3
+    bound, bound_by, flops, nbytes = train_bound(n_params, n_dense, tokens)
+    # one more step under the profiler: device busy time and launches
+    opt = steps.make_optimizer(cfg, steps=TRAIN_STEPS)
+    state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    batch = train.model_batch(cfg, *batch_at_step(pipe, TRAIN_STEPS), dev)
+    step = steps.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        out = step(params, state, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    del out, state
+    dev_us, rows = device_time(torch, prof)
+    prof_s = time.perf_counter() - t_prof
+    launches = sum(n for _, n in rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+    # cuBLAS's products against everything else (PyTorch's elementwise,
+    # reduction, copy and index kernels)
+    is_gemm = [any(t in k for t in GEMM_TAGS) for k in rows]
+    gemm_ms = sum(us for g, (us, _) in zip(is_gemm, rows.values()) if g)
+    gemm_n = sum(n for g, (_, n) in zip(is_gemm, rows.values()) if g)
+    res = dict(arch=TRAIN_FULL, params=n_params, params_dense=n_dense,
+               state_bytes=4 * n_params * 4, param_bytes=4 * n_params,
+               checkpoint_bytes=3 * 4 * n_params + 4, draw_s=draw_s[0],
+               losses=losses, final=metrics, leaves=len(leaves),
+               leaves_moved=moved, step_s=step_s, ms_per_step=ms,
+               tokens_per_step=tokens, tokens_per_s=tokens / ms * 1e3,
+               bound_ms=bound, bound_by=bound_by, flops=flops,
+               adam_bytes=nbytes, peak_bytes=peak, wall_s=wall,
+               busy_ms=dev_us / 1e3 if launches else None,
+               busy_share=dev_us / 1e6 / prof_wall if launches else None,
+               launches_per_step=launches, profiled_step_ms=prof_wall * 1e3,
+               gemm_ms=gemm_ms / 1e3, gemm_launches=gemm_n,
+               profile_s=prof_s,
+               top_device=[(k, us / 1e3, n) for k, (us, n) in top])
+    log(f"[train] (b) {TRAIN_FULL} full width: {n_params} parameters "
+        f"({n_dense} but the embedding table), {4 * n_params} bytes float32, "
+        f"{16 * n_params} bytes with gradients and Adam's moments; the "
+        f"jaxrand draw {draw_s[0]:.2f} s; losses {losses}; {moved} of "
+        f"{len(leaves)} leaves moved; {ms:.2f} ms per step (median of steps "
+        f"2-{TRAIN_STEPS}; all {[round(v * 1e3, 2) for v in step_s]}), "
+        f"bound {bound:.3f} ms ({bound_by}: {flops:.3e} FLOPs, Adam "
+        f"{nbytes} bytes), {tokens} tokens a step, "
+        f"{res['tokens_per_s']:.0f} tokens/s; device busy "
+        f"{res['busy_ms']} ms and {launches} launches in a profiled step "
+        f"({prof_wall * 1e3:.1f} ms, the profile {prof_s:.1f} s), of which "
+        f"cuBLAS products {gemm_ms / 1e3:.2f} ms in {gemm_n} launches; peak "
+        f"memory {peak / 1e9:.3f} GB; a checkpoint would hold "
+        f"{res['checkpoint_bytes']} bytes (not written)")
+    for k, ms_k, n in res["top_device"]:
+        log(f"[train] (b) device time {ms_k:.3f} ms in {n} x {k[:90]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(torch, dev):
+    """Phase 17: LM training on the card.
+
+    (a) the reduced qwen2.5-14b, starcoder2-15b and internvl2-2b: the
+        ``jaxrand`` parameter draw on the card bitwise the CPU's; one train
+        step (``make_train_step``, and ``loss_and_grads``' gradients) on
+        the card against the CPU from the same float32 parameters and
+        batch, within the tolerances the tests hold the CPU step to the JAX
+        package with (``launch.crosscheck``); and the reference's
+        fault-tolerance test on the card: 12 steps of ``train_loop`` (batch
+        4, seq 32) straight against a run failing at step 9 and resumed
+        from its step-8 checkpoint, final losses within 1e-4, bit for bit
+        or not;
+    (b) ``train_loop("internvl2-2b", TRAIN_STEPS, reduced=False, batch=8,
+        seq=64)``: 24 layers at d 2048, 1.89 B float32 parameters with
+        their gradients and Adam's moments on one card, the VLM's 256
+        prefix frames ahead of 64 tokens: the draw's wall time, the
+        step-1 loss in (0.5 ln V, 2.5 ln V), the parameters moved, ms per
+        step (steps 2-6) against ``train_bound``, tokens/s, device busy
+        time and launches in a profiled step, peak memory, and the bytes a
+        checkpoint would hold (none is written: 23 GB of npz)."""
+    t0 = time.perf_counter()
+    out = {"reduced": _train_reduced(torch, dev)}
+    out["a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["full"] = _train_full(torch, dev)
+    out["b_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 17 took {out['seconds']:.1f} s: (a) "
+        f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4373,11 +4611,13 @@ def main() -> int:
                     help="build the kernels and run phase 15 alone")
     ap.add_argument("--examples", action="store_true",
                     help="build the kernels and run phase 16 alone")
+    ap.add_argument("--train", action="store_true",
+                    help="build the kernels and run phase 17 alone")
     args = ap.parse_args()
     if sum((args.layers is not None, args.tiles is not None,
-            args.compiled, args.examples)) > 1:
-        ap.error("--layers, --tiles, --compiled and --examples are "
-                 "separate runs")
+            args.compiled, args.examples, args.train)) > 1:
+        ap.error("--layers, --tiles, --compiled, --examples and --train "
+                 "are separate runs")
     root = os.path.abspath(args.layers or args.tiles or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
@@ -4417,6 +4657,11 @@ def main() -> int:
         examples = phase_examples(torch, dev)
         print(json.dumps({"card": smi, "examples": examples}), flush=True)
         return 0
+    if args.train:
+        smi = phase_build(torch)
+        trained = phase_train(torch, dev)
+        print(json.dumps({"card": smi, "train": trained}), flush=True)
+        return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
     widths = phase_widths(torch, dev)
@@ -4438,6 +4683,7 @@ def main() -> int:
     sharded = phase_sharded(torch, dev)
     compiled = phase_compiled(torch, dev)
     examples = phase_examples(torch, dev)
+    trained = phase_train(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -4451,7 +4697,8 @@ def main() -> int:
                       "reliability": rel, "learning": learning,
                       "pipeline": pipeline, "obs": obs,
                       "snapshot": snap, "sharded": sharded,
-                      "compiled": compiled, "examples": examples}),
+                      "compiled": compiled, "examples": examples,
+                      "train": trained}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -4542,6 +4789,16 @@ def main() -> int:
         + ", ".join(f"{a} prefill {r['prefill_ulps']:.2f} decode "
                     f"{r['decode_ulps']:.2f}"
                     for a, r in examples["reduced"].items()))
+    tf, tr = trained["full"], trained["reduced"]
+    log(f"[summary] {smi}: LM training {TRAIN_FULL} full width: "
+        f"{tf['params']} parameters, draw {tf['draw_s']:.2f} s, step-1 loss "
+        f"{tf['losses'][0]:.4f}; {tf['ms_per_step']:.2f} ms per step "
+        f"(bound {tf['bound_ms']:.3f} ms, {tf['bound_by']}), "
+        f"{tf['tokens_per_s']:.0f} tokens/s, device busy {tf['busy_ms']} ms "
+        f"and {tf['launches_per_step']} launches a step, peak "
+        f"{tf['peak_bytes']} bytes; reduced resume bit for bit: "
+        f"{tr['resume']['bitwise']}; full-width LM server draw "
+        f"{lm_full['init_s']:.2f} s")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "

@@ -1,1 +1,2 @@
-"""Synthetic keyword audio (pure NumPy)."""
+"""Synthetic data (pure NumPy): keyword audio (``audio.py``) and the LM
+token pipeline (``tokens.py``)."""

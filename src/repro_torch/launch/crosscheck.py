@@ -1,26 +1,45 @@
 """The LM stack on the card against its own CPU path, on the same
-parameters: one check, with one tolerance and one rule for greedy tokens,
-shared by ``chip_smoke.py`` (phase 16) and ``tests/test_torch_cuda.py``.
+parameters: the checks, their tolerances and the rule for greedy tokens,
+shared by ``chip_smoke.py`` (phases 16 and 17) and
+``tests/test_torch_cuda.py``.
 
-Tolerance: every element within ``LM_ULPS`` bfloat16 ulps of the CPU
+Serving: every element within ``LM_ULPS`` bfloat16 ulps of the CPU
 tensor's largest magnitude.  cuBLAS sums the bfloat16 products in another
 order than the CPU, and CUDA's ``exp``, ``sin``, ``cos`` and ``rsqrt`` are
 not the CPU's, so a bfloat16 rounding flips now and then and the flip
 travels through the layers.  Greedy tokens: equal, or forked only where
 the CPU's top-2 margin at the fork is within the same ``LM_ULPS``.
+
+The parameter draw (``jaxrand``, correctly rounded operations only) is
+bitwise the CPU's.  Training (``train_step_card_against_cpu``): the same
+flips travel back through the backward's bfloat16 cotangents, so the
+tolerances are those that hold the port's CPU step to the JAX package's
+(``tests/_lm_train_cases.py``): the loss within ``TRAIN_LOSS_RTOL``, each
+gradient leaf (and ``mu``) within ``TRAIN_GRAD_SHARE`` of its largest
+magnitude (``nu`` twice that), the new parameters within two learning
+rates and ``TRAIN_PARAMS_EQUAL`` of them bit-equal (Adam's first step is
+about ``-lr * sign(g)``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from repro_torch.launch import serve
+from repro_torch.core import jaxrand
+from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+from repro_torch.launch import serve, steps, train
 from repro_torch.models import lm as LM
+from repro_torch.optim.optimizers import tree_leaves
 
 LM_ULPS = 4
+TRAIN_LOSS_RTOL = 2e-4
+TRAIN_GRAD_SHARE = 3e-2
+TRAIN_PARAMS_EQUAL = 0.99
+RESUME_ATOL = 1e-4          # the reference's resume test
 
 
 def _ulp(t: torch.Tensor) -> float:
@@ -65,16 +84,22 @@ def greedy_forks(got: List[List[int]], want: List[List[int]],
 
 def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
                      max_new: int = 8) -> Dict:
-    """``arch``'s reduced config on ``device`` against the CPU with the
-    CPU server's parameters: prefill's last logits and caches (the VLM
-    with its prefix frames), ``steps`` teacher-forced decode steps (logits
-    and caches), and the servers' greedy tokens on ``main()``'s traffic.
-    Returns the gaps in ulps and the forks; raises ``AssertionError``
-    past ``LM_ULPS`` or on a fork past its margin."""
+    """``arch``'s reduced config on ``device`` against the CPU, each
+    server with its own draw from ``PRNGKey(0)`` (nothing carried in; the
+    draws must be bitwise equal): prefill's last logits and caches (the
+    VLM with its prefix frames), ``steps`` teacher-forced decode steps
+    (logits and caches), and the servers' greedy tokens on ``main()``'s
+    traffic.  Returns the gaps in ulps and the forks; raises
+    ``AssertionError`` on a draw that differs, past ``LM_ULPS`` or on a
+    fork past its margin."""
     cpu = serve.Server(arch, reduced=True, device="cpu")
     card = serve.Server(arch, reduced=True, device=device)
     cfg = cpu.cfg
-    card.params = LM.tree_map(lambda a: a.to(card.device), cpu.params)
+    # each server drew its own parameters from PRNGKey(0): bit for bit
+    for a, b in zip(LM.leaves(card.params), LM.leaves(cpu.params)):
+        if a.device != card.device or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{arch}: the server's draw on "
+                                 f"{card.device} is not the CPU's")
     rng = np.random.default_rng(1)
     tokens = rng.integers(2, cfg.vocab_size, (2, steps))
     frames = None
@@ -118,4 +143,129 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     out["forks"] = greedy_forks(got, want, steps_c, prompts,
                                 cfg.vocab_size)
     out["tokens_equal"] = got == want
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def init_card_against_cpu(arch: str, device) -> Dict:
+    """``arch``'s reduced parameters drawn from ``PRNGKey(0)`` on
+    ``device`` and on the CPU, as float32 (training) and bfloat16
+    (serving) leaves: bitwise equal, or ``AssertionError``."""
+    cfg = serve.get_config(arch).reduced()
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = (tree_leaves(steps.init_params_for(
+            cfg, jaxrand.PRNGKey(0, device="cpu"), device=d, dtype=dtype))
+            for d in (device, "cpu"))
+        for a, b in zip(got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{arch}: the {dtype} draw on "
+                                     f"{device} is not the CPU's")
+            n += b.numel()
+    return {"leaves": len(want), "elements": n}
+
+
+def _shares(got, want) -> List[float]:
+    """Per leaf: max |got - want| over max |want|."""
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        w = w.detach().float()
+        gap = float((g.detach().float().cpu() - w).abs().max())
+        out.append(gap / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def train_step_card_against_cpu(arch: str, device, batch: int = 2,
+                                seq: int = 32) -> Dict:
+    """One ``make_train_step`` step of ``arch``'s reduced config on
+    ``device`` against the CPU, from the same float32 ``PRNGKey(0)``
+    parameters and the token pipeline's step-0 batch (the VLM's prefix
+    frames ones), and ``loss_and_grads``' gradients on both.  Returns the
+    gaps; raises ``AssertionError`` past the training tolerances."""
+    cfg = serve.get_config(arch).reduced()
+    params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
+                                   device="cpu", dtype=torch.float32)
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch)
+    tokens, labels = batch_at_step(pipe, 0)
+    opt = steps.make_optimizer(cfg)
+    step = steps.make_train_step(cfg, opt)
+    runs = {}
+    for d in ("cpu", device):
+        p = LM.tree_map(lambda a: a.to(d), params)
+        b = train.model_batch(cfg, tokens, labels, d)
+        (total, loss), grads = steps.loss_and_grads(cfg, p, b)
+        runs[str(d)] = dict(grads=grads, loss=float(loss),
+                            out=step(p, opt.init(p), b))
+    cpu, card = runs["cpu"], runs[str(device)]
+    if next(iter(tree_leaves(card["grads"]))).device.type != \
+            torch.device(device).type:
+        raise AssertionError(f"{arch}: the step did not run on {device}")
+    lr = float(opt.schedule(1))
+    p_c, o_c, m_c = cpu["out"]
+    p_g, o_g, m_g = card["out"]
+    equal = total_n = 0
+    for g, w in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        g = g.cpu()
+        allowed = 2 * lr + 2 * torch.finfo(torch.float32).eps * w.abs()
+        if not bool(((g - w).abs() <= allowed).all()):
+            raise AssertionError(f"{arch}: a parameter moved past 2 lr")
+        equal += int((g == w).sum())
+        total_n += w.numel()
+    out = {"loss_cpu": float(m_c["loss"]), "loss_card": float(m_g["loss"]),
+           "params_equal": equal / total_n,
+           "grad_share": max(_shares(card["grads"], cpu["grads"])),
+           "mu_share": max(_shares(o_g.mu, o_c.mu)),
+           "nu_share": max(_shares(o_g.nu, o_c.nu))}
+    out["loss_rtol"] = abs(out["loss_card"] - out["loss_cpu"]) / abs(
+        out["loss_cpu"])
+    for key, limit in (("loss_rtol", TRAIN_LOSS_RTOL),
+                       ("grad_share", TRAIN_GRAD_SHARE),
+                       ("mu_share", TRAIN_GRAD_SHARE),
+                       ("nu_share", 2 * TRAIN_GRAD_SHARE)):
+        if not out[key] <= limit:
+            raise AssertionError(f"{arch}: {key} {out[key]:.3g} > {limit}")
+    if not out["params_equal"] >= TRAIN_PARAMS_EQUAL:
+        raise AssertionError(f"{arch}: {out['params_equal']:.4f} of the "
+                             f"parameters bit-equal")
+    return out
+
+
+def resume_against_straight(arch: str, device, root: str, n: int = 12,
+                            fail_at: int = 9, ckpt_every: int = 4,
+                            batch: int = 4, seq: int = 32) -> Dict:
+    """The reference's fault-tolerance test on ``device``: ``n`` steps of
+    ``train_loop`` straight, against a run that fails at ``fail_at`` and
+    resumes from its last checkpoint (under ``root``).  The final losses
+    must be within ``RESUME_ATOL``; returns them, whether the two runs
+    are bit for bit equal (losses and parameters) and the leaves that
+    differ."""
+    kw = dict(reduced=True, batch=batch, seq=seq, ckpt_every=ckpt_every,
+              log_every=10 ** 9, device=device)
+    p_a, straight = train.train_loop(arch, n, ckpt_dir=os.path.join(
+        root, "straight"), **kw)
+    try:
+        train.train_loop(arch, n, ckpt_dir=os.path.join(root, "failed"),
+                         fail_at=fail_at, **kw)
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{arch}: no simulated failure at {fail_at}")
+    p_b, resumed = train.train_loop(arch, n, ckpt_dir=os.path.join(
+        root, "failed"), **kw)
+    differ = [i for i, (x, y) in enumerate(zip(tree_leaves(p_a),
+                                               tree_leaves(p_b)))
+              if not torch.equal(x, y)]
+    out = {"straight": straight["loss"], "resumed": resumed["loss"],
+           "gap": abs(straight["loss"] - resumed["loss"]),
+           "bitwise": straight == resumed and not differ,
+           "leaves_differ": differ}
+    if not out["gap"] < RESUME_ATOL:
+        raise AssertionError(f"{arch}: resumed loss {resumed['loss']} "
+                             f"against {straight['loss']}")
     return out

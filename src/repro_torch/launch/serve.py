@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.core import jaxrand
 from repro_torch.kernels import resolve_device
 from repro_torch.launch.steps import init_params_for, make_decode_step
 from repro_torch.models import lm as LM
@@ -25,7 +26,8 @@ class Server:
     """Slot-based batched decoder (continuous batching light): fixed B
     slots; each slot holds one request's cache position.  ``reduced=False``
     serves the architecture at its published width and depth.  Parameters
-    and caches live on ``device`` (``None`` means CUDA)."""
+    (bfloat16, drawn from ``PRNGKey(seed)`` as the reference's ``Server``
+    draws them) and caches live on ``device`` (``None`` means CUDA)."""
 
     def __init__(self, arch: str, reduced: bool = True, slots: int = 4,
                  max_len: int = 128, seed: int = 0, device=None):
@@ -37,8 +39,9 @@ class Server:
             raise NotImplementedError("serve driver targets decoder LMs")
         self.slots = slots
         self.max_len = max_len
-        self.params = init_params_for(self.cfg, device=self.device,
-                                      seed=seed)
+        self.params = init_params_for(
+            self.cfg, jaxrand.PRNGKey(seed, device="cpu"),
+            device=self.device)
         self.decode = make_decode_step(self.cfg)
         self.caches = LM.init_cache(self.cfg, slots, max_len,
                                     device=self.device)

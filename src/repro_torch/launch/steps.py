@@ -1,20 +1,28 @@
-"""Prefill / decode step builders of the LM stack, used by the server.
+"""Train / prefill / decode step builders of the LM stack and the shape
+specs of every (architecture x shape) cell: the JAX package's
+``launch/steps.py``.  Used by the trainer (``launch/train.py``) and the
+server (``launch/serve.py``).
 
-The JAX package's ``launch/steps.py`` builds jit-able steps and the
-abstract input specs of every (architecture x shape) cell; the port keeps
-the step builders of the serving path.  The train step, the optimizer and
-the spec helpers come with the training slice (``ROADMAP.md`` queue 1,
-item 7b), the encoder-decoder steps with item 7f.
+The reference's ``ShapeDtypeStruct`` stand-ins are tensors on the meta
+device here: shapes and dtypes, nothing allocated.  The encoder-decoder
+steps come with ``ROADMAP.md`` queue 1, item 7f.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig
+from repro_torch.core import jaxrand
+from repro_torch.kernels import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.optim import adam, cosine_schedule
+from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+
+COMPUTE = torch.bfloat16
 
 
 def _no_encdec(cfg: ArchConfig) -> None:
@@ -22,6 +30,93 @@ def _no_encdec(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not ported yet "
             f"(ROADMAP.md queue 1, item 7f)")
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins: no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, Any]:
+    """Model inputs for one shape cell, as meta tensors."""
+    _no_encdec(cfg)
+    sh = SHAPES[shape_name]
+    b, s, kind = sh["global_batch"], sh["seq_len"], sh["kind"]
+    frames = (b, cfg.frontend_len, cfg.d_model)
+    if kind == "train":
+        spec = {"tokens": _spec((b, s), torch.int32),
+                "labels": _spec((b, s), torch.int32)}
+        if cfg.family == "vlm":
+            spec = {"frames": _spec(frames, COMPUTE), **spec}
+        return spec
+    if kind == "prefill":
+        spec = {"tokens": _spec((b, s), torch.int32)}
+        if cfg.family == "vlm":
+            spec["frames"] = _spec(frames, COMPUTE)
+        return spec
+    # decode
+    return {"tokens": _spec((b, 1), torch.int32),
+            "index": _spec((), torch.int32)}
+
+
+def cache_specs(cfg: ArchConfig, shape_name: str):
+    """Meta tensors of the decode cache for this cell."""
+    _no_encdec(cfg)
+    sh = SHAPES[shape_name]
+    return LM.init_cache(cfg, sh["global_batch"], sh["seq_len"],
+                         device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+
+
+def make_optimizer(cfg: ArchConfig, lr: float = 3e-4, steps: int = 10_000):
+    return adam(cosine_schedule(lr, steps, warmup_steps=200))
+
+
+def loss_and_grads(cfg: ArchConfig, params, batch):
+    """``jax.value_and_grad(loss_fn, has_aux=True)(params)`` of the
+    reference's train step: ((total, loss), grads), ``total`` the loss plus
+    the aux loss, the loss skipping the VLM family's prefix positions.
+    ``batch`` holds "tokens" and "labels" (B, S) and, for the VLM family,
+    "frames" (B, P, D).  The parameters are float32 leaves, cast to
+    bfloat16 at each use, so autograd's gradients are float32, as the
+    reference's are; the forward and the backward both run inside
+    ``layers.float32_accumulation``."""
+    prefix = batch.get("frames") if cfg.family == "vlm" else None
+    offset = prefix.shape[1] if prefix is not None else 0
+    flat = [a.detach().requires_grad_() for a in tree_leaves(params)]
+    with L.float32_accumulation(), torch.enable_grad():
+        logits, aux = LM.forward_lm(tree_unflatten(params, flat), cfg,
+                                    batch["tokens"], prefix_embeds=prefix)
+        loss = LM.lm_loss(logits, batch["labels"], cfg.vocab_size,
+                          label_offset=offset)
+        total = loss + aux
+        del logits
+        grads = torch.autograd.grad(total, flat)
+    return ((total.detach(), loss.detach()),
+            tree_unflatten(params, list(grads)))
+
+
+def make_train_step(cfg: ArchConfig, optimizer=None):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    {"loss", "total"}): ``loss_and_grads``, then the optimizer's update
+    (``make_optimizer``'s Adam by default)."""
+    _no_encdec(cfg)
+    LM._check_plan(cfg)
+    optimizer = optimizer or make_optimizer(cfg)
+
+    def train_step(params, opt_state, batch):
+        (total, loss), grads = loss_and_grads(cfg, params, batch)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss, "total": total}
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -47,9 +142,24 @@ def make_decode_step(cfg: ArchConfig):
     return decode_fn
 
 
-def init_params_for(cfg: ArchConfig,
-                    generator: Optional[torch.Generator] = None,
-                    device=None, seed: int = 0):
-    """Random parameters of ``cfg`` on ``device`` (``None`` means CUDA)."""
+def init_params_for(cfg: ArchConfig, key=None, device=None,
+                    dtype=COMPUTE):
+    """``cfg``'s parameters drawn from the ``jaxrand`` key ``key``
+    (``PRNGKey(0)`` on the CPU when none is given, as the reference's
+    default) on ``device`` (``None`` means CUDA), stored as ``dtype``:
+    bfloat16 to serve, float32 to train (``lm.init_lm``)."""
     _no_encdec(cfg)
-    return LM.init_lm(cfg, generator=generator, device=device, seed=seed)
+    dev = resolve_device(device)
+    key = key if key is not None else jaxrand.PRNGKey(0, device="cpu")
+    return LM.init_lm(key, cfg, device=dev, dtype=dtype)
+
+
+def abstract_params(cfg: ArchConfig):
+    """The parameters' shapes and dtypes as meta tensors: float32 leaves,
+    as the reference's ``eval_shape`` of its init gives them."""
+    return init_params_for(cfg, device="meta", dtype=torch.float32)
+
+
+def abstract_opt_state(cfg: ArchConfig, optimizer=None):
+    optimizer = optimizer or make_optimizer(cfg)
+    return optimizer.init(abstract_params(cfg))

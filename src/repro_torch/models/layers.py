@@ -6,12 +6,15 @@ SwiGLU / GeLU MLP.
 Every layer is an (init, apply) pair over explicit parameter dicts, as in
 the JAX package's ``models/layers.py``.  Products run in bfloat16 with
 float32 accumulation (``float32_accumulation``, which the LM's entry points
-hold), reductions in float32.  The reference keeps float32
-leaves and casts them to bfloat16 at every use; the port stores that cast
-once (``dense_init`` returns bfloat16 leaves), which gives the same
-numbers, and keeps the norm scales in float32, where the reference uses
-them.  The reference's ``ShardingPolicy`` is not carried over: on one card
-it is the identity.
+hold), reductions in float32.  The inits draw from a ``core.jaxrand`` key
+down the reference's ``split`` tree, so a key gives the reference's
+numbers bit for bit.  The reference keeps float32 leaves and casts them to
+bfloat16 at every use: the port stores its leaves as ``dtype``, float32
+for training (the reference's leaves, whose gradients are float32) or
+bfloat16 for serving (that cast stored once, the same numbers), and keeps
+the norm scales in float32, where the reference uses them.  The
+reference's ``ShardingPolicy`` is not carried over: on one card it is the
+identity.
 
 Numerics against the reference on the CPU: ``rmsnorm`` and ``layernorm``
 take their means as ``core.means`` does (the sum times the float32
@@ -32,9 +35,10 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core import means
+from repro_torch.core import jaxrand, means
 
 COMPUTE_DTYPE = torch.bfloat16
 MASK_VALUE = -1e30
@@ -54,12 +58,32 @@ def float32_accumulation():
         matmul.allow_bf16_reduced_precision_reduction = keep
 
 
-def draw_normal(gen: torch.Generator, shape, scale: float,
-            device) -> torch.Tensor:
-    """One float32 normal draw of ``shape`` on ``device``, times ``scale``,
-    stored once as bfloat16 (the reference's cast at use)."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(COMPUTE_DTYPE)
+# elements of one chunk of a draw: the int64 counters and the float64
+# temporaries of the normal of a 2**26-element chunk take ~0.5 GB each
+DRAW_CHUNK = 1 << 26
+
+
+def draw_normal(key: torch.Tensor, shape, scale: float, device,
+                dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32) * scale`` on ``device``,
+    stored as ``dtype``; on the meta device the shape only.  In the
+    partitionable threefry an element's draw depends on its flat index
+    alone, so the draw goes in chunks of ``DRAW_CHUNK`` counters
+    (``jaxrand.bits_at``), each written into its slice of the leaf."""
+    dev = torch.device(device)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
+    key = key.to(dev)
+    flat = out.view(-1)
+    # the reference multiplies by a weakly typed scalar: by its float32
+    s = float(np.float32(scale))
+    for start in range(0, flat.numel(), DRAW_CHUNK):
+        stop = min(flat.numel(), start + DRAW_CHUNK)
+        idx = torch.arange(start, stop, dtype=torch.int64, device=dev)
+        x = jaxrand.normal_from_bits(jaxrand.bits_at(key, idx))
+        flat[start:stop] = (x * s).to(dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +160,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+def dense_init(key: torch.Tensor, d_in: int, d_out: int,
                bias: bool = False, scale: Optional[float] = None,
-               device=None) -> Dict:
+               device=None, dtype=COMPUTE_DTYPE) -> Dict:
     scale = scale if scale is not None else d_in ** -0.5
-    p = {"w": draw_normal(gen, (d_in, d_out), scale, device)}
+    p = {"w": draw_normal(key, (d_in, d_out), scale, device, dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=COMPUTE_DTYPE, device=device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
 
 
@@ -170,16 +194,18 @@ class AttnConfig:
     causal: bool = True
 
 
-def attn_init(gen: torch.Generator, cfg: AttnConfig, device=None) -> Dict:
+def attn_init(key: torch.Tensor, cfg: AttnConfig, device=None,
+              dtype=COMPUTE_DTYPE) -> Dict:
+    k1, k2, k3, k4 = jaxrand.split(key, 4)
     p = {
-        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim,
-                         cfg.qkv_bias, device=device),
-        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
-                         cfg.qkv_bias, device=device),
-        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
-                         cfg.qkv_bias, device=device),
-        "wo": dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model,
-                         device=device),
+        "wq": dense_init(k1, cfg.d_model, cfg.n_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device, dtype=dtype),
+        "wk": dense_init(k2, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device, dtype=dtype),
+        "wv": dense_init(k3, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                         cfg.qkv_bias, device=device, dtype=dtype),
+        "wo": dense_init(k4, cfg.n_heads * cfg.head_dim, cfg.d_model,
+                         device=device, dtype=dtype),
     }
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(cfg.head_dim, device)
@@ -281,12 +307,17 @@ def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
-             gated: bool = True, bias: bool = False, device=None) -> Dict:
-    p = {"w_up": dense_init(gen, d_model, d_ff, bias, device=device),
-         "w_down": dense_init(gen, d_ff, d_model, bias, device=device)}
+def mlp_init(key: torch.Tensor, d_model: int, d_ff: int,
+             gated: bool = True, bias: bool = False, device=None,
+             dtype=COMPUTE_DTYPE) -> Dict:
+    ks = jaxrand.split(key, 3)
+    p = {"w_up": dense_init(ks[0], d_model, d_ff, bias, device=device,
+                            dtype=dtype),
+         "w_down": dense_init(ks[1], d_ff, d_model, bias, device=device,
+                              dtype=dtype)}
     if gated:
-        p["w_gate"] = dense_init(gen, d_model, d_ff, bias, device=device)
+        p["w_gate"] = dense_init(ks[2], d_model, d_ff, bias, device=device,
+                                 dtype=dtype)
     return p
 
 

@@ -13,13 +13,17 @@ Ported so far: the ``attn_mlp`` segment, which is the whole plan of the
 mistral-large-123b, internvl2-2b).  Every other segment kind raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 
-Parameters are bfloat16 where the reference casts them at use (the
-embedding, the unembedding, every dense weight and bias) and float32 where
-it uses them so (the norm scales).  ``init_lm`` draws them on the device;
-``params_from_numpy`` carries the JAX package's.  ``forward_lm``,
+The embedding, the unembedding and every dense weight and bias are
+stored as the caller's ``dtype``: float32, the reference's own leaves,
+for training (``launch/steps.py::make_train_step`` takes float32
+gradients of them), or bfloat16, the reference's cast at each use stored
+once, for serving.  The norm scales stay float32, where the reference uses
+them so.  ``init_lm`` draws them on the device from a ``core.jaxrand`` key
+down the reference's ``split`` tree (the reference's parameters bit for
+bit); ``params_from_numpy`` carries the JAX package's.  ``forward_lm``,
 ``decode_step`` and ``prefill`` run their bfloat16 products with float32
 accumulation on the card (``layers.float32_accumulation``), whoever calls
-them.
+them; ``lm_loss`` is the reference's masked-vocabulary cross-entropy.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import jaxrand, means
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
 
@@ -100,15 +106,16 @@ def _check_plan(cfg: ArchConfig) -> List[Tuple[str, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_init(gen: torch.Generator, cfg: ArchConfig, with_moe: bool,
-                     device=None) -> Dict:
+def _attn_block_init(key: torch.Tensor, cfg: ArchConfig, with_moe: bool,
+                     device=None, dtype=COMPUTE) -> Dict:
     if with_moe:
         _require_ported("attn_moe")
+    k1, k2 = jaxrand.split(key)
     return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-            "attn": L.attn_init(gen, cfg.attn_cfg(), device),
+            "attn": L.attn_init(k1, cfg.attn_cfg(), device, dtype),
             "ln2": L.rmsnorm_init(cfg.d_model, device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                              device=device)}
+            "mlp": L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              device=device, dtype=dtype)}
 
 
 def _attn_block_apply(p, cfg: ArchConfig, h, cache=None, cache_index=None,
@@ -152,16 +159,19 @@ def layer(seg: Dict, i: int) -> Dict:
     return tree_map(lambda a: a[i], seg)
 
 
-def _seg_init(gen: torch.Generator, cfg: ArchConfig, kind: str, count: int,
-              device=None) -> Dict:
-    """Stacked params for one segment: each layer drawn in turn and
-    written into its slice of the stack."""
+def _seg_init(key: torch.Tensor, cfg: ArchConfig, kind: str, count: int,
+              device=None, dtype=COMPUTE) -> Dict:
+    """Stacked params for one segment: layer ``i`` drawn from
+    ``split(key, count)[i]`` (the reference's ``vmap`` over split keys)
+    and written into its slice of the stack."""
     _require_ported(kind)
-    first = _attn_block_init(gen, cfg, False, device)
+    keys = jaxrand.split(key, count)
+    first = _attn_block_init(keys[0], cfg, False, device, dtype)
     stacked = tree_map(lambda a: torch.empty(
         (count, *a.shape), dtype=a.dtype, device=a.device), first)
     for i in range(count):
-        one = first if i == 0 else _attn_block_init(gen, cfg, False, device)
+        one = first if i == 0 else _attn_block_init(keys[i], cfg, False,
+                                                    device, dtype)
         for dst, src in zip(leaves(layer(stacked, i)), leaves(one)):
             dst.copy_(src)
     return stacked
@@ -172,45 +182,48 @@ def _seg_init(gen: torch.Generator, cfg: ArchConfig, kind: str, count: int,
 # ---------------------------------------------------------------------------
 
 
-def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-            device=None, seed: int = 0) -> Dict:
-    """Random parameters at the reference's scales, drawn on ``device``
-    (``None`` means CUDA) from ``generator`` (one seeded with ``seed`` when
-    none is given): each leaf a float32 normal cast once to bfloat16
-    (embed x 0.02, unembed x d^-0.5, dense x d_in^-0.5), norm scales ones
-    in float32, biases zeros."""
+def init_lm(key: torch.Tensor, cfg: ArchConfig, device=None,
+            dtype=COMPUTE) -> Dict:
+    """The reference's ``init_lm(key, cfg)`` on ``device`` (``None`` means
+    CUDA): ``split(key, len(plan) + 3)``, the embedding (x 0.02) from
+    ``keys[0]``, the unembedding (x d^-0.5) from ``keys[1]``, the segments
+    from ``keys[2:]``; each leaf a float32 normal times its float32 scale,
+    stored as ``dtype`` (float32 to train, bfloat16 to serve); norm scales
+    ones in float32, biases zeros.  The keys are split where ``key`` lies
+    (a CPU key keeps the few hundred small hashes off the card); on the
+    meta device nothing is drawn: shapes only."""
     dev = resolve_device(device)
     plan = _check_plan(cfg)
-    if generator is None and dev.type != "meta":
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+    keys = jaxrand.split(key, len(plan) + 3)
     params: Dict[str, Any] = {
-        "embed": L.draw_normal(generator, (cfg.vocab_padded, cfg.d_model),
-                               0.02, dev),
+        "embed": L.draw_normal(keys[0], (cfg.vocab_padded, cfg.d_model),
+                               0.02, dev, dtype),
         "ln_f": L.rmsnorm_init(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.draw_normal(
-            generator, (cfg.d_model, cfg.vocab_padded),
-            cfg.d_model ** -0.5, dev)
-    params["segments"] = [_seg_init(generator, cfg, kind, count, dev)
-                          for kind, count in plan]
+            keys[1], (cfg.d_model, cfg.vocab_padded),
+            cfg.d_model ** -0.5, dev, dtype)
+    params["segments"] = [_seg_init(keys[i + 2], cfg, kind, count, dev,
+                                    dtype)
+                          for i, (kind, count) in enumerate(plan)]
     return params
 
 
-def _carry(path: Tuple[str, ...], a, dev) -> torch.Tensor:
+def _carry(path: Tuple[str, ...], a, dev, dtype) -> torch.Tensor:
     # norm scales (and layer-norm biases) are used in float32; every other
     # leaf is cast to bfloat16 at each use by the reference
-    dtype = (torch.float32 if path[-1] in ("scale", "bias")
-             else COMPUTE)
+    if path[-1] in ("scale", "bias"):
+        dtype = torch.float32
     return torch.tensor(np.asarray(a, dtype=np.float32),
                         device=dev).to(dtype)
 
 
-def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Dict:
+def params_from_numpy(tree, cfg: ArchConfig, device=None,
+                      dtype=COMPUTE) -> Dict:
     """The JAX package's LM parameters (``init_lm``'s pytree, its leaves as
     numpy arrays) as the port's, on ``device`` (``None`` means CUDA):
-    bfloat16 where the reference casts at use, float32 norm scales."""
+    ``dtype`` where the reference casts at use, float32 norm scales."""
     dev = resolve_device(device)
     _check_plan(cfg)
 
@@ -219,7 +232,7 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Dict:
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, path) for v in node]
-        return _carry(path, node, dev)
+        return _carry(path, node, dev, dtype)
     return walk(tree, ())
 
 
@@ -252,17 +265,40 @@ def _unembed(params, cfg: ArchConfig, h) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h):
-    """Full-seq forward of one segment. Returns (h, aux)."""
+def _layers(seg: Dict, count: int) -> List[Dict]:
+    """Each layer's parameters of a stacked segment, from one ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where a
+    slice per layer would add a stack-sized gradient per layer."""
+    if isinstance(seg, dict):
+        subs = {k: _layers(v, count) for k, v in seg.items()}
+        return [{k: subs[k][i] for k in seg} for i in range(count)]
+    return list(seg.unbind(0))
+
+
+def _block(lp, cfg: ArchConfig, h, rope):
+    return _attn_block_apply(lp, cfg, h, rope=rope)[0]
+
+
+def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
+                 train: bool = False, rope=None):
+    """Full-seq forward of one segment. Returns (h, aux).  With
+    ``cfg.remat`` and ``train`` (and autograd recording), each layer runs
+    under ``torch.utils.checkpoint``, the reference's ``_maybe_remat``:
+    its activations are recomputed in the backward, the numbers are the
+    same."""
     _require_ported(kind)
-    for i in range(count):
-        h, _, _ = _attn_block_apply(layer(seg_params, i), cfg, h)
+    remat = cfg.remat and train and torch.is_grad_enabled()
+    for lp in _layers(seg_params, count):
+        if remat:
+            h = checkpoint(_block, lp, cfg, h, rope, use_reentrant=False)
+        else:
+            h = _block(lp, cfg, h, rope)
     # the attn_mlp block has no auxiliary loss (only MoE routing has one)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 # ---------------------------------------------------------------------------
-# Full forward (scoring)
+# Full forward (train / scoring) and the loss
 # ---------------------------------------------------------------------------
 
 
@@ -271,21 +307,43 @@ def forward_lm(params, cfg: ArchConfig, tokens,
                prefix_embeds: Optional[torch.Tensor] = None,
                train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int.  prefix_embeds: (B, P, D) modality stub.
-    Returns (logits (B, S_total, Vpad) bf16, aux_loss).  ``train`` only
-    selects rematerialization in the reference; the port has no backward
-    yet (``ROADMAP.md`` queue 1, item 7b)."""
+    Returns (logits (B, S_total, Vpad) bf16, aux_loss).  ``train`` selects
+    rematerialization (``_seg_forward``); autograd takes the backward
+    (``launch/steps.py::make_train_step`` holds the float32 accumulation
+    around it too)."""
     plan = _check_plan(cfg)
     dev = _device_of(params)
     h = _embed(params, _tokens(tokens, dev))
     if prefix_embeds is not None:
         h = torch.cat([torch.as_tensor(prefix_embeds, device=dev).to(COMPUTE),
                        h], dim=1)
+    rope = L.rope_tables(torch.arange(h.shape[1], device=dev), cfg.head_dim,
+                         cfg.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for (kind, count), seg in zip(plan, params["segments"]):
-        h, aux = _seg_forward(seg, cfg, kind, count, h)
+        h, aux = _seg_forward(seg, cfg, kind, count, h, train, rope)
         aux_total = aux_total + aux
     h = L.rmsnorm(params["ln_f"], h)
     return _unembed(params, cfg, h), aux_total
+
+
+def lm_loss(logits: torch.Tensor, labels, vocab_size: int,
+            label_offset: int = 0) -> torch.Tensor:
+    """Causal-LM cross-entropy, float32, the reference's ``lm_loss``: the
+    padded vocabulary tail masked out of the logsumexp, ``label_offset``
+    leading (prefix) positions dropped; the mean as XLA compiles
+    ``jnp.mean`` (``core.means``)."""
+    if label_offset:
+        logits = logits[:, label_offset:]
+    lf = logits.float()
+    iota = torch.arange(lf.shape[-1], device=lf.device)
+    masked = torch.where(iota < vocab_size, lf, float("-inf"))
+    m = torch.amax(masked, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(masked - m[..., None]), dim=-1))
+    labels = _tokens(labels, lf.device)
+    correct = torch.sum(torch.where(iota == labels[..., None], lf, 0.0),
+                        dim=-1)
+    return means.mean(lse - correct, (0, 1))
 
 
 # ---------------------------------------------------------------------------

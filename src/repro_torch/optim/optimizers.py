@@ -1,9 +1,9 @@
 """Adam, SGD with momentum, cosine and step-decay schedules and global-norm
 clipping over trees of tensors.
 
-Port of ``repro/optim/optimizers.py``.  A tree is a tensor, ``None`` or a
-dict of trees; its leaves are taken in sorted key order, as JAX flattens
-a dict (``tree_leaves``, ``tree_map``).  Updates run under
+Port of ``repro/optim/optimizers.py``.  A tree is a tensor, ``None``, or
+a dict or list of trees; its leaves are taken in sorted key order and list
+order, as JAX flattens them (``tree_leaves``, ``tree_map``).  Updates run under
 ``torch.no_grad()`` and return new tensors.
 
 The step counter is a Python int, so the schedule and Adam's bias
@@ -33,11 +33,14 @@ f32 = np.float32
 
 
 def tree_leaves(tree: Tree) -> list:
-    """The tensors of ``tree`` in JAX's order (dict keys sorted)."""
+    """The tensors of ``tree`` in JAX's order (dict keys sorted, lists in
+    order)."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
@@ -52,18 +55,23 @@ def tree_unflatten(tree: Tree, leaves: list) -> Tree:
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
+        if isinstance(t, list):
+            return [build(x) for x in t]
         return next(it)
     return build(tree)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest``, keeping the dict structure."""
+    ``rest``, keeping the dict and list structure."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -34,7 +34,10 @@ equal to off, on a gated, faulted, canary-monitored server; and crash
 safety and scale-out: a card server's snapshot restored on the card
 (10 more K1 launches for the recomputed canary expectation) and on the
 CPU, and a fleet of two pools on the card equal to one server,
-sequential and ``parallel=True``.
+sequential and ``parallel=True``; the LM stack: the reduced servers on the
+card against the CPU, the ``jaxrand`` parameter draw on the card bitwise
+the CPU's, one train step on the card against the CPU, and a training run
+resumed from its checkpoint against the straight run.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -1897,6 +1900,37 @@ def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
     for key in ("prefill_ulps", "prefill_cache_ulps", "decode_ulps",
                 "decode_cache_ulps"):
         assert out[key] <= crosscheck.LM_ULPS, (key, out[key])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
+                                  "internvl2-2b"])
+def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
+    """``init_params_for`` from ``PRNGKey(0)`` on the card: the CPU's
+    float32 and bfloat16 leaves bit for bit (``jaxrand``)."""
+    from repro_torch.launch import crosscheck
+    assert crosscheck.init_card_against_cpu(arch, dev)["leaves"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
+                                  "internvl2-2b"])
+def test_reduced_train_step_on_the_card_against_the_cpu(dev, arch):
+    """One ``make_train_step`` step on the card against the CPU from the
+    same float32 parameters and batch: ``launch.crosscheck``'s training
+    tolerances, which ``chip_smoke.py`` phase 17 (a) applies too."""
+    from repro_torch.launch import crosscheck
+    out = crosscheck.train_step_card_against_cpu(arch, dev)
+    assert out["loss_rtol"] <= crosscheck.TRAIN_LOSS_RTOL
+    assert out["params_equal"] >= crosscheck.TRAIN_PARAMS_EQUAL
+
+
+def test_reduced_training_resumes_on_the_card(dev, tmp_path):
+    """The reference's fault-tolerance test on the card: 12 steps of the
+    reduced qwen2.5-14b straight against a run that fails at step 9 and
+    resumes from its step-8 checkpoint, final losses within 1e-4."""
+    from repro_torch.launch import crosscheck
+    out = crosscheck.resume_against_straight("qwen2.5-14b", dev,
+                                             str(tmp_path))
+    assert out["gap"] < crosscheck.RESUME_ATOL
 
 
 def test_stream_kws_example_on_the_card(dev, monkeypatch, capsys):

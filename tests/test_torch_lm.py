@@ -50,6 +50,7 @@ from repro.launch.steps import make_decode_step as jmake_decode_step
 from repro.models import layers as JL
 from repro.models import lm as JLM
 from repro_torch.configs import base
+from repro_torch.core import jaxrand
 from repro_torch.launch import steps
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
@@ -139,7 +140,7 @@ def test_registry_and_shapes_equal_the_reference():
 def test_families_not_ported_yet_raise(arch, item):
     cfg = base.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        LM.init_lm(cfg, device="cpu")
+        LM.init_lm(jaxrand.PRNGKey(0, device="cpu"), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         LM.init_cache(cfg, 1, 4, device="cpu")
 
@@ -153,7 +154,7 @@ def test_encdec_steps_raise_until_ported():
 
 def test_init_lm_draws_at_the_reference_scales():
     cfg = base.get_config("qwen2.5-14b").reduced()
-    p = LM.init_lm(cfg, device="cpu", seed=3)
+    p = LM.init_lm(jaxrand.PRNGKey(3, device="cpu"), cfg, device="cpu")
     seg = p["segments"][0]
     d, ff = cfg.d_model, cfg.d_ff
     for leaf, want in ((p["embed"], 0.02), (p["unembed"], d ** -0.5),
@@ -172,7 +173,8 @@ def test_init_lm_draws_at_the_reference_scales():
     # the layers are drawn one by one, not repeated
     assert not torch.equal(seg["attn"]["wq"]["w"][0],
                            seg["attn"]["wq"]["w"][1])
-    again = LM.init_lm(cfg, device="cpu", seed=3)
+    again = LM.init_lm(jaxrand.PRNGKey(3, device="cpu"), cfg,
+                       device="cpu")
     assert torch.equal(again["segments"][0]["mlp"]["w_up"]["w"],
                        seg["mlp"]["w_up"]["w"])
 

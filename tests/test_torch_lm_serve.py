@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.launch import serve as jserve
+from repro_torch.core import jaxrand
 from repro_torch.examples import serve_lm
 from repro_torch.launch import serve
 from repro_torch.models import lm as LM
@@ -78,7 +79,7 @@ def test_server_needs_a_card_without_one(monkeypatch):
         serve.Server("qwen2.5-14b")
     cfg = serve.get_config("qwen2.5-14b").reduced()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        LM.init_lm(cfg)
+        LM.init_lm(jaxrand.PRNGKey(0, device="cpu"), cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LM.init_cache(cfg, 1, 8)
 
@@ -89,7 +90,8 @@ def test_full_width_config_is_the_published_one():
     is allocated: qwen2.5-14b holds 14.77 B parameters, 29.5 GB in
     bfloat16."""
     cfg = serve.get_config("qwen2.5-14b")
-    params = LM.init_lm(cfg, device="meta")
+    params = LM.init_lm(jaxrand.PRNGKey(0, device="cpu"), cfg,
+                        device="meta")
     n = sum(a.numel() for a in LM.leaves(params))
     assert 14.7e9 < n < 14.8e9
     assert cfg.vocab_padded == cfg.vocab_size == 152064
