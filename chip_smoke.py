@@ -193,16 +193,27 @@ result line):
    ``stream_kws``, ``customize_onchip``) at their full sizes, each with
    its wall time and its K1 and ``head_train_rows`` launches, then each
    example's hardware-path calls at its own shapes through K1 and on the
-   plain route, bitwise equal; (b) the reduced qwen2.5-14b, starcoder2-15b
-   and internvl2-2b on the card against the port on the CPU, each server
-   with its own ``jaxrand`` draw from ``PRNGKey(0)``, bitwise equal
-   (``repro_torch.launch.crosscheck``: prefill and 8 decode steps within
-   ``LM_ULPS`` bfloat16 ulps, the server's greedy tokens); (c)
-   ``Server("qwen2.5-14b", reduced=False)`` at full width, its 14.77 B
+   plain route, bitwise equal; (b) the reduced qwen2.5-14b, starcoder2-15b,
+   internvl2-2b, qwen3-moe-30b-a3b and qwen2-moe-a2.7b on the card against
+   the port on the CPU, each server with its own ``jaxrand`` draw from
+   ``PRNGKey(0)``, bitwise equal (``repro_torch.launch.crosscheck``:
+   prefill and 8 decode steps within ``LM_ULPS`` bfloat16 ulps, the
+   server's greedy tokens, and the MoE routing with its forks counted);
+   (c) ``Server("qwen2.5-14b", reduced=False)`` at full width, its 14.77 B
    parameters drawn through ``jaxrand`` on the card (the draw's wall time),
    answering ``main()``'s 4 requests: parameter bytes, peak memory, ms per
    decode step beside the least time the card could take, tokens/s, and
    the teacher-forced decode against ``prefill`` on one 8-token prompt;
+   (d) the same for ``Server("qwen3-moe-30b-a3b", reduced=False)`` (48
+   layers of 128 experts top-8, 30.53 B parameters), after (c)'s server is
+   freed, its ms per decode step beside two bounds (the dense dispatch,
+   which reads every expert, and a dispatch that would read only the
+   routed ones), the teacher-forced decode against ``prefill``
+   reported with the choices the prefill dropped, not gated, and gated:
+   decode step 0 against the prefill of its one token (capacity drops
+   nothing at S = 1; logits within ``LM_ULPS``, routing equal), and layer
+   0's MoE block on 8 tokens against a plain float32 MoE written token by
+   token (``_moe_plain``);
 17. LM training (``phase_train``): (a) the reduced qwen2.5-14b,
    starcoder2-15b and internvl2-2b: the float32 and bfloat16 ``jaxrand``
    draws on the card bitwise the CPU's, one train step on the card against
@@ -214,7 +225,12 @@ result line):
    parameters and bytes, the draw's wall time, the step-1 loss in (0.5 ln
    V, 2.5 ln V), the parameters moved, ms per step against
    ``train_bound``, tokens/s, device busy time and launches in a profiled
-   step, peak memory, and the bytes a checkpoint would hold.
+   step, peak memory, and the bytes a checkpoint would hold; (c) the
+   reduced qwen3-moe-30b-a3b and qwen2-moe-a2.7b: the draws bitwise the
+   CPU's, one train step on the card against the CPU within the training
+   tolerances with its routing forks, and ``examples/train_lm.py``'s
+   40-step run failing at step 25 and resumed from its step-20
+   checkpoint against the straight run (within 1e-4; bit for bit or not).
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -4100,9 +4116,54 @@ def phase_compiled(torch, dev):
 
 # phase 16: the examples and the LM server
 EXAMPLES = ("quickstart", "stream_kws", "customize_onchip")
-LM_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b")
+LM_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
+            "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")
 LM_FULL = "qwen2.5-14b"
+LM_MOE_FULL = "qwen3-moe-30b-a3b"
 LM_REQUESTS, LM_MAX_NEW, LM_STEPS = 4, 8, 8
+# (d): one full-width MoE layer against ``_moe_plain`` (float32, token by
+# token).  The port rounds each expert's products, its SiLU chain and each
+# of the k adds to bfloat16: 0.9-2.4 ulps of the largest output on the
+# CPU at d 512 and 2048 with 128 experts top-8; the down projection of a
+# neighbouring expert in place of the chosen one gave 294-352
+MOE_PLAIN_ULPS = 8
+
+
+def _moe_plain(torch, p, mcfg, x, route):
+    """The MoE FFN (no shared experts) written plainly in float32 from its
+    definition, on the experts ``route`` (``record_routes``' entry of the
+    port's call on ``x``) chose: per batch row, tokens in order and each
+    token's experts in rank order, an expert's choices past its capacity
+    dropped; each kept choice adds its renormalized softmax probability
+    times the expert's SwiGLU of the token.  Also checks the choices are
+    a top-k of the logits in descending order.  Returns (out, keep)."""
+    from repro_torch.models import moe as MOE
+    b, s, _ = x.shape
+    k, cap = mcfg.top_k, MOE.capacity(mcfg, s)
+    logits, idx = route["logits"], route["expert_idx"]
+    chosen = torch.gather(logits, -1, idx)
+    rest = logits.scatter(-1, idx, float("-inf")).amax(-1)
+    if not bool((chosen[..., :-1] >= chosen[..., 1:]).all()
+                and (chosen[..., -1] >= rest).all()):
+        raise AssertionError("MoE: the chosen experts are not the top k")
+    probs = torch.softmax(logits, -1)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    keep = torch.zeros((b, s * k), dtype=torch.bool)
+    for bi in range(b):
+        used = [0] * mcfg.num_experts
+        for t in range(s):
+            g = probs[bi, t, idx[bi, t]]
+            g = g / g.sum()
+            xt = x[bi, t].float()
+            for r, e in enumerate(idx[bi, t].tolist()):
+                used[e] += 1
+                if used[e] > cap:
+                    continue
+                keep[bi, t * k + r] = True
+                h = torch.nn.functional.silu(xt @ p["w_gate"][e].float()) \
+                    * (xt @ p["w_up"][e].float())
+                out[bi, t] += g[r] * (h @ p["w_down"][e].float())
+    return out, keep
 def _example_run(torch, dev, name):
     """One example's ``main`` at its full size on the card, its output
     captured: wall seconds and the K1 / K2 launch counts of the run, each
@@ -4174,23 +4235,33 @@ def _example_routes(torch, dev, name, ret, triggers):
     return n
 
 
-def _lm_full(torch, dev):
-    """(c): ``Server(LM_FULL, reduced=False)`` on the card: ``main()``'s
+def _lm_full(torch, dev, arch=LM_FULL):
+    """(c), (d): ``Server(arch, reduced=False)`` on the card: ``main()``'s
     traffic, walls, the device time per step, bytes and the bound, and
-    the teacher-forced decode against ``prefill`` on one 8-token
-    prompt."""
+    the teacher-forced decode against ``prefill`` on one 8-token prompt
+    (for the MoE family reported with the choices the prefill dropped,
+    not gated: ``models/lm.py``'s docstring; gated instead: ``prefill``
+    of the prompt's first token against the decode step on it, logits
+    within ``LM_ULPS`` and the routing equal (capacity 1 drops nothing
+    at S = 1), and layer 0's MoE block on the card against
+    ``_moe_plain``; and a second bound for a dispatch that reads only
+    the routed experts)."""
     import gc
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import crosscheck, serve
+    from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    moe = serve.get_config(arch).family == "moe"
     t0 = time.perf_counter()
-    srv = serve.Server(LM_FULL, reduced=False, device=dev)
+    srv = serve.Server(arch, reduced=False, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(dev)
     cfg = srv.cfg
     pbytes = LM.param_bytes(srv.params)
     n_params = sum(a.numel() for a in LM.leaves(srv.params))
@@ -4245,24 +4316,69 @@ def _lm_full(torch, dev):
     flops = 2 * (n_params - srv.params["embed"].numel())
     bound = max(step_bytes / H100_BYTES_PER_S,
                 flops / H100_BF16_OPS_PER_S) * 1e3
+    routed = None
+    if moe:
+        # the dense dispatch runs every expert over its slots; a dispatch
+        # that read only the top-k experts of the step's one token
+        m = cfg.moe
+        idle = cfg.n_layers * 3 * (m.num_experts - m.top_k) * \
+            m.d_model * m.d_ff_expert
+        routed = float(max((step_bytes - 2 * idle) / H100_BYTES_PER_S,
+                           (flops - 2 * idle) / H100_BF16_OPS_PER_S) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     # the teacher-forced decode against prefill at full width
     prompt = np.random.default_rng(2).integers(2, cfg.vocab_size, (1, 8))
-    last, _ = LM.prefill(srv.params, cfg, prompt)
+    with MOE.record_routes() as routes:
+        last, _ = LM.prefill(srv.params, cfg, prompt)
+    dropped = sum(int((~r["keep"]).sum()) for r in routes)
     caches = LM.init_cache(cfg, 1, 8, device=dev)
     for t in range(8):
-        logits, caches = LM.decode_step(srv.params, cfg, prompt[:, t:t + 1],
-                                        caches, t)
+        (logits, caches), r = crosscheck.routed(lambda: LM.decode_step(
+            srv.params, cfg, prompt[:, t:t + 1], caches, t))
+        if t == 0:
+            first, first_routes = logits, r
     tf_ulps = crosscheck.ulps_apart(logits, last)
+    moe_gate = {}
+    if moe:
+        # at S = 1 the prefill's capacity is 1 and drops nothing, as the
+        # decode step's: the two must agree
+        (one, _), one_routes = crosscheck.routed(
+            lambda: LM.prefill(srv.params, cfg, prompt[:, :1]))
+        moe_gate["one_token_ulps"] = crosscheck.ulps_apart(first, one)
+        moe_gate["one_token_routes_equal"] = len(one_routes) == len(
+            first_routes) == cfg.n_layers and all(
+            torch.equal(a["expert_idx"], b["expert_idx"])
+            and torch.equal(a["keep"], b["keep"])
+            for a, b in zip(first_routes, one_routes))
+        if not (moe_gate["one_token_ulps"] <= crosscheck.LM_ULPS
+                and moe_gate["one_token_routes_equal"]):
+            raise AssertionError(f"full width {arch}: decode step 0 against "
+                                 f"the 1-token prefill {moe_gate}")
+        # layer 0's MoE block against the plain float32 one, 8 tokens
+        mp = LM.layer(srv.params["segments"][0], 0)["moe"]
+        x = torch.randn((1, 8, cfg.d_model), generator=torch.Generator(
+            dev).manual_seed(3), device=dev).bfloat16()
+        (mo, _), (route,) = crosscheck.routed(
+            lambda: MOE.moe_apply(mp, cfg.moe, x))
+        plain, keep = _moe_plain(torch, mp, cfg.moe, x, route)
+        moe_gate["layer_ulps"] = crosscheck.ulps_apart(mo.float(), plain)
+        moe_gate["layer_dropped"] = int((~keep).sum())
+        if not torch.equal(keep, route["keep"].cpu()) or not \
+                moe_gate["layer_ulps"] <= MOE_PLAIN_ULPS:
+            raise AssertionError(f"full width {arch}: layer 0's MoE block "
+                                 f"against the plain one {moe_gate}")
     same_top = int(torch.argmax(logits[0, -1, :cfg.vocab_size])) == int(
         torch.argmax(last[0, -1, :cfg.vocab_size]))
-    if not tf_ulps <= crosscheck.LM_ULPS:
+    if not moe and not tf_ulps <= crosscheck.LM_ULPS:
         raise AssertionError(f"full width: teacher-forced decode "
                              f"{tf_ulps:.2f} ulps from prefill")
     if not all(len(o) == LM_MAX_NEW for o in outs):
         raise AssertionError(f"full width: {outs}")
-    out = dict(arch=LM_FULL, params=n_params, param_bytes=pbytes,
-               init_s=init_s, peak_bytes=peak, requests=len(outs),
+    if not torch.isfinite(logits).all() or not torch.isfinite(last).all():
+        raise AssertionError(f"full width {arch}: logits not finite")
+    out = dict(arch=arch, params=n_params, param_bytes=pbytes,
+               init_s=init_s, draw_peak_bytes=draw_peak, peak_bytes=peak,
+               requests=len(outs),
                tokens=outs, steps=n_steps, wall_s=wall,
                ms_per_step_wall=wall / n_steps * 1e3,
                ms_per_greedy_step=step_ms, tokens_per_s=n_tokens / wall,
@@ -4273,18 +4389,33 @@ def _lm_full(torch, dev):
                                          / H100_BF16_OPS_PER_S
                                          else "operations"),
                step_bytes=float(step_bytes), teacher_forced_ulps=tf_ulps,
-               teacher_forced_same_top=same_top, profile_s=prof_s)
-    log(f"[examples] (c) {LM_FULL} full width ({n_params / 1e9:.3f} B "
+               teacher_forced_same_top=same_top, profile_s=prof_s,
+               routed_bound_ms=routed, prefill_dropped=dropped,
+               prefill_choices=sum(r["keep"].numel() for r in routes),
+               **moe_gate)
+    part = "(d)" if moe else "(c)"
+    moe_line = "" if not moe else (
+        f"; MoE: bound of a routed-only dispatch {routed:.3f} ms, the "
+        f"8-token prefill dropped {dropped} of {out['prefill_choices']} "
+        f"choices (capacity {MOE.capacity(cfg.moe, 8)}), so the decode is "
+        f"not held to it; decode step 0 against the 1-token prefill "
+        f"{moe_gate['one_token_ulps']:.2f} ulps, routing equal "
+        f"{moe_gate['one_token_routes_equal']}; layer 0's MoE block against "
+        f"the plain float32 one {moe_gate['layer_ulps']:.2f} ulps (limit "
+        f"{MOE_PLAIN_ULPS}), {moe_gate['layer_dropped']} of "
+        f"{cfg.moe.top_k * 8} choices dropped")
+    log(f"[examples] {part} {arch} full width ({n_params / 1e9:.3f} B "
         f"parameters, {pbytes / 1e9:.3f} GB bf16, init {init_s:.1f} s): "
         f"{len(outs)} requests, {n_steps} decode steps in {wall:.3f} s, "
         f"{out['ms_per_step_wall']:.3f} ms per step (greedy step median "
         f"{step_ms:.3f} ms), {out['tokens_per_s']:.2f} tokens/s; device "
         f"busy {busy_ms} ms (share {busy_share} under the profiler) and "
         f"{launches_per_step:.0f} launches per step; bound {bound:.3f} ms "
-        f"({out['bound_by']}); peak memory "
-        f"{peak / 1e9:.3f} GB; teacher-forced decode against prefill "
+        f"({out['bound_by']}); peak memory {draw_peak / 1e9:.3f} GB after "
+        f"the draw (chunks of {L.DRAW_CHUNK}), {peak / 1e9:.3f} GB after "
+        f"serving; teacher-forced decode against prefill "
         f"{tf_ulps:.2f} ulps, same top token {same_top}; the profile took "
-        f"{prof_s:.1f} s")
+        f"{prof_s:.1f} s{moe_line}")
     del srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -4306,13 +4437,15 @@ def phase_examples(torch, dev):
         1000-sample window, clean, noisy and compensated; the others at
         2000 with hop-256 tails) through K1 and on the plain route,
         bitwise equal (``_example_routes``);
-    (b) the reduced qwen2.5-14b, starcoder2-15b and internvl2-2b (its
-        prefix frames too) on the card against the port on the CPU with
-        the same parameters (``launch.crosscheck.card_against_cpu``, which
-        the card tests run too): prefill's last logits and caches and 8
-        teacher-forced decode steps within ``LM_ULPS``, and the server's
-        greedy tokens on ``main()``'s traffic equal (or forked only where
-        the CPU's top-2 margin is within the tolerance);
+    (b) the reduced qwen2.5-14b, starcoder2-15b, internvl2-2b (its
+        prefix frames too), qwen3-moe-30b-a3b and qwen2-moe-a2.7b on the
+        card against the port on the CPU with the same parameters
+        (``launch.crosscheck.card_against_cpu``, which the card tests run
+        too): prefill's last logits and caches and 8 teacher-forced decode
+        steps within ``LM_ULPS``, and the server's greedy tokens on
+        ``main()``'s traffic equal (or forked only where the CPU's top-2
+        margin is within the tolerance); the MoE routing equal but where
+        the CPU's logits nearly tie, each fork counted with its gap;
     (c) ``Server("qwen2.5-14b", reduced=False)``: 48 layers at d 5120,
         14.77 B parameters in bfloat16 on the card, answering ``main()``'s
         4 requests (4-9-token prompts, 8 new tokens each): parameter bytes,
@@ -4320,7 +4453,17 @@ def phase_examples(torch, dev):
         could take for a step, tokens/s, device busy time and launches per
         step (``torch.profiler`` over a 5-step request), and the
         teacher-forced decode against ``prefill``'s last logits on one
-        8-token prompt."""
+        8-token prompt;
+    (d) the same for ``Server("qwen3-moe-30b-a3b", reduced=False)``: 48
+        layers at d 2048 of 128 experts top-8, 30.53 B parameters (61.07 GB
+        in bfloat16); its ms per decode step beside the dense dispatch's
+        bound and a routed-only one, and its teacher-forced decode against
+        ``prefill`` not gated (the 8-token prefill drops choices at
+        capacity 1, a decode step drops none); gated: decode step 0
+        against the prefill of its one token (logits within ``LM_ULPS``,
+        routing equal), and layer 0's MoE block on 8 tokens against
+        ``_moe_plain`` within ``MOE_PLAIN_ULPS``, its kept choices
+        equal."""
     t_phase = time.perf_counter()
     out = {"examples": {}}
     for name in EXAMPLES:
@@ -4366,21 +4509,27 @@ def phase_examples(torch, dev):
             f"{r['decode_ulps']:.2f} ulps (caches "
             f"{r['decode_cache_ulps']:.2f}), tolerance "
             f"{crosscheck.LM_ULPS}; greedy tokens equal: "
-            f"{r['tokens_equal']} {r['forks']}")
+            f"{r['tokens_equal']} {r['forks']}; routing forks "
+            f"{r.get('route_forks', 'none (dense)')}")
     out["b_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["full"] = _lm_full(torch, dev)
     out["c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["moe_full"] = _lm_full(torch, dev, LM_MOE_FULL)
+    out["d_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[examples] phase 16 took {out['seconds']:.1f} s: (a) "
         f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
-        f"{out['c_s']:.1f} s")
+        f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s")
     return out
 
 
 # phase 17: LM training
-TRAIN_ARCHS = LM_ARCHS
+TRAIN_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b")
 TRAIN_FULL = "internvl2-2b"
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")
+MOE_EXAMPLE = dict(steps=40, fail_at=25, ckpt_every=10)   # (c)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 64
 ADAM_PASSES = 7        # float32 passes of an Adam step: p, g, m, v in; p, m, v out
 MOVED_SAMPLE = 4096    # elements of each leaf compared before and after
@@ -4564,6 +4713,81 @@ def _train_full(torch, dev):
     return res
 
 
+def _train_moe(torch, dev):
+    """(c): the reduced MoE archs card against CPU (the draw bitwise, one
+    train step within the training tolerances, with its routing forks),
+    and ``examples/train_lm.py``'s run straight against a run failing at
+    ``MOE_EXAMPLE["fail_at"]`` and resumed from its checkpoint."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import crosscheck
+    from repro_torch.optim.optimizers import tree_leaves
+    out = {}
+    for arch in MOE_ARCHS:
+        r = out[arch] = {"init": crosscheck.init_card_against_cpu(arch, dev),
+                         "step": crosscheck.train_step_card_against_cpu(
+                             arch, dev)}
+        st = r["step"]
+        log(f"[train] (c) {arch} reduced: the jaxrand draw on the card "
+            f"equals the CPU's ({r['init']['leaves']} leaves, float32 and "
+            f"bfloat16); one train step card against CPU: loss "
+            f"{st['loss_card']:.6f} / {st['loss_cpu']:.6f} (rtol "
+            f"{st['loss_rtol']:.2e}), gradients {st['grad_share']:.2e}, mu "
+            f"{st['mu_share']:.2e}, nu {st['nu_share']:.2e} of each leaf's "
+            f"largest, parameters bit-equal {st['params_equal']:.4f}; "
+            f"routing forks {st['route_forks']}")
+    root = os.path.join(ROOT, "build", "phase17_train_lm")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = ["--steps", str(MOE_EXAMPLE["steps"]), "--ckpt-every",
+          str(MOE_EXAMPLE["ckpt_every"]), "--device", str(dev)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        p_a, straight = train_lm.main(
+            kw + ["--ckpt-dir", os.path.join(root, "straight")])
+        try:
+            train_lm.main(kw + ["--ckpt-dir", os.path.join(root, "failed"),
+                                "--fail-at", str(MOE_EXAMPLE["fail_at"])])
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("train_lm: no simulated failure")
+        p_b, resumed = train_lm.main(
+            kw + ["--ckpt-dir", os.path.join(root, "failed")])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    text = buf.getvalue()
+    resumed_at = MOE_EXAMPLE["fail_at"] // MOE_EXAMPLE["ckpt_every"] * \
+        MOE_EXAMPLE["ckpt_every"]
+    if f"resumed from step {resumed_at}" not in text:
+        raise AssertionError(f"train_lm did not resume from {resumed_at}")
+    differ = [i for i, (x, y) in enumerate(zip(tree_leaves(p_a),
+                                               tree_leaves(p_b)))
+              if not torch.equal(x, y)]
+    ex = out["example"] = {
+        "straight": straight, "resumed": resumed,
+        "gap": abs(straight["loss"] - resumed["loss"]),
+        "bitwise": straight == resumed and not differ,
+        "leaves_differ": differ, "wall_s": wall,
+        "losses": [ln for ln in text.splitlines() if "] step" in ln]}
+    if not ex["gap"] < crosscheck.RESUME_ATOL:
+        raise AssertionError(f"train_lm: resumed {resumed} against "
+                             f"{straight}")
+    if not all(math.isfinite(v) for v in straight.values()):
+        raise AssertionError(f"train_lm: {straight}")
+    log(f"[train] (c) examples/train_lm.py ({MOE_ARCHS[0]} reduced, "
+        f"{MOE_EXAMPLE['steps']} steps, batch 8, seq 64): straight "
+        f"{straight}, failed at {MOE_EXAMPLE['fail_at']} and resumed from "
+        f"step {resumed_at}: {resumed} (gap {ex['gap']:.2e}, within "
+        f"{crosscheck.RESUME_ATOL}); bit for bit: {ex['bitwise']} (leaves "
+        f"that differ: {differ}); the three runs {wall:.1f} s")
+    return out
+
+
 def phase_train(torch, dev):
     """Phase 17: LM training on the card.
 
@@ -4584,16 +4808,26 @@ def phase_train(torch, dev):
         step-1 loss in (0.5 ln V, 2.5 ln V), the parameters moved, ms per
         step (steps 2-6) against ``train_bound``, tokens/s, device busy
         time and launches in a profiled step, peak memory, and the bytes a
-        checkpoint would hold (none is written: 23 GB of npz)."""
+        checkpoint would hold (none is written: 23 GB of npz);
+    (c) the reduced qwen3-moe-30b-a3b and qwen2-moe-a2.7b: the draws and
+        one train step card against CPU (``launch.crosscheck``, its
+        routing-fork rule), and ``examples/train_lm.py`` (40 steps at
+        batch 8, seq 64, a checkpoint every 10) straight against a run
+        failing at step 25 and resumed from step 20, final losses within
+        1e-4, bit for bit or not."""
     t0 = time.perf_counter()
     out = {"reduced": _train_reduced(torch, dev)}
     out["a_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     out["full"] = _train_full(torch, dev)
     out["b_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["moe"] = _train_moe(torch, dev)
+    out["c_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] phase 17 took {out['seconds']:.1f} s: (a) "
-        f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s")
+        f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s")
     return out
 
 
@@ -4799,6 +5033,23 @@ def main() -> int:
         f"{tf['peak_bytes']} bytes; reduced resume bit for bit: "
         f"{tr['resume']['bitwise']}; full-width LM server draw "
         f"{lm_full['init_s']:.2f} s")
+    mf, tm = examples["moe_full"], trained["moe"]
+    log(f"[summary] {smi}: MoE server {LM_MOE_FULL} full width: "
+        f"{mf['params']} parameters, {mf['param_bytes']} bytes, draw "
+        f"{mf['init_s']:.2f} s, peak {mf['draw_peak_bytes']} bytes after "
+        f"the draw, {mf['peak_bytes']} after serving; decode step 0 against "
+        f"the 1-token prefill {mf['one_token_ulps']:.2f} ulps, layer 0's "
+        f"MoE block against the plain one {mf['layer_ulps']:.2f} ulps; "
+        f"{mf['ms_per_step_wall']:.3f} ms per decode step (greedy step "
+        f"median {mf['ms_per_greedy_step']:.3f} ms, device busy "
+        f"{mf['busy_ms_per_step']} ms, {mf['launches_per_step']:.0f} "
+        f"launches) beside bounds {mf['bound_ms']:.3f} ms (dense dispatch) "
+        f"and {mf['routed_bound_ms']:.3f} ms (routed only); "
+        f"{mf['tokens_per_s']:.2f} tokens/s; prefill dropped "
+        f"{mf['prefill_dropped']} of {mf['prefill_choices']} choices; MoE "
+        f"training: routing forks "
+        + ", ".join(f"{a} {tm[a]['step']['route_forks']}" for a in MOE_ARCHS)
+        + f"; train_lm resumed bit for bit: {tm['example']['bitwise']}")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "

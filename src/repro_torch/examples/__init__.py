@@ -4,8 +4,10 @@
 
 ``quickstart`` (the paper's pipeline end to end), ``stream_kws`` (always-on
 multi-stream serving), ``customize_onchip`` (the Table IV ablation and an
-enrollment session, asserted bit-identical to the offline loop) and
-``serve_lm`` (the LM server on a reduced config).  They mirror the JAX
+enrollment session, asserted bit-identical to the offline loop),
+``serve_lm`` (the LM server on a reduced config) and ``train_lm`` (LM
+training with checkpoint / restart on a reduced config, by default the
+qwen3-moe-30b-a3b mixture of experts).  They mirror the JAX
 package's ``examples/`` files and print the same landmark lines; the
 device defaults to CUDA.  ``REPRO_EXAMPLES_SMOKE=1`` runs the KWS
 examples at their smoke sizes.

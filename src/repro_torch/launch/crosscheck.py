@@ -10,6 +10,13 @@ not the CPU's, so a bfloat16 rounding flips now and then and the flip
 travels through the layers.  Greedy tokens: equal, or forked only where
 the CPU's top-2 margin at the fork is within the same ``LM_ULPS``.
 
+Routing (the ``moe`` family): the card's experts are the CPU's, token by
+token and rank by rank, except where the CPU's router logits at the first
+rank that differs are within ``ROUTE_ULPS`` bfloat16 ulps (of the token's
+largest logit) of the next rank's: a near-tie that an ulp of the card's
+logits can turn (``route_forks``).  Each fork is reported with its gap;
+the outputs after it are held to the same tolerances as everywhere.
+
 The parameter draw (``jaxrand``, correctly rounded operations only) is
 bitwise the CPU's.  Training (``train_step_card_against_cpu``): the same
 flips travel back through the backward's bfloat16 cotangents, so the
@@ -33,9 +40,11 @@ from repro_torch.core import jaxrand
 from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
 from repro_torch.launch import serve, steps, train
 from repro_torch.models import lm as LM
+from repro_torch.models import moe as MOE
 from repro_torch.optim.optimizers import tree_leaves
 
 LM_ULPS = 4
+ROUTE_ULPS = LM_ULPS
 TRAIN_LOSS_RTOL = 2e-4
 TRAIN_GRAD_SHARE = 3e-2
 TRAIN_PARAMS_EQUAL = 0.99
@@ -52,6 +61,35 @@ def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> float:
     magnitude."""
     g, w = got.float().cpu(), want.float().cpu()
     return float((g - w).abs().max()) / _ulp(w)
+
+
+def route_forks(got: List[Dict], want: List[Dict]) -> List[Dict]:
+    """The routing ``got`` (``models.moe.record_routes``' list of one run)
+    against ``want`` (the CPU's run of the same calls): each token whose
+    ordered experts differ, with the call, the first rank that differs
+    and the CPU's logit gap there to the next rank in bfloat16 ulps of the
+    token's largest logit.  A gap past ``ROUTE_ULPS`` raises
+    ``AssertionError``."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routed calls against {len(want)}")
+    forks = []
+    for c, (g, w) in enumerate(zip(got, want)):
+        diff = g["expert_idx"].cpu() != w["expert_idx"].cpu()
+        if not bool(diff.any()):
+            continue
+        logits = torch.sort(w["logits"].cpu(), dim=-1, descending=True,
+                            stable=True).values
+        for b, t in diff.any(-1).nonzero().tolist():
+            r = int(diff[b, t].nonzero()[0])
+            row = logits[b, t]
+            gap = float(row[r] - row[r + 1]) / _ulp(row)
+            if gap > ROUTE_ULPS:
+                raise AssertionError(
+                    f"call {c} row {b} token {t}: the experts differ at "
+                    f"rank {r}, the CPU's logit gap {gap:.2f} ulps")
+            forks.append(dict(call=c, row=b, token=t, rank=r,
+                              gap_ulps=gap))
+    return forks
 
 
 def greedy_forks(got: List[List[int]], want: List[List[int]],
@@ -82,6 +120,14 @@ def greedy_forks(got: List[List[int]], want: List[List[int]],
     return forks
 
 
+def routed(run):
+    """``run()`` and the routing of its ``moe_apply`` calls
+    (``models.moe.record_routes``): (result, routes)."""
+    with MOE.record_routes() as routes:
+        res = run()
+    return res, routes
+
+
 def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
                      max_new: int = 8) -> Dict:
     """``arch``'s reduced config on ``device`` against the CPU, each
@@ -89,9 +135,10 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     draws must be bitwise equal): prefill's last logits and caches (the
     VLM with its prefix frames), ``steps`` teacher-forced decode steps
     (logits and caches), and the servers' greedy tokens on ``main()``'s
-    traffic.  Returns the gaps in ulps and the forks; raises
-    ``AssertionError`` on a draw that differs, past ``LM_ULPS`` or on a
-    fork past its margin."""
+    traffic; for the ``moe`` family the routing of the prefill and of each
+    step (``route_forks``).  Returns the gaps in ulps, the token forks and
+    (MoE) the routing forks; raises ``AssertionError`` on a draw that
+    differs, past ``LM_ULPS`` or on a fork past its margin."""
     cpu = serve.Server(arch, reduced=True, device="cpu")
     card = serve.Server(arch, reduced=True, device=device)
     cfg = cpu.cfg
@@ -106,11 +153,14 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     if cfg.family == "vlm":
         frames = torch.tensor(rng.standard_normal(
             (2, cfg.frontend_len, cfg.d_model)), dtype=torch.float32)
-    pc = LM.prefill(cpu.params, cfg, tokens, prefix_embeds=frames)
-    pg = LM.prefill(card.params, cfg, tokens, prefix_embeds=None
-                    if frames is None else frames.to(card.device))
+    pc, rc = routed(lambda: LM.prefill(cpu.params, cfg, tokens,
+                                       prefix_embeds=frames))
+    pg, rg = routed(lambda: LM.prefill(
+        card.params, cfg, tokens, prefix_embeds=None
+        if frames is None else frames.to(card.device)))
     if pg[0].device != card.device:
         raise AssertionError(f"{arch}: prefill ran on {pg[0].device}")
+    forks = {"prefill": route_forks(rg, rc), "decode": []}
 
     def caches_apart(g, c):
         return max(ulps_apart(a[k], b[k]) for a, b in zip(g, c)
@@ -121,14 +171,19 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     cc = LM.init_cache(cfg, 2, steps, device="cpu")
     cg = LM.init_cache(cfg, 2, steps, device=card.device)
     for t in range(steps):
-        lc, cc = LM.decode_step(cpu.params, cfg, tokens[:, t:t + 1], cc, t)
-        lg, cg = LM.decode_step(card.params, cfg, tokens[:, t:t + 1], cg, t)
+        tok = tokens[:, t:t + 1]
+        (lc, cc), rc = routed(lambda: LM.decode_step(cpu.params, cfg, tok,
+                                                     cc, t))
+        (lg, cg), rg = routed(lambda: LM.decode_step(card.params, cfg, tok,
+                                                     cg, t))
+        forks["decode"] += [dict(f, step=t) for f in route_forks(rg, rc)]
         out["decode_ulps"] = max(out["decode_ulps"], ulps_apart(lg, lc))
         out["decode_cache_ulps"] = max(out["decode_cache_ulps"],
                                        caches_apart(cg, cc))
     for key, v in out.items():
         if not v <= LM_ULPS:
-            raise AssertionError(f"{arch}: {key} {v:.2f} > {LM_ULPS}")
+            raise AssertionError(f"{arch}: {key} {v:.2f} > {LM_ULPS} "
+                                 f"(routing forks {forks})")
     prompts = serve.prompts_for(cfg, requests)
     steps_c = []
     decode_c = cpu.decode
@@ -143,6 +198,8 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     out["forks"] = greedy_forks(got, want, steps_c, prompts,
                                 cfg.vocab_size)
     out["tokens_equal"] = got == want
+    if cfg.family == "moe":
+        out["route_forks"] = forks
     return out
 
 
@@ -184,8 +241,10 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
     """One ``make_train_step`` step of ``arch``'s reduced config on
     ``device`` against the CPU, from the same float32 ``PRNGKey(0)``
     parameters and the token pipeline's step-0 batch (the VLM's prefix
-    frames ones), and ``loss_and_grads``' gradients on both.  Returns the
-    gaps; raises ``AssertionError`` past the training tolerances."""
+    frames ones), and ``loss_and_grads``' gradients on both; for the
+    ``moe`` family the routing forks of each of the two runs
+    (``route_forks``).  Returns the gaps; raises ``AssertionError`` past
+    the training tolerances."""
     cfg = serve.get_config(arch).reduced()
     params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
                                    device="cpu", dtype=torch.float32)
@@ -198,10 +257,12 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
     for d in ("cpu", device):
         p = LM.tree_map(lambda a: a.to(d), params)
         b = train.model_batch(cfg, tokens, labels, d)
-        (total, loss), grads = steps.loss_and_grads(cfg, p, b)
-        runs[str(d)] = dict(grads=grads, loss=float(loss),
-                            out=step(p, opt.init(p), b))
+        (_, grads), r_grads = routed(lambda: steps.loss_and_grads(cfg, p, b))
+        res, r_step = routed(lambda: step(p, opt.init(p), b))
+        runs[str(d)] = dict(grads=grads, out=res, routes=(r_grads, r_step))
     cpu, card = runs["cpu"], runs[str(device)]
+    forks = {k: len(route_forks(g, c)) for k, g, c in zip(
+        ("loss_and_grads", "step"), card["routes"], cpu["routes"])}
     if next(iter(tree_leaves(card["grads"]))).device.type != \
             torch.device(device).type:
         raise AssertionError(f"{arch}: the step did not run on {device}")
@@ -220,7 +281,8 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
            "params_equal": equal / total_n,
            "grad_share": max(_shares(card["grads"], cpu["grads"])),
            "mu_share": max(_shares(o_g.mu, o_c.mu)),
-           "nu_share": max(_shares(o_g.nu, o_c.nu))}
+           "nu_share": max(_shares(o_g.nu, o_c.nu)),
+           "route_forks": forks}
     out["loss_rtol"] = abs(out["loss_card"] - out["loss_cpu"]) / abs(
         out["loss_cpu"])
     for key, limit in (("loss_rtol", TRAIN_LOSS_RTOL),
@@ -228,7 +290,8 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
                        ("mu_share", TRAIN_GRAD_SHARE),
                        ("nu_share", 2 * TRAIN_GRAD_SHARE)):
         if not out[key] <= limit:
-            raise AssertionError(f"{arch}: {key} {out[key]:.3g} > {limit}")
+            raise AssertionError(f"{arch}: {key} {out[key]:.3g} > {limit} "
+                                 f"(routing forks {forks})")
     if not out["params_equal"] >= TRAIN_PARAMS_EQUAL:
         raise AssertionError(f"{arch}: {out['params_equal']:.4f} of the "
                              f"parameters bit-equal")

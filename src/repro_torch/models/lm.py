@@ -10,8 +10,15 @@ layer's slice at a time.
 
 Ported so far: the ``attn_mlp`` segment, which is the whole plan of the
 ``dense`` and ``vlm`` families (qwen2.5-14b, starcoder2-15b, internlm2-20b,
-mistral-large-123b, internvl2-2b).  Every other segment kind raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+mistral-large-123b, internvl2-2b), and the ``attn_moe`` segment of the
+``moe`` family (qwen3-moe-30b-a3b, qwen2-moe-a2.7b; ``models/moe.py``).
+Every other segment kind raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it.
+
+A MoE layer's capacity depends on the sequence it routes, so for the
+``moe`` family the teacher-forced decode (S = 1 per step, nothing
+dropped) is not the full forward or ``prefill`` where a longer sequence
+drops choices, in the reference as in the port.
 
 The embedding, the unembedding and every dense weight and bias are
 stored as the caller's ``dtype``: float32, the reference's own leaves,
@@ -38,12 +45,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import jaxrand, means
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 COMPUTE = torch.bfloat16
 
 # the ROADMAP.md item that ports each segment kind still missing
 _NOT_PORTED = {
-    "attn_moe": "ROADMAP.md queue 1, item 7c (MoE)",
     "mamba": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 hybrid)",
     "zamba_group": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 "
                    "hybrid)",
@@ -87,8 +94,11 @@ def seg_plan(cfg: ArchConfig):
     raise ValueError(cfg.family)
 
 
+_PORTED = ("attn_mlp", "attn_moe")
+
+
 def _require_ported(kind: str) -> None:
-    if kind != "attn_mlp":
+    if kind not in _PORTED:
         raise NotImplementedError(
             f"segment kind {kind!r} is not ported yet: "
             f"{_NOT_PORTED.get(kind, 'not a segment kind of the LM')}")
@@ -108,32 +118,37 @@ def _check_plan(cfg: ArchConfig) -> List[Tuple[str, int]]:
 
 def _attn_block_init(key: torch.Tensor, cfg: ArchConfig, with_moe: bool,
                      device=None, dtype=COMPUTE) -> Dict:
-    if with_moe:
-        _require_ported("attn_moe")
     k1, k2 = jaxrand.split(key)
-    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-            "attn": L.attn_init(k1, cfg.attn_cfg(), device, dtype),
-            "ln2": L.rmsnorm_init(cfg.d_model, device),
-            "mlp": L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                              device=device, dtype=dtype)}
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+         "attn": L.attn_init(k1, cfg.attn_cfg(), device, dtype),
+         "ln2": L.rmsnorm_init(cfg.d_model, device)}
+    if with_moe:
+        p["moe"] = MOE.moe_init(k2, cfg.moe, device, dtype)
+    else:
+        p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              device=device, dtype=dtype)
+    return p
 
 
 def _attn_block_apply(p, cfg: ArchConfig, h, cache=None, cache_index=None,
-                      rope=None):
+                      rope=None, aux: bool = True):
     """Returns (h, new_cache, aux_loss); the dense block's aux loss is
-    0.0.  ``cache`` is written in place (``L.attention``)."""
+    0.0, and so is the MoE block's with ``aux=False``.  ``cache`` is
+    written in place (``L.attention``)."""
     a, new_cache = L.attention(p["attn"], cfg.attn_cfg(),
                                L.rmsnorm(p["ln1"], h), rope=rope,
                                cache=cache, cache_index=cache_index)
-    if "moe" in p:
-        _require_ported("attn_moe")
     # the reference's ``h + a`` is a bfloat16 sum, but XLA keeps it in
     # float32 where the second norm reads it (excess precision) and rounds
-    # it only for the residual add after the MLP; the port does the same
+    # it only for the residual add after the MLP or the MoE; the port does
+    # the same
     mid = h.float() + a.float()
-    m = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], mid).to(h.dtype),
-              cfg.gated_mlp)
-    return mid.to(h.dtype) + m, new_cache, 0.0
+    xn = L.rmsnorm(p["ln2"], mid).to(h.dtype)
+    if "moe" in p:
+        m, aux_loss = MOE.moe_apply(p["moe"], cfg.moe, xn, aux=aux)
+    else:
+        m, aux_loss = L.mlp(p["mlp"], xn, cfg.gated_mlp), 0.0
+    return mid.to(h.dtype) + m, new_cache, aux_loss
 
 
 def tree_map(fn, tree):
@@ -165,12 +180,13 @@ def _seg_init(key: torch.Tensor, cfg: ArchConfig, kind: str, count: int,
     ``split(key, count)[i]`` (the reference's ``vmap`` over split keys)
     and written into its slice of the stack."""
     _require_ported(kind)
+    with_moe = kind == "attn_moe"
     keys = jaxrand.split(key, count)
-    first = _attn_block_init(keys[0], cfg, False, device, dtype)
+    first = _attn_block_init(keys[0], cfg, with_moe, device, dtype)
     stacked = tree_map(lambda a: torch.empty(
         (count, *a.shape), dtype=a.dtype, device=a.device), first)
     for i in range(count):
-        one = first if i == 0 else _attn_block_init(keys[i], cfg, False,
+        one = first if i == 0 else _attn_block_init(keys[i], cfg, with_moe,
                                                     device, dtype)
         for dst, src in zip(leaves(layer(stacked, i)), leaves(one)):
             dst.copy_(src)
@@ -276,7 +292,9 @@ def _layers(seg: Dict, count: int) -> List[Dict]:
 
 
 def _block(lp, cfg: ArchConfig, h, rope):
-    return _attn_block_apply(lp, cfg, h, rope=rope)[0]
+    """One layer of the full-sequence forward: (h, aux_loss)."""
+    h, _, aux = _attn_block_apply(lp, cfg, h, rope=rope)
+    return h, aux
 
 
 def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
@@ -288,13 +306,17 @@ def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
     same."""
     _require_ported(kind)
     remat = cfg.remat and train and torch.is_grad_enabled()
+    # the layers' aux losses summed in layer order from 0, the reference's
+    # scan carry (the attn_mlp block adds none)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in _layers(seg_params, count):
         if remat:
-            h = checkpoint(_block, lp, cfg, h, rope, use_reentrant=False)
+            h, a = checkpoint(_block, lp, cfg, h, rope, use_reentrant=False)
         else:
-            h = _block(lp, cfg, h, rope)
-    # the attn_mlp block has no auxiliary loss (only MoE routing has one)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+            h, a = _block(lp, cfg, h, rope)
+        if kind == "attn_moe":
+            aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +411,7 @@ def decode_step(params, cfg: ArchConfig, tokens, caches: list, index
         for i in range(count):
             h, _, _ = _attn_block_apply(
                 layer(seg, i), cfg, h, cache={"k": nk[i], "v": nv[i]},
-                cache_index=index, rope=rope)
+                cache_index=index, rope=rope, aux=False)
         new_caches.append({"k": nk, "v": nv})
     h = L.rmsnorm(params["ln_f"], h)
     return _unembed(params, cfg, h), new_caches
@@ -427,7 +449,7 @@ def prefill(params, cfg: ArchConfig, tokens,
                 k = L.rmsnorm(lp["attn"]["k_norm"], k)
             ks.append(L.apply_rope(k, positions, acfg.rope_theta))
             vs.append(v)
-            h, _, _ = _attn_block_apply(lp, cfg, h)
+            h, _, _ = _attn_block_apply(lp, cfg, h, aux=False)
         caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
     h = L.rmsnorm(params["ln_f"], h[:, -1:])
     return _unembed(params, cfg, h), caches

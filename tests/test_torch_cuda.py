@@ -1887,14 +1887,18 @@ def test_parallel_fleet_of_compiled_pools_on_one_card(dev):
 # The LM stack's serving path and the examples on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
-                                  "internvl2-2b"])
+LM_CARD_ARCHS = ["qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
+                 "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"]
+
+
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
 def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
     """Prefill (the VLM with its prefix frames) and 8 teacher-forced
     decode steps on the card against the CPU on the same parameters, and
     ``Server(device="cuda")``'s greedy tokens on ``main()``'s traffic
     against the CPU server's: ``launch.crosscheck``'s tolerance and fork
-    rule, which ``chip_smoke.py`` phase 16 (b) applies too."""
+    rules (the MoE routing's too), which ``chip_smoke.py`` phase 16 (b)
+    applies too."""
     from repro_torch.launch import crosscheck
     out = crosscheck.card_against_cpu(arch, dev)
     for key in ("prefill_ulps", "prefill_cache_ulps", "decode_ulps",
@@ -1902,8 +1906,7 @@ def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
         assert out[key] <= crosscheck.LM_ULPS, (key, out[key])
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
-                                  "internvl2-2b"])
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
 def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
     """``init_params_for`` from ``PRNGKey(0)`` on the card: the CPU's
     float32 and bfloat16 leaves bit for bit (``jaxrand``)."""
@@ -1911,16 +1914,51 @@ def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
     assert crosscheck.init_card_against_cpu(arch, dev)["leaves"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b",
-                                  "internvl2-2b"])
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
 def test_reduced_train_step_on_the_card_against_the_cpu(dev, arch):
     """One ``make_train_step`` step on the card against the CPU from the
     same float32 parameters and batch: ``launch.crosscheck``'s training
-    tolerances, which ``chip_smoke.py`` phase 17 (a) applies too."""
+    tolerances (a MoE step with its routing forks counted), which
+    ``chip_smoke.py`` phase 17 (a) and (c) apply too."""
     from repro_torch.launch import crosscheck
     out = crosscheck.train_step_card_against_cpu(arch, dev)
     assert out["loss_rtol"] <= crosscheck.TRAIN_LOSS_RTOL
     assert out["params_equal"] >= crosscheck.TRAIN_PARAMS_EQUAL
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
+def test_forced_tie_routes_to_the_lower_index_on_the_card(dev, arch):
+    """A MoE layer whose router columns 1 and 3 are equal (their
+    probabilities tie on every token), then all equal: on the card the
+    stable sort ranks the lower index first, as on the CPU, and the
+    layer's output equals the CPU's within ``crosscheck.LM_ULPS``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import crosscheck
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    mcfg = get_config(arch).reduced().moe
+    p = MOE.moe_init(jaxrand.PRNGKey(3, device="cpu"), mcfg, "cpu")
+    x = torch.tensor(np.random.default_rng(6).standard_normal(
+        (2, 8, mcfg.d_model)), dtype=torch.bfloat16)
+
+    def both_devices():
+        runs = []
+        for d in ("cpu", dev):
+            with MOE.record_routes() as r:
+                out, _ = MOE.moe_apply(LM.tree_map(lambda a: a.to(d), p),
+                                       mcfg, x.to(d))
+            runs.append((out.cpu(), r[0]["expert_idx"].cpu()))
+        (out_c, idx_c), (out_g, idx_g) = runs
+        assert torch.equal(idx_g, idx_c)
+        assert crosscheck.ulps_apart(out_g, out_c) <= crosscheck.LM_ULPS
+        return idx_g
+    router = p["router"]["w"]
+    router[:, 3] = router[:, 1]
+    rows = both_devices().reshape(-1, mcfg.top_k).tolist()
+    both = [r for r in rows if 1 in r and 3 in r]
+    assert both and all(r.index(1) < r.index(3) for r in both)
+    router[:] = router[:, :1]
+    assert (both_devices() == torch.arange(mcfg.top_k)).all()
 
 
 def test_reduced_training_resumes_on_the_card(dev, tmp_path):

@@ -135,7 +135,6 @@ def test_registry_and_shapes_equal_the_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-30b-a3b", "7c"), ("qwen2-moe-a2.7b", "7c"),
     ("zamba2-1.2b", "7d"), ("xlstm-125m", "7e")])
 def test_families_not_ported_yet_raise(arch, item):
     cfg = base.get_config(arch).reduced()
@@ -143,6 +142,19 @@ def test_families_not_ported_yet_raise(arch, item):
         LM.init_lm(jaxrand.PRNGKey(0, device="cpu"), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         LM.init_cache(cfg, 1, 4, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
+def test_moe_families_now_build(arch):
+    """The MoE family, ported: ``init_lm`` and ``init_cache`` of the
+    reduced configs run (``tests/test_torch_moe.py`` holds them to the
+    reference), one KV cache per layer as for the dense family."""
+    cfg = base.get_config(arch).reduced()
+    p = LM.init_lm(jaxrand.PRNGKey(0, device="cpu"), cfg, device="cpu")
+    assert "moe" in p["segments"][0]
+    (cache,) = LM.init_cache(cfg, 1, 4, device="cpu")
+    assert cache["k"].shape == (cfg.n_layers, 1, 4, cfg.n_kv_heads,
+                                cfg.head_dim)
 
 
 def test_encdec_steps_raise_until_ported():

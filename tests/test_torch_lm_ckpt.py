@@ -8,9 +8,11 @@ JAX package's, on the CPU, on the reduced configs.
   parameters and Adam state saved by the reference loads in the port, and
   the port's in the reference, leaf for leaf.
 - One train step on internvl2-2b (its prefix frames and label offset),
-  internlm2-20b and mistral-large-123b against the reference's, within
-  the tolerances of ``tests/_lm_train_cases.py`` (qwen2.5-14b and
-  starcoder2-15b are in ``tests/test_torch_lm_train.py``).
+  internlm2-20b, mistral-large-123b and qwen3-moe-30b-a3b (QK-norm, the
+  MoE layers and their aux loss) against the reference's, within the
+  tolerances of ``tests/_lm_train_cases.py`` (qwen2.5-14b and
+  starcoder2-15b are in ``tests/test_torch_lm_train.py``, qwen2-moe-a2.7b
+  in ``tests/test_torch_moe.py``).
 - ``launch.train.train_loop``: 4 steps of the reduced qwen2.5-14b (batch
   4, seq 32) against the reference's: the final loss within
   ``LOOP_RTOL``, the parameters within twice the sum of the steps'
@@ -209,7 +211,8 @@ def test_port_checkpoint_loads_in_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ("internvl2-2b", "internlm2-20b",
-                                  "mistral-large-123b"))
+                                  "mistral-large-123b",
+                                  "qwen3-moe-30b-a3b"))
 def test_train_step_against_the_reference(arch):
     c = cases.case(arch)
     ref = cases.ref_step(c)
@@ -271,8 +274,8 @@ def test_train_main_and_the_device_rule(capsys, monkeypatch):
     train.main(["--arch", "internvl2-2b", "--reduced", "--steps", "2",
                 "--batch", "2", "--seq", "8", "--device", "cpu"])
     assert "[train] done" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        train.train_loop("qwen2-moe-a2.7b", 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        train.train_loop("zamba2-1.2b", 1, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.train_loop("qwen2.5-14b", 1)

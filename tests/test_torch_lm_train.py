@@ -215,8 +215,8 @@ def test_remat_changes_memory_not_numbers(arch, monkeypatch):
 
 
 def test_train_step_raises_for_the_families_still_to_port():
-    for arch, item in (("qwen3-moe-30b-a3b", "7c"), ("zamba2-1.2b", "7d"),
-                       ("xlstm-125m", "7e"), ("seamless-m4t-medium", "7f")):
+    for arch, item in (("zamba2-1.2b", "7d"), ("xlstm-125m", "7e"),
+                       ("seamless-m4t-medium", "7f")):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             steps.make_train_step(cfg)
