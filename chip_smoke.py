@@ -194,10 +194,11 @@ result line):
    its wall time and its K1 and ``head_train_rows`` launches, then each
    example's hardware-path calls at its own shapes through K1 and on the
    plain route, bitwise equal; (b) the reduced qwen2.5-14b, starcoder2-15b,
-   internvl2-2b, qwen3-moe-30b-a3b and qwen2-moe-a2.7b on the card against
-   the port on the CPU, each server with its own ``jaxrand`` draw from
-   ``PRNGKey(0)``, bitwise equal (``repro_torch.launch.crosscheck``:
-   prefill and 8 decode steps within ``LM_ULPS`` bfloat16 ulps, the
+   internvl2-2b, qwen3-moe-30b-a3b, qwen2-moe-a2.7b, zamba2-1.2b and
+   xlstm-125m on the card against the port on the CPU, each server with
+   its own ``jaxrand`` draw from ``PRNGKey(0)``, bitwise equal
+   (``repro_torch.launch.crosscheck``: prefill and 8 decode steps within
+   the family's ``lm_ulps`` bfloat16 ulps, every cache leaf too, the
    server's greedy tokens, and the MoE routing with its forks counted);
    (c) ``Server("qwen2.5-14b", reduced=False)`` at full width, its 14.77 B
    parameters drawn through ``jaxrand`` on the card (the draw's wall time),
@@ -213,9 +214,21 @@ result line):
    decode step 0 against the prefill of its one token (capacity drops
    nothing at S = 1; logits within ``LM_ULPS``, routing equal), and layer
    0's MoE block on 8 tokens against a plain float32 MoE written token by
-   token (``_moe_plain``);
+   token (``_moe_plain``); (e) the recurrent families at full width,
+   ``Server("zamba2-1.2b", reduced=False)`` (38 Mamba2 layers at d 2048,
+   one shared attention block used before each group of 7) and
+   ``Server("xlstm-125m", reduced=False)`` (10 mLSTM and 2 sLSTM blocks at
+   d 768), each answering ``main()``'s 4 requests: the draw's wall time,
+   parameter bytes, peak memory, ms per decode step beside the least time
+   for a step's bytes (the shared block's weights once per use), tokens/s,
+   device busy time and launches per step; gated: decode step 0 against
+   the 1-token prefill, and an 8-token prompt's full forward against its
+   teacher-forced decode, each within the family's ``crosscheck.lm_ulps``
+   (16 xLSTM, 6 zamba2: the recurrence carries a rounding flip to every
+   later position);
 17. LM training (``phase_train``): (a) the reduced qwen2.5-14b,
-   starcoder2-15b and internvl2-2b: the float32 and bfloat16 ``jaxrand``
+   starcoder2-15b, internvl2-2b, zamba2-1.2b and xlstm-125m (the last two
+   within their families' tolerances): the float32 and bfloat16 ``jaxrand``
    draws on the card bitwise the CPU's, one train step on the card against
    the CPU within the training tolerances of ``launch.crosscheck``, and a
    12-step ``train_loop`` failing at step 9 and resumed from its
@@ -4117,9 +4130,11 @@ def phase_compiled(torch, dev):
 # phase 16: the examples and the LM server
 EXAMPLES = ("quickstart", "stream_kws", "customize_onchip")
 LM_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
-            "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")
+            "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "zamba2-1.2b",
+            "xlstm-125m")
 LM_FULL = "qwen2.5-14b"
 LM_MOE_FULL = "qwen3-moe-30b-a3b"
+LM_RECURRENT_FULL = ("zamba2-1.2b", "xlstm-125m")         # (e)
 LM_REQUESTS, LM_MAX_NEW, LM_STEPS = 4, 8, 8
 # (d): one full-width MoE layer against ``_moe_plain`` (float32, token by
 # token).  The port rounds each expert's products, its SiLU chain and each
@@ -4235,6 +4250,55 @@ def _example_routes(torch, dev, name, ret, triggers):
     return n
 
 
+def _serve_timed(torch, srv, prompts):
+    """``srv`` (a full-width ``Server``) on ``prompts`` after a warm-up
+    request: walls, each decode step stamped on the host clock (a greedy
+    step ends in its argmax on the host, so the gap from one greedy
+    step's start to the next's is one step's latency), then a short
+    request under the profiler (3 prompt steps and 2 greedy ones): device
+    busy time and launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+    srv.submit_and_run(prompts[:1], max_new=2)          # warm-up
+    torch.cuda.synchronize()
+    stamps = []                         # the host clock at each step
+    decode = srv.decode
+
+    def stamped(params, caches, batch):
+        stamps.append(time.perf_counter())
+        return decode(params, caches, batch)
+    srv.decode = stamped
+    t0 = time.perf_counter()
+    outs = srv.submit_and_run(prompts, max_new=LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    srv.decode = decode
+    greedy, i = [], 0
+    for p in prompts:
+        i += len(p) - 1
+        greedy += [stamps[j + 1] - stamps[j]
+                   for j in range(i, i + LM_MAX_NEW - 1)]
+        i += LM_MAX_NEW
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        srv.submit_and_run([prompts[0][:4]], max_new=2)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    steps_prof = 3 + 2
+    dev_us, rows = device_time(torch, prof)
+    kernels_n = sum(n for _, n in rows.values())
+    n_tokens = sum(len(o) for o in outs)
+    return dict(outs=outs, steps=len(stamps), wall_s=wall,
+                ms_per_step_wall=wall / len(stamps) * 1e3,
+                ms_per_greedy_step=statistics.median(greedy) * 1e3,
+                tokens_per_s=n_tokens / wall,
+                busy_ms_per_step=(dev_us / 1e3 / steps_prof if kernels_n
+                                  else None),
+                launches_per_step=kernels_n / steps_prof,
+                busy_share=dev_us / 1e6 / prof_wall if kernels_n else None,
+                profile_s=time.perf_counter() - t_prof)
+
+
 def _lm_full(torch, dev, arch=LM_FULL):
     """(c), (d): ``Server(arch, reduced=False)`` on the card: ``main()``'s
     traffic, walls, the device time per step, bytes and the bound, and
@@ -4248,7 +4312,6 @@ def _lm_full(torch, dev, arch=LM_FULL):
     the routed experts)."""
     import gc
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import crosscheck, serve
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
@@ -4266,46 +4329,13 @@ def _lm_full(torch, dev, arch=LM_FULL):
     pbytes = LM.param_bytes(srv.params)
     n_params = sum(a.numel() for a in LM.leaves(srv.params))
     prompts = serve.prompts_for(cfg, LM_REQUESTS)
-    srv.submit_and_run(prompts[:1], max_new=2)          # warm-up
-    torch.cuda.synchronize()
-    stamps = []                         # the host clock at each step
-    decode = srv.decode
-
-    def stamped(params, caches, batch):
-        stamps.append(time.perf_counter())
-        return decode(params, caches, batch)
-    srv.decode = stamped
-    t0 = time.perf_counter()
-    outs = srv.submit_and_run(prompts, max_new=LM_MAX_NEW)
-    wall = time.perf_counter() - t0
-    srv.decode = decode
-    n_steps = len(stamps)
+    t = _serve_timed(torch, srv, prompts)
+    outs, n_steps, wall, step_ms = (t["outs"], t["steps"], t["wall_s"],
+                                    t["ms_per_greedy_step"])
     n_tokens = sum(len(o) for o in outs)
-    # a greedy step ends in its argmax on the host, so the gap from one
-    # greedy step's start to the next's is one step's latency
-    greedy, i = [], 0
-    for p in prompts:
-        i += len(p) - 1
-        greedy += [stamps[j + 1] - stamps[j]
-                   for j in range(i, i + LM_MAX_NEW - 1)]
-        i += LM_MAX_NEW
-    step_ms = statistics.median(greedy) * 1e3
-    # a short request under the profiler (3 prompt steps and 2 greedy
-    # ones): device busy time and launches a step
-    t_prof = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        srv.submit_and_run([prompts[0][:4]], max_new=2)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    steps_prof = 3 + 2
-    dev_us, rows = device_time(torch, prof)
-    prof_s = time.perf_counter() - t_prof
-    kernels_n = sum(n for _, n in rows.values())
-    busy_ms = dev_us / 1e3 / steps_prof if kernels_n else None
-    launches_per_step = kernels_n / steps_prof
-    busy_share = dev_us / 1e6 / prof_wall if kernels_n else None
+    busy_ms, launches_per_step, busy_share, prof_s = (
+        t["busy_ms_per_step"], t["launches_per_step"], t["busy_share"],
+        t["profile_s"])
     # the least bytes a step moves: every parameter once but the embedding
     # table (one row of it), the valid K/V read, the new K/V written
     row = cfg.d_model * 2
@@ -4422,6 +4452,204 @@ def _lm_full(torch, dev, arch=LM_FULL):
     return out
 
 
+def _recurrent_step_bytes(cfg, params, caches, mean_pos):
+    """(bytes, FLOPs) of one decode step of a recurrent LM at batch 1:
+    every parameter read once but the embedding table (one row of it),
+    the zamba2 shared block's weights once per use; every recurrent cache
+    leaf read and written once; the shared block's valid K/V read and one
+    new position written per use; two FLOPs per weight read."""
+    from repro_torch.models import lm as LM
+    emb = params["embed"]
+    p_bytes = LM.param_bytes(params) - emb.numel() * emb.element_size() \
+        + cfg.d_model * emb.element_size()
+    p_n = sum(a.numel() for a in LM.leaves(params)) - emb.numel()
+    state = 0
+    for (kind, count), seg, cache in zip(LM.seg_plan(cfg),
+                                         params["segments"], caches):
+        if kind == "zamba_group":
+            uses = count // cfg.attn_every
+            shared = seg["shared_attn"]
+            p_bytes += (uses - 1) * LM.param_bytes(shared)
+            p_n += (uses - 1) * sum(a.numel() for a in LM.leaves(shared))
+            kv = cache["attn"]["k"]
+            per_pos = 2 * uses * kv.shape[3] * kv.shape[4] * \
+                kv.element_size()
+            state += per_pos * (mean_pos + 1)
+            cache = cache["mamba"]
+        state += 2 * LM.param_bytes(cache)
+    return p_bytes + state, 2 * p_n
+
+
+def _recurrent_core_ms(torch, dev, cfg, params):
+    """Device times (``device_ms``) of the recurrent cores at full width
+    on a 128-token prompt (one chunk), the speed list's inputs: the GLA
+    core alone at one layer's shapes (bfloat16 q, k, v; float32 gates),
+    the sLSTM layer's time loop (xLSTM), and the whole ``forward_lm``;
+    with the number of GLA and sLSTM layers a forward runs."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import xlstm as XL
+    t = 128
+    gen = torch.Generator(dev).manual_seed(5)
+    plan = LM.seg_plan(cfg)
+    if cfg.family == "hybrid":
+        h, dk, dv = cfg.mamba.n_heads, cfg.mamba.d_state, cfg.mamba.head_dim
+    else:
+        h, dk = cfg.xlstm.n_heads, cfg.xlstm.head_dim
+        dv = dk
+    q, k = (torch.randn((1, t, h, dk), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    v = torch.randn((1, t, h, dv), generator=gen, device=dev).bfloat16()
+    log_a = -0.1 * torch.rand((1, t, h), generator=gen, device=dev)
+    b = torch.rand((1, t, h), generator=gen, device=dev)
+    out = {"gla_ms": device_ms(torch, lambda: L.gated_linear_attention(
+        q, k, v, log_a, b), reps=3, iters=5),
+        "gla_layers": sum(n for kind, n in plan
+                          if kind in ("mamba", "zamba_group", "mlstm")),
+        "slstm_layers": sum(n for kind, n in plan if kind == "slstm")}
+    x = torch.randn((1, t, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    if out["slstm_layers"]:
+        seg = params["segments"][[kind for kind, _ in plan].index("slstm")]
+        out["slstm_ms"] = device_ms(torch, lambda: XL.slstm_apply(
+            seg, cfg.xlstm, x), reps=2, iters=1)
+    prompt = torch.randint(2, cfg.vocab_size, (1, t), generator=gen,
+                           device=dev)
+    out["forward_ms"] = device_ms(torch, lambda: LM.forward_lm(
+        params, cfg, prompt, train=False), reps=2, iters=1)
+    return out
+
+
+def _layer_launches(torch, dev, cfg, params):
+    """Kernel launches of one decode step of each layer kind of a
+    recurrent LM at batch 1, the median over profiled runs of 10 calls of
+    the profiler's device records per call (``device_ms``): a Mamba2
+    layer and a shared-block use (zamba2), an mLSTM and an sLSTM layer
+    (xLSTM)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import xlstm as XL
+    h = torch.zeros((1, 1, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    caches = LM.init_cache(cfg, 1, 8, device=dev)
+    calls = {}
+    for (kind, count), seg, cache in zip(LM.seg_plan(cfg),
+                                         params["segments"], caches):
+        if kind == "zamba_group":
+            rope = L.rope_tables(torch.arange(1, device=dev)[None, :],
+                                 cfg.head_dim, cfg.rope_theta)
+            kv = {k: v[0] for k, v in cache["attn"].items()}
+            calls["shared_block"] = lambda seg=seg, kv=kv, rope=rope: \
+                LM._attn_block_apply(seg["shared_attn"], cfg, h, cache=kv,
+                                     cache_index=0, rope=rope, aux=False)
+            seg, cache, kind = seg["mamba"], cache["mamba"], "mamba"
+        if kind == "slstm":
+            calls[kind] = lambda seg=seg, cache=cache: XL.slstm_step(
+                seg, cfg.xlstm, h, cache)
+        else:
+            calls[kind] = lambda seg=seg, cache=cache, kind=kind: \
+                LM._recurrent_step(cfg, kind, LM.layer(seg, 0), h,
+                                   LM.layer(cache, 0))
+    out = {}
+    with L.float32_accumulation():
+        for name, fn in calls.items():
+            records = []
+            device_ms(torch, fn, reps=3, iters=10, records=records)
+            out[name] = statistics.median(records) if records else None
+    return out
+
+
+def _lm_recurrent_full(torch, dev, arch):
+    """(e): ``Server(arch, reduced=False)`` of a recurrent family on the
+    card: the draw's wall time, ``main()``'s traffic timed and profiled
+    (``_serve_timed``), bytes and the bound of a step
+    (``_recurrent_step_bytes``), peak memory; gated: decode step 0
+    against the prefill of its one token, and an 8-token prompt's full
+    forward against its teacher-forced decode, each within the family's
+    ``crosscheck.lm_ulps`` (the reference's own decode and forward agree
+    on these families; the port's part by rounding flips that the
+    recurrence carries to later positions)."""
+    import gc
+    import numpy as np
+    from repro_torch.launch import crosscheck, serve
+    from repro_torch.models import lm as LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = serve.Server(arch, reduced=False, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(dev)
+    cfg = srv.cfg
+    pbytes = LM.param_bytes(srv.params)
+    n_params = sum(a.numel() for a in LM.leaves(srv.params))
+    prompts = serve.prompts_for(cfg, LM_REQUESTS)
+    t = _serve_timed(torch, srv, prompts)
+    mean_pos = np.mean([len(p) - 1 + LM_MAX_NEW for p in prompts]) / 2
+    caches = LM.init_cache(cfg, 1, srv.max_len, device=dev)
+    step_bytes, flops = _recurrent_step_bytes(cfg, srv.params, caches,
+                                              mean_pos)
+    t_bytes = step_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_OPS_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab_size, (1, 8))
+    full, _ = LM.forward_lm(srv.params, cfg, prompt, train=False)
+    one, _ = LM.prefill(srv.params, cfg, prompt[:, :1])
+    caches = LM.init_cache(cfg, 1, 8, device=dev)
+    steps = []
+    for i in range(8):
+        logits, caches = LM.decode_step(srv.params, cfg,
+                                        prompt[:, i:i + 1], caches, i)
+        steps.append(logits[:, 0])
+    gate = {"one_token_ulps": crosscheck.ulps_apart(steps[0], one[:, 0]),
+            "forward_ulps": crosscheck.ulps_apart(torch.stack(steps, 1),
+                                                  full)}
+    limit = crosscheck.lm_ulps(cfg)
+    for key, v in gate.items():
+        if not v <= limit:
+            raise AssertionError(f"full width {arch}: {key} {v:.2f} > "
+                                 f"{limit}")
+    if not all(len(o) == LM_MAX_NEW for o in t["outs"]):
+        raise AssertionError(f"full width {arch}: {t['outs']}")
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"full width {arch}: logits not finite")
+    t["tokens"] = t.pop("outs")
+    core = _recurrent_core_ms(torch, dev, cfg, srv.params)
+    core["launches_per_layer"] = _layer_launches(torch, dev, cfg,
+                                                 srv.params)
+    out = dict(arch=arch, params=n_params, param_bytes=pbytes,
+               init_s=init_s, draw_peak_bytes=draw_peak, peak_bytes=peak,
+               requests=len(t["tokens"]), step_bytes=float(step_bytes),
+               bound_ms=float(max(t_bytes, t_ops)),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               cache_bytes=LM.param_bytes(caches), **t, **gate, **core)
+    log(f"[examples] (e) {arch} full width ({n_params / 1e9:.4f} B "
+        f"parameters, {pbytes / 1e9:.4f} GB, draw {init_s:.2f} s): "
+        f"{out['requests']} requests, {out['steps']} decode steps in "
+        f"{out['wall_s']:.3f} s, {out['ms_per_step_wall']:.3f} ms per step "
+        f"(greedy step median {out['ms_per_greedy_step']:.3f} ms), "
+        f"{out['tokens_per_s']:.2f} tokens/s; device busy "
+        f"{out['busy_ms_per_step']} ms (share {out['busy_share']} under the "
+        f"profiler) and {out['launches_per_step']:.0f} launches per step; "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
+        f"{step_bytes / 1e9:.4f} GB a step); peak memory "
+        f"{draw_peak / 1e9:.3f} GB after the draw, {peak / 1e9:.3f} GB after "
+        f"serving; decode step 0 against the 1-token prefill "
+        f"{gate['one_token_ulps']:.2f} ulps, the 8-token forward against "
+        f"its teacher-forced decode {gate['forward_ulps']:.2f} ulps (limit "
+        f"{limit}); the profile took {out['profile_s']:.1f} s; "
+        f"on a 128-token prompt (device time): the GLA core "
+        f"{core['gla_ms']} ms a call x {core['gla_layers']} layers, the "
+        f"sLSTM time loop {core.get('slstm_ms')} ms a layer x "
+        f"{core['slstm_layers']}, the whole forward {core['forward_ms']} ms; "
+        f"launches of one decode step a layer kind "
+        f"{core['launches_per_layer']}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_examples(torch, dev):
     """Phase 16: the examples and the LM stack's serving path on the card.
 
@@ -4438,11 +4666,12 @@ def phase_examples(torch, dev):
         2000 with hop-256 tails) through K1 and on the plain route,
         bitwise equal (``_example_routes``);
     (b) the reduced qwen2.5-14b, starcoder2-15b, internvl2-2b (its
-        prefix frames too), qwen3-moe-30b-a3b and qwen2-moe-a2.7b on the
-        card against the port on the CPU with the same parameters
-        (``launch.crosscheck.card_against_cpu``, which the card tests run
-        too): prefill's last logits and caches and 8 teacher-forced decode
-        steps within ``LM_ULPS``, and the server's greedy tokens on
+        prefix frames too), qwen3-moe-30b-a3b, qwen2-moe-a2.7b,
+        zamba2-1.2b and xlstm-125m on the card against the port on the
+        CPU with the same parameters (``launch.crosscheck.card_against_cpu``,
+        which the card tests run too): prefill's last logits and caches
+        and 8 teacher-forced decode steps (every cache leaf) within the
+        family's ``lm_ulps``, and the server's greedy tokens on
         ``main()``'s traffic equal (or forked only where the CPU's top-2
         margin is within the tolerance); the MoE routing equal but where
         the CPU's logits nearly tie, each fork counted with its gap;
@@ -4463,7 +4692,16 @@ def phase_examples(torch, dev):
         against the prefill of its one token (logits within ``LM_ULPS``,
         routing equal), and layer 0's MoE block on 8 tokens against
         ``_moe_plain`` within ``MOE_PLAIN_ULPS``, its kept choices
-        equal."""
+        equal;
+    (e) ``Server("zamba2-1.2b", reduced=False)`` (38 Mamba2 layers at d
+        2048, 1.17 B parameters, one shared attention block used before
+        each group of 7) and ``Server("xlstm-125m", reduced=False)`` (10
+        mLSTM and 2 sLSTM blocks at d 768, 0.19 B parameters) answering
+        ``main()``'s 4 requests, as (c) reports, the bound from
+        ``_recurrent_step_bytes``; gated: decode step 0 against the
+        1-token prefill and an 8-token prompt's full forward against its
+        teacher-forced decode, each within the family's
+        ``crosscheck.lm_ulps``."""
     t_phase = time.perf_counter()
     out = {"examples": {}}
     for name in EXAMPLES:
@@ -4508,8 +4746,9 @@ def phase_examples(torch, dev):
             f"{r['prefill_cache_ulps']:.2f}), {LM_STEPS} decode steps "
             f"{r['decode_ulps']:.2f} ulps (caches "
             f"{r['decode_cache_ulps']:.2f}), tolerance "
-            f"{crosscheck.LM_ULPS}; greedy tokens equal: "
-            f"{r['tokens_equal']} {r['forks']}; routing forks "
+            f"{crosscheck.lm_ulps(crosscheck.serve.get_config(arch))}; "
+            f"greedy tokens equal: {r['tokens_equal']} {r['forks']}; "
+            f"routing forks "
             f"{r.get('route_forks', 'none (dense)')}")
     out["b_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4518,15 +4757,21 @@ def phase_examples(torch, dev):
     t0 = time.perf_counter()
     out["moe_full"] = _lm_full(torch, dev, LM_MOE_FULL)
     out["d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["recurrent_full"] = {arch: _lm_recurrent_full(torch, dev, arch)
+                             for arch in LM_RECURRENT_FULL}
+    out["e_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[examples] phase 16 took {out['seconds']:.1f} s: (a) "
         f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
-        f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s")
+        f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s, (e) "
+        f"{out['e_s']:.1f} s")
     return out
 
 
 # phase 17: LM training
-TRAIN_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b")
+TRAIN_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
+               "zamba2-1.2b", "xlstm-125m")
 TRAIN_FULL = "internvl2-2b"
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")
 MOE_EXAMPLE = dict(steps=40, fail_at=25, ckpt_every=10)   # (c)
@@ -4791,12 +5036,14 @@ def _train_moe(torch, dev):
 def phase_train(torch, dev):
     """Phase 17: LM training on the card.
 
-    (a) the reduced qwen2.5-14b, starcoder2-15b and internvl2-2b: the
-        ``jaxrand`` parameter draw on the card bitwise the CPU's; one train
-        step (``make_train_step``, and ``loss_and_grads``' gradients) on
-        the card against the CPU from the same float32 parameters and
-        batch, within the tolerances the tests hold the CPU step to the JAX
-        package with (``launch.crosscheck``); and the reference's
+    (a) the reduced qwen2.5-14b, starcoder2-15b, internvl2-2b,
+        zamba2-1.2b and xlstm-125m: the ``jaxrand`` parameter draw on the
+        card bitwise the CPU's; one train step (``make_train_step``, and
+        ``loss_and_grads``' gradients) on the card against the CPU from
+        the same float32 parameters and batch, within the tolerances the
+        tests hold the CPU step to the JAX package with
+        (``launch.crosscheck``, the recurrent families' own); and the
+        reference's
         fault-tolerance test on the card: 12 steps of ``train_loop`` (batch
         4, seq 32) straight against a run failing at step 9 and resumed
         from its step-8 checkpoint, final losses within 1e-4, bit for bit
@@ -5033,6 +5280,17 @@ def main() -> int:
         f"{tf['peak_bytes']} bytes; reduced resume bit for bit: "
         f"{tr['resume']['bitwise']}; full-width LM server draw "
         f"{lm_full['init_s']:.2f} s")
+    for arch, rf in examples["recurrent_full"].items():
+        log(f"[summary] {smi}: recurrent server {arch} full width: "
+            f"{rf['params']} parameters, {rf['param_bytes']} bytes, draw "
+            f"{rf['init_s']:.2f} s, peak {rf['peak_bytes']} bytes; "
+            f"{rf['ms_per_step_wall']:.3f} ms per decode step (greedy step "
+            f"median {rf['ms_per_greedy_step']:.3f} ms, device busy "
+            f"{rf['busy_ms_per_step']} ms, {rf['launches_per_step']:.0f} "
+            f"launches) beside the bound {rf['bound_ms']:.4f} ms "
+            f"({rf['bound_by']}); {rf['tokens_per_s']:.2f} tokens/s; step 0 "
+            f"against the 1-token prefill {rf['one_token_ulps']:.2f} ulps, "
+            f"forward against decode {rf['forward_ulps']:.2f} ulps")
     mf, tm = examples["moe_full"], trained["moe"]
     log(f"[summary] {smi}: MoE server {LM_MOE_FULL} full width: "
         f"{mf['params']} parameters, {mf['param_bytes']} bytes, draw "

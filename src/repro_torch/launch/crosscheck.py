@@ -25,7 +25,20 @@ tolerances are those that hold the port's CPU step to the JAX package's
 gradient leaf (and ``mu``) within ``TRAIN_GRAD_SHARE`` of its largest
 magnitude (``nu`` twice that), the new parameters within two learning
 rates and ``TRAIN_PARAMS_EQUAL`` of them bit-equal (Adam's first step is
-about ``-lr * sign(g)``).
+about ``-lr * sign(g)``); the recurrent families with the loss and
+gradient tolerances their CPU tests state (``TRAIN_FAMILY``).
+
+The recurrent families carry each flip down the recurrence to every
+later position, so they are held to their own ``LM_ULPS_FAMILY``
+(``lm_ulps``), about twice the largest gap ``chip_smoke.py`` measured
+on an H100: the reduced xLSTM's logits 5.0 ulps from the CPU's, its
+float32 matrix state 7.63, and at full width an 8-token forward 6.08
+from its own teacher-forced decode (zamba2: 2.0, 1.59 and 3.0).  Their
+caches (conv windows, float32 matrix and sLSTM states, the zamba2 shared
+block's K/V) are held leaf by leaf to the same limit.  Their train step
+is held to loss rtol 5e-4 and gradients 6e-2 (``TRAIN_FAMILY``): the
+reference's own loss moves by up to 2e-4 when one embedding element
+moves by one bfloat16 ulp (``tests/test_torch_xlstm.py``).
 """
 
 from __future__ import annotations
@@ -44,11 +57,21 @@ from repro_torch.models import moe as MOE
 from repro_torch.optim.optimizers import tree_leaves
 
 LM_ULPS = 4
+LM_ULPS_FAMILY = {"xlstm": 16, "hybrid": 6}
 ROUTE_ULPS = LM_ULPS
 TRAIN_LOSS_RTOL = 2e-4
 TRAIN_GRAD_SHARE = 3e-2
 TRAIN_PARAMS_EQUAL = 0.99
 RESUME_ATOL = 1e-4          # the reference's resume test
+# loss rtol and gradient share of a train step, per family where the
+# recurrence carries a bfloat16 flip to every later position (the CPU
+# tests against the JAX package state them too)
+TRAIN_FAMILY = {"xlstm": (5e-4, 6e-2), "hybrid": (5e-4, 6e-2)}
+
+
+def lm_ulps(cfg) -> float:
+    """The serving tolerance of ``cfg``'s family, in bfloat16 ulps."""
+    return LM_ULPS_FAMILY.get(cfg.family, LM_ULPS)
 
 
 def _ulp(t: torch.Tensor) -> float:
@@ -93,11 +116,11 @@ def route_forks(got: List[Dict], want: List[Dict]) -> List[Dict]:
 
 
 def greedy_forks(got: List[List[int]], want: List[List[int]],
-                 steps_logits: List[torch.Tensor], prompts, vocab: int
-                 ) -> List[Dict]:
+                 steps_logits: List[torch.Tensor], prompts, vocab: int,
+                 ulps: float = LM_ULPS) -> List[Dict]:
     """Greedy tokens ``got`` against ``want``, whose server's decode steps
     gave ``steps_logits`` (one (Vpad,) row a step, in order): the forks,
-    each where ``want``'s top-2 margin is within ``LM_ULPS``; a fork past
+    each where ``want``'s top-2 margin is within ``ulps``; a fork past
     that margin raises ``AssertionError``."""
     forks, step = [], 0
     for r, (g, w, prompt) in enumerate(zip(got, want, prompts)):
@@ -110,7 +133,7 @@ def greedy_forks(got: List[List[int]], want: List[List[int]],
                 row = steps_logits[step + j][:vocab].float().cpu()
                 top2 = torch.topk(row, 2).values
                 margin = float(top2[0] - top2[1]) / _ulp(row)
-                if margin > LM_ULPS:
+                if margin > ulps:
                     raise AssertionError(
                         f"request {r} token {j}: {a} against {b}, the "
                         f"reference's top-2 margin {margin:.2f} ulps")
@@ -138,7 +161,7 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     traffic; for the ``moe`` family the routing of the prefill and of each
     step (``route_forks``).  Returns the gaps in ulps, the token forks and
     (MoE) the routing forks; raises ``AssertionError`` on a draw that
-    differs, past ``LM_ULPS`` or on a fork past its margin."""
+    differs, past ``lm_ulps(cfg)`` or on a fork past its margin."""
     cpu = serve.Server(arch, reduced=True, device="cpu")
     card = serve.Server(arch, reduced=True, device=device)
     cfg = cpu.cfg
@@ -163,8 +186,8 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     forks = {"prefill": route_forks(rg, rc), "decode": []}
 
     def caches_apart(g, c):
-        return max(ulps_apart(a[k], b[k]) for a, b in zip(g, c)
-                   for k in ("k", "v"))
+        return max(0.0 if torch.equal(a.cpu(), b) else ulps_apart(a, b)
+                   for a, b in zip(LM.leaves(g), LM.leaves(c)))
     out = {"prefill_ulps": ulps_apart(pg[0], pc[0]),
            "prefill_cache_ulps": caches_apart(pg[1], pc[1]),
            "decode_ulps": 0.0, "decode_cache_ulps": 0.0}
@@ -180,9 +203,10 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
         out["decode_ulps"] = max(out["decode_ulps"], ulps_apart(lg, lc))
         out["decode_cache_ulps"] = max(out["decode_cache_ulps"],
                                        caches_apart(cg, cc))
+    limit = lm_ulps(cfg)
     for key, v in out.items():
-        if not v <= LM_ULPS:
-            raise AssertionError(f"{arch}: {key} {v:.2f} > {LM_ULPS} "
+        if not v <= limit:
+            raise AssertionError(f"{arch}: {key} {v:.2f} > {limit} "
                                  f"(routing forks {forks})")
     prompts = serve.prompts_for(cfg, requests)
     steps_c = []
@@ -196,7 +220,7 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
     want = cpu.submit_and_run(prompts, max_new=max_new)
     got = card.submit_and_run(prompts, max_new=max_new)
     out["forks"] = greedy_forks(got, want, steps_c, prompts,
-                                cfg.vocab_size)
+                                cfg.vocab_size, limit)
     out["tokens_equal"] = got == want
     if cfg.family == "moe":
         out["route_forks"] = forks
@@ -285,10 +309,10 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
            "route_forks": forks}
     out["loss_rtol"] = abs(out["loss_card"] - out["loss_cpu"]) / abs(
         out["loss_cpu"])
-    for key, limit in (("loss_rtol", TRAIN_LOSS_RTOL),
-                       ("grad_share", TRAIN_GRAD_SHARE),
-                       ("mu_share", TRAIN_GRAD_SHARE),
-                       ("nu_share", 2 * TRAIN_GRAD_SHARE)):
+    loss_rtol, share = TRAIN_FAMILY.get(cfg.family, (TRAIN_LOSS_RTOL,
+                                                     TRAIN_GRAD_SHARE))
+    for key, limit in (("loss_rtol", loss_rtol), ("grad_share", share),
+                       ("mu_share", share), ("nu_share", 2 * share)):
         if not out[key] <= limit:
             raise AssertionError(f"{arch}: {key} {out[key]:.3g} > {limit} "
                                  f"(routing forks {forks})")

@@ -109,7 +109,6 @@ def make_train_step(cfg: ArchConfig, optimizer=None):
     {"loss", "total"}): ``loss_and_grads``, then the optimizer's update
     (``make_optimizer``'s Adam by default)."""
     _no_encdec(cfg)
-    LM._check_plan(cfg)
     optimizer = optimizer or make_optimizer(cfg)
 
     def train_step(params, opt_state, batch):

@@ -1,7 +1,8 @@
-"""Shared layer library of the LM stack, the parts its dense and VLM
-families run: norms, rotary position embeddings, dense projections,
-attention (MHA / GQA, optional QK-norm and bias) with its KV cache, and the
-SwiGLU / GeLU MLP.
+"""Shared layer library of the LM stack: norms, rotary position
+embeddings, dense projections, attention (MHA / GQA, optional QK-norm and
+bias) with its KV cache, the SwiGLU / GeLU MLP, and the chunked gated
+linear attention core (``gated_linear_attention``, ``gla_step``) that
+Mamba2 and mLSTM run on.
 
 Every layer is an (init, apply) pair over explicit parameter dicts, as in
 the JAX package's ``models/layers.py``.  Products run in bfloat16 with
@@ -345,3 +346,120 @@ def mlp(p: Dict, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
     else:
         h = gelu_tanh(up)
     return dense(p["w_down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Chunked gated linear attention core
+# ---------------------------------------------------------------------------
+# Both mLSTM (xLSTM) and SSD (Mamba2) are linear recurrences
+#     S_t = a_t * S_{t-1} + b_t * k_t v_t^T ,   y_t = q_t . S_t
+# with per-(head, step) scalar decay a_t and input gate b_t: the chunkwise
+# parallel form below serves both, with batched products in place of a
+# length-T sequential scan.
+
+CUMSUM_BASE = 16
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum`` as XLA compiles it (its reduce-window rewriter): the
+    axis cut into blocks of ``CUMSUM_BASE``, each block summed in order,
+    then each block's total plus the sum, in order, of the blocks before
+    it (the block sums themselves the same way when there are more than
+    ``CUMSUM_BASE`` blocks).  Float32 adds in XLA's order, where torch's
+    CPU ``cumsum`` accumulates in float64 and CUDA's scans in a tree."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= CUMSUM_BASE:
+        out = [x[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[..., i])
+        return torch.stack(out, -1).movedim(-1, dim)
+    pad = (-n) % CUMSUM_BASE
+    xp = torch.nn.functional.pad(x, (0, pad))
+    blocks = xp.reshape(*x.shape[:-1], -1, CUMSUM_BASE)
+    inner = cumsum(blocks, -1)
+    before = cumsum(inner[..., -1], -1)
+    before = torch.cat([torch.zeros_like(before[..., :1]),
+                        before[..., :-1]], -1)
+    out = (inner + before[..., None]).reshape(*x.shape[:-1], -1)
+    return out[..., :n].movedim(-1, dim)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, that is
+    ``max(x, 0) + log1p(exp(-|x|))``, the reference's formula (torch's
+    ``F.softplus`` takes ``log1p(exp(x))`` below a threshold instead).
+    XLA's CPU ``exp`` and ``log1p`` are not torch's, so a value may
+    still differ from the reference's in its last bit."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gated_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, log_a: torch.Tensor,
+                           b: torch.Tensor, chunk: int = 128,
+                           initial_state: Optional[torch.Tensor] = None,
+                           return_state: bool = False):
+    """q,k: (B,T,H,Dk); v: (B,T,H,Dv); log_a,b: (B,T,H) scalar gates.
+
+    Returns y: (B,T,H,Dv) in v's dtype (+ the final float32 state
+    (B,H,Dk,Dv) if return_state).  T must be a multiple of ``chunk``
+    (pad upstream).  A Python loop over the chunks, the reference's
+    ``lax.scan``; each chunk's products in float32."""
+    bsz, t, h, dk = q.shape
+    dv = v.shape[-1]
+    assert t % chunk == 0, (t, chunk)
+    n = t // chunk
+
+    def rs(x):
+        return x.reshape(bsz, n, chunk, *x.shape[2:]).transpose(0, 1)
+    qc, kc, vc = rs(q), rs(k), rs(v)            # (n, B, c, H, D)
+    lac, bc = rs(log_a), rs(b)                  # (n, B, c, H)
+    # cumulative log-decay within the chunk, inclusive of step t
+    cum = cumsum(lac, 2)                        # (n, B, c, H)
+    total = cum[:, :, -1:, :]                   # (n, B, 1, H)
+    if initial_state is None:
+        state = torch.zeros((bsz, h, dk, dv), dtype=torch.float32,
+                            device=q.device)
+    else:
+        state = initial_state.float()
+    # future positions j > t get -1e30 BEFORE the exp: exp of a large
+    # positive rel times a zero mask would give inf * 0 = NaN in the
+    # backward
+    future = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).triu(1)[None, :, :, None]
+    ys = []
+    for i in range(n):
+        qi, ki, vi, cumi, toti, bi = (qc[i], kc[i], vc[i], cum[i], total[i],
+                                      bc[i])
+        # inter-chunk: y_inter[t] = a(<=t) * q_t . S_prev
+        decay_t = torch.exp(cumi)                              # (B,c,H)
+        y_inter = torch.einsum("bchd,bhdv->bchv",
+                               (qi * decay_t[..., None]).float(), state)
+        # intra-chunk: y_intra[t] = sum_{j<=t} (a(j+1..t) b_j) (q_t.k_j) v_j
+        rel = cumi[:, :, None, :] - cumi[:, None, :, :]        # (B,c,c,H)
+        gate = torch.exp(rel.masked_fill(future, MASK_VALUE))
+        att = torch.einsum("bchd,bjhd->bcjh", qi.float(), ki.float())
+        att = att * gate * bi[:, None, :, :]                   # b_j
+        y_intra = torch.einsum("bcjh,bjhv->bchv", att, vi.float())
+        # state update: S = a(chunk) S + sum_j a(j+1..end) b_j k_j v_j^T
+        tail = torch.exp(toti - cumi) * bi                     # (B,c,H)
+        kv = torch.einsum("bchd,bchv->bhdv",
+                          (ki * tail[..., None]).float(), vi.float())
+        state = torch.exp(toti[:, 0, :])[..., None, None] * state + kv
+        ys.append((y_inter + y_intra).to(v.dtype))
+    y = torch.stack(ys, 1).reshape(bsz, t, h, dv)
+    if return_state:
+        return y, state
+    return y
+
+
+def gla_step(q, k, v, log_a, b, state):
+    """Single decode step of the same recurrence.
+    q,k: (B,H,Dk); v: (B,H,Dv); log_a,b: (B,H); state: (B,H,Dk,Dv)
+    float32.  Returns (y in v's dtype, the new float32 state)."""
+    a = torch.exp(log_a.float())[..., None, None]
+    kv = torch.einsum("bhd,bhv->bhdv", k.float(), v.float()) * \
+        b[..., None, None]
+    new_state = a * state + kv
+    y = torch.einsum("bhd,bhdv->bhv", q.float(), new_state)
+    return y.to(v.dtype), new_state

@@ -8,12 +8,16 @@ forward (``forward_lm``), the prefill that writes the KV cache
 reference scans over the stack; the port loops over it in Python, one
 layer's slice at a time.
 
-Ported so far: the ``attn_mlp`` segment, which is the whole plan of the
-``dense`` and ``vlm`` families (qwen2.5-14b, starcoder2-15b, internlm2-20b,
-mistral-large-123b, internvl2-2b), and the ``attn_moe`` segment of the
-``moe`` family (qwen3-moe-30b-a3b, qwen2-moe-a2.7b; ``models/moe.py``).
-Every other segment kind raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it.
+Every segment kind of the decoder families is ported: ``attn_mlp`` (the
+``dense`` and ``vlm`` families), ``attn_moe`` (the ``moe`` family,
+``models/moe.py``), ``mamba`` and ``zamba_group`` (the ``hybrid`` family,
+zamba2-1.2b: Mamba2 layers, ``models/mamba2.py``, with one shared
+attention block applied before each group of ``attn_every`` of them, its
+KV cache one per use) and ``mlstm`` and ``slstm`` (the ``xlstm`` family,
+``models/xlstm.py``).  The recurrent kinds keep O(1) state per layer in
+the decode cache; as in the reference, ``prefill`` runs their full
+forward and hands back fresh (zero) recurrent state and zero K/V for the
+shared attention block, not the prompt's state.
 
 A MoE layer's capacity depends on the sequence it routes, so for the
 ``moe`` family the teacher-forced decode (S = 1 per step, nothing
@@ -45,18 +49,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import jaxrand, means
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 
 COMPUTE = torch.bfloat16
-
-# the ROADMAP.md item that ports each segment kind still missing
-_NOT_PORTED = {
-    "mamba": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 hybrid)",
-    "zamba_group": "ROADMAP.md queue 1, item 7d (Mamba2 and the zamba2 "
-                   "hybrid)",
-    "mlstm": "ROADMAP.md queue 1, item 7e (xLSTM)",
-    "slstm": "ROADMAP.md queue 1, item 7e (xLSTM)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -92,23 +89,6 @@ def seg_plan(cfg: ArchConfig):
             plan.append(("mamba", rem))
         return plan
     raise ValueError(cfg.family)
-
-
-_PORTED = ("attn_mlp", "attn_moe")
-
-
-def _require_ported(kind: str) -> None:
-    if kind not in _PORTED:
-        raise NotImplementedError(
-            f"segment kind {kind!r} is not ported yet: "
-            f"{_NOT_PORTED.get(kind, 'not a segment kind of the LM')}")
-
-
-def _check_plan(cfg: ArchConfig) -> List[Tuple[str, int]]:
-    plan = seg_plan(cfg)
-    for kind, _ in plan:
-        _require_ported(kind)
-    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -174,23 +154,54 @@ def layer(seg: Dict, i: int) -> Dict:
     return tree_map(lambda a: a[i], seg)
 
 
-def _seg_init(key: torch.Tensor, cfg: ArchConfig, kind: str, count: int,
-              device=None, dtype=COMPUTE) -> Dict:
-    """Stacked params for one segment: layer ``i`` drawn from
-    ``split(key, count)[i]`` (the reference's ``vmap`` over split keys)
-    and written into its slice of the stack."""
-    _require_ported(kind)
-    with_moe = kind == "attn_moe"
+def _one_init(key: torch.Tensor, cfg: ArchConfig, kind: str, device,
+              dtype) -> Dict:
+    """One layer of ``kind``, drawn from ``key`` (the reference's
+    ``one(k, kind)``)."""
+    if kind in ("attn_mlp", "attn_moe"):
+        return _attn_block_init(key, cfg, kind == "attn_moe", device, dtype)
+    if kind == "mlstm":
+        return XL.mlstm_init(key, cfg.xlstm, device, dtype)
+    if kind == "slstm":
+        return XL.slstm_init(key, cfg.xlstm, device, dtype)
+    if kind == "mamba":
+        return {"ln": L.rmsnorm_init(cfg.d_model, device),
+                "mamba": M2.mamba2_init(key, cfg.mamba, device, dtype)}
+    raise ValueError(kind)
+
+
+def _stacked_init(key: torch.Tensor, cfg: ArchConfig, kind: str,
+                  count: int, device, dtype) -> Dict:
+    """``count`` layers of ``kind`` stacked on a leading axis: layer ``i``
+    drawn from ``split(key, count)[i]`` (the reference's ``vmap`` over
+    split keys) and written into its slice of the stack."""
     keys = jaxrand.split(key, count)
-    first = _attn_block_init(keys[0], cfg, with_moe, device, dtype)
+    first = _one_init(keys[0], cfg, kind, device, dtype)
     stacked = tree_map(lambda a: torch.empty(
         (count, *a.shape), dtype=a.dtype, device=a.device), first)
     for i in range(count):
-        one = first if i == 0 else _attn_block_init(keys[i], cfg, with_moe,
-                                                    device, dtype)
+        one = first if i == 0 else _one_init(keys[i], cfg, kind, device,
+                                             dtype)
         for dst, src in zip(leaves(layer(stacked, i)), leaves(one)):
             dst.copy_(src)
     return stacked
+
+
+def _seg_init(key: torch.Tensor, cfg: ArchConfig, kind: str, count: int,
+              device=None, dtype=COMPUTE) -> Dict:
+    """Params for one segment, down the reference's key tree: stacked
+    layers; for ``zamba_group`` ``split(key)`` into the shared attention
+    block (``k1``) and the ``count`` stacked Mamba2 layers (``k2``); the
+    ``slstm`` segment's one layer not stacked."""
+    if kind == "zamba_group":
+        k1, k2 = jaxrand.split(key)
+        return {"shared_attn": _attn_block_init(k1, cfg, False, device,
+                                                dtype),
+                "mamba": _stacked_init(k2, cfg, "mamba", count, device,
+                                       dtype)}
+    if kind == "slstm":
+        return _one_init(key, cfg, kind, device, dtype)
+    return _stacked_init(key, cfg, kind, count, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +220,7 @@ def init_lm(key: torch.Tensor, cfg: ArchConfig, device=None,
     (a CPU key keeps the few hundred small hashes off the card); on the
     meta device nothing is drawn: shapes only."""
     dev = resolve_device(device)
-    plan = _check_plan(cfg)
+    plan = seg_plan(cfg)
     keys = jaxrand.split(key, len(plan) + 3)
     params: Dict[str, Any] = {
         "embed": L.draw_normal(keys[0], (cfg.vocab_padded, cfg.d_model),
@@ -226,10 +237,14 @@ def init_lm(key: torch.Tensor, cfg: ArchConfig, device=None,
     return params
 
 
+# leaves the reference uses in float32: norm scales (and layer-norm
+# biases), Mamba2's decay and step bias, sLSTM's recurrent matrices; every
+# other leaf it casts to bfloat16 at each use
+FLOAT32_LEAVES = ("scale", "bias", "A_log", "dt_bias", "r_gates")
+
+
 def _carry(path: Tuple[str, ...], a, dev, dtype) -> torch.Tensor:
-    # norm scales (and layer-norm biases) are used in float32; every other
-    # leaf is cast to bfloat16 at each use by the reference
-    if path[-1] in ("scale", "bias"):
+    if path[-1] in FLOAT32_LEAVES:
         dtype = torch.float32
     return torch.tensor(np.asarray(a, dtype=np.float32),
                         device=dev).to(dtype)
@@ -239,9 +254,10 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None,
                       dtype=COMPUTE) -> Dict:
     """The JAX package's LM parameters (``init_lm``'s pytree, its leaves as
     numpy arrays) as the port's, on ``device`` (``None`` means CUDA):
-    ``dtype`` where the reference casts at use, float32 norm scales."""
+    ``dtype`` where the reference casts at use, float32 where it uses a
+    leaf so (``FLOAT32_LEAVES``)."""
     dev = resolve_device(device)
-    _check_plan(cfg)
+    seg_plan(cfg)
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -297,25 +313,53 @@ def _block(lp, cfg: ArchConfig, h, rope):
     return h, aux
 
 
+def _mamba_layer(lp, cfg: ArchConfig, h):
+    """One pre-norm residual Mamba2 layer of the full-sequence forward."""
+    return h + M2.mamba2_apply(lp["mamba"], cfg.mamba,
+                               L.rmsnorm(lp["ln"], h))
+
+
 def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
                  train: bool = False, rope=None):
     """Full-seq forward of one segment. Returns (h, aux).  With
-    ``cfg.remat`` and ``train`` (and autograd recording), each layer runs
-    under ``torch.utils.checkpoint``, the reference's ``_maybe_remat``:
-    its activations are recomputed in the backward, the numbers are the
-    same."""
-    _require_ported(kind)
+    ``cfg.remat`` and ``train`` (and autograd recording), each layer the
+    reference scans under ``_maybe_remat`` runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, the numbers are the same.  In a ``zamba_group`` segment
+    those are the inner Mamba2 layers, not the shared attention block; the
+    ``slstm`` segment runs without."""
     remat = cfg.remat and train and torch.is_grad_enabled()
-    # the layers' aux losses summed in layer order from 0, the reference's
-    # scan carry (the attn_mlp block adds none)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in _layers(seg_params, count):
+
+    def run(fn, *args):
         if remat:
-            h, a = checkpoint(_block, lp, cfg, h, rope, use_reentrant=False)
-        else:
-            h, a = _block(lp, cfg, h, rope)
-        if kind == "attn_moe":
-            aux = aux + a
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    # the layers' aux losses summed in layer order from 0, the reference's
+    # scan carry (only the attn_moe block adds one)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind in ("attn_mlp", "attn_moe"):
+        for lp in _layers(seg_params, count):
+            h, a = run(_block, lp, cfg, h, rope)
+            if kind == "attn_moe":
+                aux = aux + a
+    elif kind == "mlstm":
+        for lp in _layers(seg_params, count):
+            h = run(XL.mlstm_apply, lp, cfg.xlstm, h)
+    elif kind == "slstm":
+        h = XL.slstm_apply(seg_params, cfg.xlstm, h)
+    elif kind == "mamba":
+        for lp in _layers(seg_params, count):
+            h = run(_mamba_layer, lp, cfg, h)
+    elif kind == "zamba_group":
+        k = cfg.attn_every
+        inner = _layers(seg_params["mamba"], count)
+        for g in range(count // k):
+            h, _, _ = _attn_block_apply(seg_params["shared_attn"], cfg, h,
+                                        rope=rope)
+            for lp in inner[g * k:(g + 1) * k]:
+                h = run(_mamba_layer, lp, cfg, h)
+    else:
+        raise ValueError(kind)
     return h, aux
 
 
@@ -333,7 +377,7 @@ def forward_lm(params, cfg: ArchConfig, tokens,
     rematerialization (``_seg_forward``); autograd takes the backward
     (``launch/steps.py::make_train_step`` holds the float32 accumulation
     around it too)."""
-    plan = _check_plan(cfg)
+    plan = seg_plan(cfg)
     dev = _device_of(params)
     h = _embed(params, _tokens(tokens, dev))
     if prefix_embeds is not None:
@@ -373,18 +417,46 @@ def lm_loss(logits: torch.Tensor, labels, vocab_size: int,
 # ---------------------------------------------------------------------------
 
 
+def _stacked(c: Dict, count: int) -> Dict:
+    """A layer's cache repeated on a leading layer axis."""
+    return tree_map(lambda a: a.expand(count, *a.shape).clone(), c)
+
+
+def _seg_cache(cfg: ArchConfig, kind: str, count: int, batch: int,
+               length: int, conv_dtype, kv_dtype, dev):
+    """A fresh cache of one segment: K/V of ``length`` positions (for
+    ``zamba_group`` one per use of the shared block) in ``kv_dtype``, the
+    recurrent layers' zero state (sLSTM's stabiliser at -1e9), their conv
+    windows in ``conv_dtype`` and their matrix states in float32."""
+    if kind in ("attn_mlp", "attn_moe", "zamba_group"):
+        n = count // cfg.attn_every if kind == "zamba_group" else count
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.head_dim)
+        kv = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+              "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
+        if kind != "zamba_group":
+            return kv
+        return {"attn": kv, "mamba": _stacked(M2.mamba2_init_cache(
+            cfg.mamba, batch, conv_dtype, dev), count)}
+    if kind == "mlstm":
+        return _stacked(XL.mlstm_init_cache(cfg.xlstm, batch, conv_dtype,
+                                            dev), count)
+    if kind == "slstm":
+        return XL.slstm_init_cache(cfg.xlstm, batch, dev)
+    if kind == "mamba":
+        return _stacked(M2.mamba2_init_cache(cfg.mamba, batch, conv_dtype,
+                                             dev), count)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE,
                device=None) -> list:
     """Cache list mirroring the segment plan, on ``device`` (``None``
     means CUDA): per attention segment {"k", "v"} of (count, batch,
-    max_len, n_kv_heads, head_dim) zeros."""
+    max_len, n_kv_heads, head_dim) zeros; per recurrent segment its
+    layers' zero state (``_seg_cache``), conv windows in ``dtype``."""
     dev = resolve_device(device)
-    caches = []
-    for kind, count in _check_plan(cfg):
-        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)})
-    return caches
+    return [_seg_cache(cfg, kind, count, batch, max_len, dtype, dtype, dev)
+            for kind, count in seg_plan(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -392,14 +464,31 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE,
 # ---------------------------------------------------------------------------
 
 
+def _recurrent_step(cfg: ArchConfig, kind: str, lp, h, cache):
+    """One decode step of an ``mlstm`` or ``mamba`` layer: (h, cache)."""
+    if kind == "mlstm":
+        return XL.mlstm_step(lp, cfg.xlstm, h, cache)
+    out, nc = M2.mamba2_step(lp["mamba"], cfg.mamba, L.rmsnorm(lp["ln"], h),
+                             cache)
+    return h + out, nc
+
+
+def _stack(caches: List[Dict]) -> Dict:
+    """Layers' caches stacked on a leading layer axis."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
 @L.float32_accumulation()
 def decode_step(params, cfg: ArchConfig, tokens, caches: list, index
                 ) -> Tuple[torch.Tensor, list]:
     """tokens: (B, 1); index: the position to write in the cache (an int
     or a 0-dim tensor).  Returns (logits (B, 1, Vpad), new_caches); the
-    given caches are not written (each stacked cache is copied once, and
-    the layers write their slices of the copy)."""
-    plan = _check_plan(cfg)
+    given caches are not written (each stacked K/V cache is copied once,
+    and the layers write their slices of the copy; the recurrent layers'
+    new states are stacked anew).  A ``zamba_group`` segment runs the
+    shared attention block against its group's own K/V cache, then the
+    group's Mamba2 layers."""
+    plan = seg_plan(cfg)
     dev = _device_of(params)
     index = int(index)
     h = _embed(params, _tokens(tokens, dev))
@@ -407,12 +496,40 @@ def decode_step(params, cfg: ArchConfig, tokens, caches: list, index
                          + index, cfg.head_dim, cfg.rope_theta)
     new_caches = []
     for (kind, count), seg, cache in zip(plan, params["segments"], caches):
-        nk, nv = cache["k"].clone(), cache["v"].clone()
-        for i in range(count):
-            h, _, _ = _attn_block_apply(
-                layer(seg, i), cfg, h, cache={"k": nk[i], "v": nv[i]},
-                cache_index=index, rope=rope, aux=False)
-        new_caches.append({"k": nk, "v": nv})
+        if kind in ("attn_mlp", "attn_moe"):
+            nk, nv = cache["k"].clone(), cache["v"].clone()
+            for i in range(count):
+                h, _, _ = _attn_block_apply(
+                    layer(seg, i), cfg, h, cache={"k": nk[i], "v": nv[i]},
+                    cache_index=index, rope=rope, aux=False)
+            new_caches.append({"k": nk, "v": nv})
+        elif kind == "slstm":
+            h, nc = XL.slstm_step(seg, cfg.xlstm, h, cache)
+            new_caches.append(nc)
+        elif kind in ("mlstm", "mamba"):
+            ncs = []
+            for i in range(count):
+                h, nc = _recurrent_step(cfg, kind, layer(seg, i), h,
+                                        layer(cache, i))
+                ncs.append(nc)
+            new_caches.append(_stack(ncs))
+        else:                                   # zamba_group
+            k = cfg.attn_every
+            nk = cache["attn"]["k"].clone()
+            nv = cache["attn"]["v"].clone()
+            ncs = []
+            for g in range(count // k):
+                h, _, _ = _attn_block_apply(
+                    seg["shared_attn"], cfg, h,
+                    cache={"k": nk[g], "v": nv[g]}, cache_index=index,
+                    rope=rope, aux=False)
+                for i in range(g * k, (g + 1) * k):
+                    h, nc = _recurrent_step(cfg, "mamba",
+                                            layer(seg["mamba"], i), h,
+                                            layer(cache["mamba"], i))
+                    ncs.append(nc)
+            new_caches.append({"attn": {"k": nk, "v": nv},
+                               "mamba": _stack(ncs)})
     h = L.rmsnorm(params["ln_f"], h)
     return _unembed(params, cfg, h), new_caches
 
@@ -423,8 +540,10 @@ def prefill(params, cfg: ArchConfig, tokens,
     """Full-sequence prefill: returns (last-position logits, caches filled
     for positions [0, S)).  The K/V of the whole sequence are recomputed
     per layer into the cache (K with RoPE applied, V without); each cache
-    is S positions long, S counting the prefix."""
-    plan = _check_plan(cfg)
+    is S positions long, S counting the prefix.  A recurrent segment's
+    cache comes back fresh, as the reference's does (``_seg_cache``):
+    only the logits are the prompt's."""
+    plan = seg_plan(cfg)
     dev = _device_of(params)
     tokens = _tokens(tokens, dev)
     b, s = tokens.shape
@@ -437,6 +556,13 @@ def prefill(params, cfg: ArchConfig, tokens,
     positions = torch.arange(s, device=dev)[None, :]
     caches = []
     for (kind, count), seg in zip(plan, params["segments"]):
+        if kind not in ("attn_mlp", "attn_moe"):
+            # the reference runs the full forward and hands back a fresh
+            # state (float32 conv windows, zero K/V for the shared block)
+            h, _ = _seg_forward(seg, cfg, kind, count, h)
+            caches.append(_seg_cache(cfg, kind, count, b, s, torch.float32,
+                                     COMPUTE, dev))
+            continue
         ks, vs = [], []
         for i in range(count):
             lp = layer(seg, i)

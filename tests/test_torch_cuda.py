@@ -1888,7 +1888,8 @@ def test_parallel_fleet_of_compiled_pools_on_one_card(dev):
 # ---------------------------------------------------------------------------
 
 LM_CARD_ARCHS = ["qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
-                 "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"]
+                 "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "zamba2-1.2b",
+                 "xlstm-125m"]
 
 
 @pytest.mark.parametrize("arch", LM_CARD_ARCHS)
@@ -1898,12 +1899,14 @@ def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
     ``Server(device="cuda")``'s greedy tokens on ``main()``'s traffic
     against the CPU server's: ``launch.crosscheck``'s tolerance and fork
     rules (the MoE routing's too), which ``chip_smoke.py`` phase 16 (b)
-    applies too."""
+    applies too; the recurrent families to their own tolerance,
+    ``crosscheck.lm_ulps``."""
     from repro_torch.launch import crosscheck
     out = crosscheck.card_against_cpu(arch, dev)
+    limit = crosscheck.lm_ulps(crosscheck.serve.get_config(arch))
     for key in ("prefill_ulps", "prefill_cache_ulps", "decode_ulps",
                 "decode_cache_ulps"):
-        assert out[key] <= crosscheck.LM_ULPS, (key, out[key])
+        assert out[key] <= limit, (key, out[key])
 
 
 @pytest.mark.parametrize("arch", LM_CARD_ARCHS)
@@ -1918,11 +1921,14 @@ def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
 def test_reduced_train_step_on_the_card_against_the_cpu(dev, arch):
     """One ``make_train_step`` step on the card against the CPU from the
     same float32 parameters and batch: ``launch.crosscheck``'s training
-    tolerances (a MoE step with its routing forks counted), which
-    ``chip_smoke.py`` phase 17 (a) and (c) apply too."""
+    tolerances (a MoE step with its routing forks counted; the recurrent
+    families' own, ``crosscheck.TRAIN_FAMILY``), which ``chip_smoke.py``
+    phase 17 (a) and (c) apply too."""
     from repro_torch.launch import crosscheck
     out = crosscheck.train_step_card_against_cpu(arch, dev)
-    assert out["loss_rtol"] <= crosscheck.TRAIN_LOSS_RTOL
+    family = crosscheck.serve.get_config(arch).family
+    assert out["loss_rtol"] <= crosscheck.TRAIN_FAMILY.get(
+        family, (crosscheck.TRAIN_LOSS_RTOL,))[0]
     assert out["params_equal"] >= crosscheck.TRAIN_PARAMS_EQUAL
 
 

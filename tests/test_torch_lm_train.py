@@ -215,11 +215,24 @@ def test_remat_changes_memory_not_numbers(arch, monkeypatch):
 
 
 def test_train_step_raises_for_the_families_still_to_port():
-    for arch, item in (("zamba2-1.2b", "7d"), ("xlstm-125m", "7e"),
-                       ("seamless-m4t-medium", "7f")):
+    """The encoder-decoder (``ROADMAP.md`` queue 1, item 7f) raises; the
+    zamba2 and xLSTM families (7d, 7e) now take a step, its loss finite
+    and every gradient leaf finite (``tests/test_torch_mamba2.py`` and
+    ``test_torch_xlstm.py`` hold the step to the reference's)."""
+    cfg = get_config("seamless-m4t-medium").reduced()
+    with pytest.raises(NotImplementedError, match="item 7f"):
+        steps.make_train_step(cfg)
+    for arch in ("zamba2-1.2b", "xlstm-125m"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            steps.make_train_step(cfg)
+        params = LM.init_lm(_cpu_key(), cfg, device="cpu",
+                            dtype=torch.float32)
+        opt = steps.make_optimizer(cfg)
+        new, _, metrics = steps.make_train_step(cfg, opt)(
+            params, opt.init(params), cases.batch(cfg))
+        assert np.isfinite(float(metrics["loss"]))
+        assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(new))
+        assert not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(new), tree_leaves(params)))
 
 
 # ---------------------------------------------------------------------------
