@@ -199,7 +199,10 @@ result line):
    its own ``jaxrand`` draw from ``PRNGKey(0)``, bitwise equal
    (``repro_torch.launch.crosscheck``: prefill and 8 decode steps within
    the family's ``lm_ulps`` bfloat16 ulps, every cache leaf too, the
-   server's greedy tokens, and the MoE routing with its forks counted);
+   server's greedy tokens, and the MoE routing with its forks counted),
+   and the reduced seamless-m4t-medium the same way through
+   ``make_prefill_step`` / ``make_decode_step``
+   (``crosscheck.encdec_card_against_cpu``: the encoder's memory too);
    (c) ``Server("qwen2.5-14b", reduced=False)`` at full width, its 14.77 B
    parameters drawn through ``jaxrand`` on the card (the draw's wall time),
    answering ``main()``'s 4 requests: parameter bytes, peak memory, ms per
@@ -225,12 +228,24 @@ result line):
    the 1-token prefill, and an 8-token prompt's full forward against its
    teacher-forced decode, each within the family's ``crosscheck.lm_ulps``
    (16 xLSTM, 6 zamba2: the recurrence carries a rounding flip to every
-   later position);
+   later position); (f) the encoder-decoder seamless-m4t-medium at full
+   width (12 + 12 layers at d 1024, 0.877 B parameters) through
+   ``steps.init_params_for``, ``make_prefill_step`` and
+   ``make_decode_step`` (``crosscheck.encdec_generate``; the reference's
+   ``Server`` serves decoder LMs only): ``main()``'s 4 requests, each with
+   its own 1024 seeded frames: the draw's wall time, peak memory, the
+   encode-plus-prefill wall, device time and launches, ms per decode step
+   beside its bound (``_encdec_step_bound``), tokens/s, device time and
+   launches of a decode step; gated within ``crosscheck.lm_ulps``: the
+   prefill's last logits against the decode step on the prompt's last
+   token, its K/V against the decode cache, and an 8-token forward
+   against its teacher-forced decode;
 17. LM training (``phase_train``): (a) the reduced qwen2.5-14b,
-   starcoder2-15b, internvl2-2b, zamba2-1.2b and xlstm-125m (the last two
-   within their families' tolerances): the float32 and bfloat16 ``jaxrand``
-   draws on the card bitwise the CPU's, one train step on the card against
-   the CPU within the training tolerances of ``launch.crosscheck``, and a
+   starcoder2-15b, internvl2-2b, zamba2-1.2b, xlstm-125m (these two
+   within their families' tolerances) and seamless-m4t-medium: the float32
+   and bfloat16 ``jaxrand`` draws on the card bitwise the CPU's, one train
+   step on the card against the CPU within the training tolerances of
+   ``launch.crosscheck``, and, for qwen2.5-14b and seamless-m4t-medium, a
    12-step ``train_loop`` failing at step 9 and resumed from its
    checkpoint against the straight run (within 1e-4; bit for bit or not,
    and which parameter leaves differ); (b)
@@ -243,7 +258,10 @@ result line):
    CPU's, one train step on the card against the CPU within the training
    tolerances with its routing forks, and ``examples/train_lm.py``'s
    40-step run failing at step 25 and resumed from its step-20
-   checkpoint against the straight run (within 1e-4; bit for bit or not).
+   checkpoint against the straight run (within 1e-4; bit for bit or not);
+   (d) ``train_loop("seamless-m4t-medium", 4, reduced=False, batch=8,
+   seq=64)`` with 1024 ones frames, as (b) reports it, its bound counting
+   the encoder's parameters over the frames (``train_bound``).
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -4135,6 +4153,7 @@ LM_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
 LM_FULL = "qwen2.5-14b"
 LM_MOE_FULL = "qwen3-moe-30b-a3b"
 LM_RECURRENT_FULL = ("zamba2-1.2b", "xlstm-125m")         # (e)
+ENCDEC = "seamless-m4t-medium"                             # (b), (f)
 LM_REQUESTS, LM_MAX_NEW, LM_STEPS = 4, 8, 8
 # (d): one full-width MoE layer against ``_moe_plain`` (float32, token by
 # token).  The port rounds each expert's products, its SiLU chain and each
@@ -4650,6 +4669,221 @@ def _lm_recurrent_full(torch, dev, arch):
     return out
 
 
+def _encdec_step_bound(cfg, params, mean_pos):
+    """(ms, bound_by, bytes, FLOPs) of one encdec decode step at batch 1
+    against a memory of ``cfg.frontend_len`` frames: the decoder's and
+    the unembedding's weights read once, one embedding row, each layer's
+    read of the memory (its cross-attention K/V recomputed from it, as
+    the reference does), the valid self-attention K/V read and the new
+    position written; two FLOPs per weight, plus the cross K/V
+    projections over every frame and the scores and weighted sums over
+    the frames and the cached positions."""
+    from repro_torch.models import lm as LM
+    d, s_enc, n = cfg.d_model, cfg.frontend_len, cfg.n_layers
+    kv_w = cfg.n_kv_heads * cfg.head_dim
+    dec = sum(a.numel() for a in LM.leaves(params["decoder"]))
+    unembed = params["unembed"].numel()
+    kv_pos = n * 2 * kv_w * 2
+    nbytes = (2 * (dec + unembed) + 2 * d + n * s_enc * d * 2
+              + kv_pos * (mean_pos + 1))
+    heads = cfg.n_heads * cfg.head_dim
+    flops = (2 * (dec + unembed) + n * s_enc * 2 * (2 * d * kv_w)
+             + n * 2 * 2 * heads * (s_enc + mean_pos + 1))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def _encdec_full(torch, dev):
+    """(f): seamless-m4t-medium at full width on the card through
+    ``steps.init_params_for`` (bfloat16, ``PRNGKey(0)``),
+    ``make_prefill_step`` and ``make_decode_step``
+    (``crosscheck.encdec_generate``): ``main()``'s 4 requests, each with
+    its own 1024 seeded frames, encoded and prefilled, the prompt fed
+    teacher-forced into a fresh cache, then 8 greedy tokens.  Timed: the
+    draw, each request's encode-plus-prefill (wall, and device time and
+    launches under the profiler), each decode step on the host clock,
+    a profiled decode step (device time, launches) and its
+    cross-attention K/V projections alone (device time); the bound of a
+    step (``_encdec_step_bound``); peak memory.  Gated, each within
+    ``crosscheck.lm_ulps``: an 8-token prompt's ``forward_encdec``
+    against its teacher-forced decode, and per request the prefill's last
+    logits against the decode step on the prompt's last token and its
+    K/V against the decode cache's first S positions."""
+    import gc
+    import numpy as np
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.imc_mav import ops
+    from repro_torch.kernels.int8_matmul import ops as i8_ops
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.launch import crosscheck, serve, steps
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts = (ops.COUNTS, ops.COUNTS_MAV, i8_ops.COUNTS, sga_ops.COUNTS_HEAD,
+              sga_ops.COUNTS_ROWS, sga_ops.COUNTS_FLAT)
+    for c in counts:
+        c.reset()
+    cfg = serve.get_config(ENCDEC)
+    t0 = time.perf_counter()
+    params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
+                                   device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(dev)
+    pbytes = LM.param_bytes(params)
+    n_params = sum(a.numel() for a in LM.leaves(params))
+    prompts = serve.prompts_for(cfg, LM_REQUESTS)
+    frames = crosscheck.encdec_frames(cfg, LM_REQUESTS, 3).to(dev)
+    prefill, decode = steps.make_prefill_step(cfg), \
+        steps.make_decode_step(cfg)
+    crosscheck.encdec_generate(params, cfg, prompts[:1], frames[:1],
+                               2)                              # warm-up
+    torch.cuda.synchronize()
+    stamps, prefill_s = [], []
+
+    def timed_prefill(p, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(p, batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    def stamped(p, caches, batch):
+        stamps.append(time.perf_counter())
+        return decode(p, caches, batch)
+    t0 = time.perf_counter()
+    outs, records = crosscheck.encdec_generate(
+        params, cfg, prompts, frames, LM_MAX_NEW, prefill=timed_prefill,
+        decode=stamped)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    greedy, i = [], 0
+    for p in prompts:
+        i += len(p) - 1
+        greedy += [stamps[j + 1] - stamps[j]
+                   for j in range(i, i + LM_MAX_NEW - 1)]
+        i += LM_MAX_NEW
+    n_tokens = sum(len(o) for o in outs)
+    # device time and launches of one encode-plus-prefill and one decode
+    # step (request 0's shapes), the median over profiled runs
+    rec0, ids0 = records[0], torch.as_tensor(prompts[0], device=dev)[None]
+    batch0 = {"frames": frames[:1], "tokens": ids0}
+    pre_launches, step_launches = [], []
+    pre_ms = device_ms(torch, lambda: prefill(params, batch0), reps=3,
+                       iters=2, records=pre_launches)
+    cache0 = ED.init_dec_cache(cfg, 1, 128, device=dev)
+    sbatch = {"tokens": ids0[:, :1], "memory": rec0["memory"],
+              "index": len(prompts[0])}
+    step_ms = device_ms(torch, lambda: decode(params, cache0, sbatch),
+                        reps=3, iters=10, records=step_launches)
+    # what a step spends recomputing the cross-attention K/V from the
+    # memory (the reference's ``attention(kv_override=memory)``): the
+    # twelve layers' K and V projections of the frames alone
+    cross = [LM.layer(params["decoder"], i)["cross_attn"]
+             for i in range(cfg.n_layers)]
+
+    def cross_kv():
+        with L.float32_accumulation():
+            for c in cross:
+                L.dense(c["wk"], rec0["memory"])
+                L.dense(c["wv"], rec0["memory"])
+    cross_kv_ms = device_ms(torch, cross_kv, reps=3, iters=10)
+    mean_pos = np.mean([len(p) - 1 + LM_MAX_NEW for p in prompts]) / 2
+    bound, bound_by, step_bytes, step_flops = _encdec_step_bound(
+        cfg, params, mean_pos)
+    # the prefill's least time: two FLOPs per weight per frame (encoder)
+    # or token (decoder), the cross K/V over every frame
+    enc = sum(a.numel() for a in LM.leaves(params["encoder"]))
+    dec = sum(a.numel() for a in LM.leaves(params["decoder"]))
+    s0 = len(prompts[0])
+    pre_flops = 2 * (enc * cfg.frontend_len + dec * s0
+                     + params["unembed"].numel())
+    pre_bound = max(pre_flops / H100_BF16_OPS_PER_S,
+                    (pbytes - params["embed"].numel() * 2)
+                    / H100_BYTES_PER_S) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    # gates
+    limit = crosscheck.lm_ulps(cfg)
+    gate = {"prefill_vs_step_ulps": 0.0, "prefill_kv_vs_cache_ulps": 0.0}
+    for p, rec in zip(prompts, records):
+        gate["prefill_vs_step_ulps"] = max(
+            gate["prefill_vs_step_ulps"], crosscheck.ulps_apart(
+                rec["steps"][len(p) - 1], rec["prefill"][0, -1]))
+        for k in ("k", "v"):
+            gate["prefill_kv_vs_cache_ulps"] = max(
+                gate["prefill_kv_vs_cache_ulps"], crosscheck.ulps_apart(
+                    rec["cache"][k], rec["kv"][k]))
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        2, cfg.vocab_size, (1, 8)), device=dev)
+    full = ED.forward_encdec(params, cfg, frames[:1], prompt, train=False)
+    memory = ED.encode(params, cfg, frames[:1], train=False)
+    cache = ED.init_dec_cache(cfg, 1, 8, device=dev)
+    tf = []
+    for t in range(8):
+        logits, cache = decode(params, cache, {
+            "tokens": prompt[:, t:t + 1], "memory": memory, "index": t})
+        tf.append(logits[:, 0])
+    gate["forward_vs_decode_ulps"] = crosscheck.ulps_apart(
+        torch.stack(tf, 1), full)
+    for key, v in gate.items():
+        if not v <= limit:
+            raise AssertionError(f"full width {ENCDEC}: {key} {v:.2f} > "
+                                 f"{limit}")
+    if not all(len(o) == LM_MAX_NEW for o in outs) or not \
+            torch.isfinite(full).all():
+        raise AssertionError(f"full width {ENCDEC}: {outs}")
+    kernel_launches = sum(c.launches for c in counts)
+    out = dict(arch=ENCDEC, params=n_params, param_bytes=pbytes,
+               init_s=init_s, draw_peak_bytes=draw_peak, peak_bytes=peak,
+               requests=len(outs), tokens=outs, steps=len(stamps),
+               wall_s=wall, ms_per_step_wall=wall / len(stamps) * 1e3,
+               ms_per_greedy_step=statistics.median(greedy) * 1e3,
+               tokens_per_s=n_tokens / wall,
+               prefill_wall_ms=[v * 1e3 for v in prefill_s],
+               prefill_busy_ms=pre_ms,
+               prefill_launches=(statistics.median(pre_launches)
+                                 if pre_launches else None),
+               prefill_bound_ms=pre_bound, busy_ms_per_step=step_ms,
+               cross_kv_ms=cross_kv_ms,
+               launches_per_step=(statistics.median(step_launches)
+                                  if step_launches else None),
+               bound_ms=bound, bound_by=bound_by,
+               step_bytes=float(step_bytes), step_flops=float(step_flops),
+               port_kernel_launches=kernel_launches, **gate)
+    log(f"[examples] (f) {ENCDEC} full width ({n_params} parameters, "
+        f"{pbytes / 1e9:.4f} GB bf16, draw {init_s:.2f} s): "
+        f"{len(outs)} requests of {cfg.frontend_len} frames, encode plus "
+        f"prefill {[round(v, 2) for v in out['prefill_wall_ms']]} ms wall, "
+        f"{pre_ms} ms device and {out['prefill_launches']} launches "
+        f"(bound {pre_bound:.4f} ms); {len(stamps)} decode steps in "
+        f"{wall:.3f} s, {out['ms_per_step_wall']:.3f} ms per step (greedy "
+        f"step median {out['ms_per_greedy_step']:.3f} ms), "
+        f"{out['tokens_per_s']:.2f} tokens/s; a decode step {step_ms} ms "
+        f"device (of which the cross-attention K/V recomputed from the "
+        f"memory {cross_kv_ms} ms) and {out['launches_per_step']} launches, "
+        f"bound "
+        f"{bound:.4f} ms ({bound_by}, {step_bytes / 1e9:.4f} GB, "
+        f"{step_flops / 1e9:.2f} GFLOP); peak memory "
+        f"{draw_peak / 1e9:.3f} GB after the draw, {peak / 1e9:.3f} GB "
+        f"after serving; gates (limit {limit} ulps): prefill against the "
+        f"step on the prompt's last token "
+        f"{gate['prefill_vs_step_ulps']:.2f}, prefill K/V against the "
+        f"decode cache {gate['prefill_kv_vs_cache_ulps']:.2f}, the 8-token "
+        f"forward against its teacher-forced decode "
+        f"{gate['forward_vs_decode_ulps']:.2f}; the port's kernels "
+        f"launched {kernel_launches} times on this path (none is on it)")
+    del params, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_examples(torch, dev):
     """Phase 16: the examples and the LM stack's serving path on the card.
 
@@ -4701,7 +4935,9 @@ def phase_examples(torch, dev):
         ``_recurrent_step_bytes``; gated: decode step 0 against the
         1-token prefill and an 8-token prompt's full forward against its
         teacher-forced decode, each within the family's
-        ``crosscheck.lm_ulps``."""
+        ``crosscheck.lm_ulps``;
+    (f) seamless-m4t-medium at full width through the step builders
+        (``_encdec_full``); (b) runs its reduced config first."""
     t_phase = time.perf_counter()
     out = {"examples": {}}
     for name in EXAMPLES:
@@ -4737,6 +4973,15 @@ def phase_examples(torch, dev):
     from repro_torch.launch import crosscheck
     t0 = time.perf_counter()
     out["reduced"] = {}
+    r = out["reduced"][ENCDEC] = crosscheck.encdec_card_against_cpu(
+        ENCDEC, dev, steps_n=LM_STEPS, requests=LM_REQUESTS,
+        max_new=LM_MAX_NEW)
+    log(f"[examples] (b) {ENCDEC} reduced, card against CPU: prefill "
+        f"{r['prefill_ulps']:.2f} ulps (K/V {r['prefill_cache_ulps']:.2f}, "
+        f"memory {r['memory_ulps']:.2f}), {LM_STEPS} decode steps "
+        f"{r['decode_ulps']:.2f} ulps (cache {r['decode_cache_ulps']:.2f}), "
+        f"tolerance {crosscheck.lm_ulps(crosscheck.serve.get_config(ENCDEC))}"
+        f"; greedy tokens equal: {r['tokens_equal']} {r['forks']}")
     for arch in LM_ARCHS:
         r = out["reduced"][arch] = crosscheck.card_against_cpu(
             arch, dev, steps=LM_STEPS, requests=LM_REQUESTS,
@@ -4761,34 +5006,41 @@ def phase_examples(torch, dev):
     out["recurrent_full"] = {arch: _lm_recurrent_full(torch, dev, arch)
                              for arch in LM_RECURRENT_FULL}
     out["e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["encdec_full"] = _encdec_full(torch, dev)
+    out["f_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[examples] phase 16 took {out['seconds']:.1f} s: (a) "
         f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
         f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s, (e) "
-        f"{out['e_s']:.1f} s")
+        f"{out['e_s']:.1f} s, (f) {out['f_s']:.1f} s")
     return out
 
 
 # phase 17: LM training
 TRAIN_ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b",
-               "zamba2-1.2b", "xlstm-125m")
+               "zamba2-1.2b", "xlstm-125m", ENCDEC)
 TRAIN_FULL = "internvl2-2b"
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")
 MOE_EXAMPLE = dict(steps=40, fail_at=25, ckpt_every=10)   # (c)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 64
+ENCDEC_TRAIN_STEPS = 4                                     # (d)
 ADAM_PASSES = 7        # float32 passes of an Adam step: p, g, m, v in; p, m, v out
 MOVED_SAMPLE = 4096    # elements of each leaf compared before and after
 GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
 
 
-def train_bound(n_params, n_dense, tokens):
+def train_bound(n_params, n_dense, tokens, n_framed=0, frames=0):
     """(ms, bound_by, flops, bytes): the least time one training step
     could take on the card, the larger of two times: 6 FLOPs per parameter
     per token (a forward and a backward of every product; ``n_dense``, the
     parameters but the embedding table, whose forward is a gather) over
     the bfloat16 dense peak, and Adam's ``ADAM_PASSES`` float32 passes over
-    every leaf over the memory rate."""
-    flops = 6 * n_dense * tokens
+    every leaf over the memory rate.  ``n_framed`` of the ``n_dense``
+    parameters act on ``frames`` positions in place of ``tokens`` (the
+    encdec family's encoder, and the cross-attention K/V projections that
+    read its memory)."""
+    flops = 6 * ((n_dense - n_framed) * tokens + n_framed * frames)
     nbytes = ADAM_PASSES * 4 * n_params
     t_ops = flops / H100_BF16_OPS_PER_S * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -4816,25 +5068,29 @@ def _train_reduced(torch, dev):
             f"{st['loss_rtol']:.2e}), gradients {st['grad_share']:.2e}, mu "
             f"{st['mu_share']:.2e}, nu {st['nu_share']:.2e} of each leaf's "
             f"largest, parameters bit-equal {st['params_equal']:.4f}")
-    arch = TRAIN_ARCHS[0]
     root = os.path.join(ROOT, "build", "phase17_resume")
-    shutil.rmtree(root, ignore_errors=True)
-    out["resume"] = crosscheck.resume_against_straight(arch, dev, root)
-    shutil.rmtree(root, ignore_errors=True)
-    rs = out["resume"]
-    log(f"[train] (a) {arch} reduced, 12 steps straight against a failure "
-        f"at step 9 resumed from step 8: final loss {rs['straight']:.7f} / "
-        f"{rs['resumed']:.7f} (gap {rs['gap']:.2e}, within "
-        f"{crosscheck.RESUME_ATOL}); bit for bit: {rs['bitwise']} (leaves "
-        f"that differ: {rs['leaves_differ']})")
+    for arch, key in ((TRAIN_ARCHS[0], "resume"), (ENCDEC, "resume_encdec")):
+        shutil.rmtree(root, ignore_errors=True)
+        rs = out[key] = crosscheck.resume_against_straight(arch, dev, root)
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"[train] (a) {arch} reduced, 12 steps straight against a "
+            f"failure at step 9 resumed from step 8: final loss "
+            f"{rs['straight']:.7f} / {rs['resumed']:.7f} (gap "
+            f"{rs['gap']:.2e}, within {crosscheck.RESUME_ATOL}); bit for "
+            f"bit: {rs['bitwise']} (leaves that differ: "
+            f"{rs['leaves_differ']})")
     return out
 
 
-def _train_full(torch, dev):
-    """(b): ``train_loop(TRAIN_FULL, TRAIN_STEPS, reduced=False)`` at batch
+def _train_full(torch, dev, arch=TRAIN_FULL, n_steps=TRAIN_STEPS,
+                part="(b)"):
+    """(b), (d): ``train_loop(arch, n_steps, reduced=False)`` at batch
     ``TRAIN_BATCH`` and seq ``TRAIN_SEQ`` on the card, each step timed
     between two synchronisations by a wrapper of the step it builds, the
-    draw timed the same way; then one more step under the profiler."""
+    draw timed the same way; then one more step under the profiler.  The
+    VLM's tokens a step count its prefix frames; the encdec family's
+    count its decoder's tokens, its encoder's frames apart
+    (``train_bound``)."""
     import gc
     import math
     from torch.profiler import ProfilerActivity, profile
@@ -4876,13 +5132,13 @@ def _train_full(torch, dev):
     try:
         t0 = time.perf_counter()
         params, metrics = train.train_loop(
-            TRAIN_FULL, TRAIN_STEPS, reduced=False, batch=TRAIN_BATCH,
+            arch, n_steps, reduced=False, batch=TRAIN_BATCH,
             seq=TRAIN_SEQ, device=dev, log_every=1)
         wall = time.perf_counter() - t0
     finally:
         train.make_train_step, train.init_params_for = make, init
     peak = torch.cuda.max_memory_allocated(dev)
-    cfg = get_config(TRAIN_FULL)
+    cfg = get_config(arch)
     leaves = tree_leaves(params)
     n_params = sum(x.numel() for x in leaves)
     n_dense = n_params - params["embed"].numel()
@@ -4894,15 +5150,25 @@ def _train_full(torch, dev):
     if not moved or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"full width: losses {losses}, {moved} leaves "
                              f"moved")
-    tokens = TRAIN_BATCH * (cfg.frontend_len + TRAIN_SEQ)
+    n_framed = frames = 0
+    if cfg.family == "encdec":
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        frames = TRAIN_BATCH * cfg.frontend_len
+        n_framed = sum(x.numel() for x in tree_leaves(params["encoder"])) \
+            + params["ln_enc"]["scale"].numel() + sum(
+                params["decoder"]["cross_attn"][w]["w"].numel()
+                for w in ("wk", "wv"))
+    else:
+        tokens = TRAIN_BATCH * (cfg.frontend_len + TRAIN_SEQ)
     ms = statistics.median(step_s[1:]) * 1e3
-    bound, bound_by, flops, nbytes = train_bound(n_params, n_dense, tokens)
+    bound, bound_by, flops, nbytes = train_bound(n_params, n_dense, tokens,
+                                                 n_framed, frames)
     # one more step under the profiler: device busy time and launches
-    opt = steps.make_optimizer(cfg, steps=TRAIN_STEPS)
+    opt = steps.make_optimizer(cfg, steps=n_steps)
     state = opt.init(params)
     pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH)
-    batch = train.model_batch(cfg, *batch_at_step(pipe, TRAIN_STEPS), dev)
+    batch = train.model_batch(cfg, *batch_at_step(pipe, n_steps), dev)
     step = steps.make_train_step(cfg, opt)
     torch.cuda.synchronize()
     t_prof = time.perf_counter()
@@ -4922,7 +5188,8 @@ def _train_full(torch, dev):
     is_gemm = [any(t in k for t in GEMM_TAGS) for k in rows]
     gemm_ms = sum(us for g, (us, _) in zip(is_gemm, rows.values()) if g)
     gemm_n = sum(n for g, (_, n) in zip(is_gemm, rows.values()) if g)
-    res = dict(arch=TRAIN_FULL, params=n_params, params_dense=n_dense,
+    res = dict(arch=arch, params=n_params, params_dense=n_dense,
+               params_framed=n_framed, frames_per_step=frames,
                state_bytes=4 * n_params * 4, param_bytes=4 * n_params,
                checkpoint_bytes=3 * 4 * n_params + 4, draw_s=draw_s[0],
                losses=losses, final=metrics, leaves=len(leaves),
@@ -4936,14 +5203,15 @@ def _train_full(torch, dev):
                gemm_ms=gemm_ms / 1e3, gemm_launches=gemm_n,
                profile_s=prof_s,
                top_device=[(k, us / 1e3, n) for k, (us, n) in top])
-    log(f"[train] (b) {TRAIN_FULL} full width: {n_params} parameters "
+    log(f"[train] {part} {arch} full width: {n_params} parameters "
         f"({n_dense} but the embedding table), {4 * n_params} bytes float32, "
         f"{16 * n_params} bytes with gradients and Adam's moments; the "
         f"jaxrand draw {draw_s[0]:.2f} s; losses {losses}; {moved} of "
         f"{len(leaves)} leaves moved; {ms:.2f} ms per step (median of steps "
-        f"2-{TRAIN_STEPS}; all {[round(v * 1e3, 2) for v in step_s]}), "
+        f"2-{n_steps}; all {[round(v * 1e3, 2) for v in step_s]}), "
         f"bound {bound:.3f} ms ({bound_by}: {flops:.3e} FLOPs, Adam "
-        f"{nbytes} bytes), {tokens} tokens a step, "
+        f"{nbytes} bytes), {tokens} tokens a step ({frames} frames through "
+        f"{n_framed} parameters), "
         f"{res['tokens_per_s']:.0f} tokens/s; device busy "
         f"{res['busy_ms']} ms and {launches} launches in a profiled step "
         f"({prof_wall * 1e3:.1f} ms, the profile {prof_s:.1f} s), of which "
@@ -4951,7 +5219,7 @@ def _train_full(torch, dev):
         f"memory {peak / 1e9:.3f} GB; a checkpoint would hold "
         f"{res['checkpoint_bytes']} bytes (not written)")
     for k, ms_k, n in res["top_device"]:
-        log(f"[train] (b) device time {ms_k:.3f} ms in {n} x {k[:90]}")
+        log(f"[train] {part} device time {ms_k:.3f} ms in {n} x {k[:90]}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5037,17 +5305,17 @@ def phase_train(torch, dev):
     """Phase 17: LM training on the card.
 
     (a) the reduced qwen2.5-14b, starcoder2-15b, internvl2-2b,
-        zamba2-1.2b and xlstm-125m: the ``jaxrand`` parameter draw on the
-        card bitwise the CPU's; one train step (``make_train_step``, and
-        ``loss_and_grads``' gradients) on the card against the CPU from
-        the same float32 parameters and batch, within the tolerances the
-        tests hold the CPU step to the JAX package with
-        (``launch.crosscheck``, the recurrent families' own); and the
-        reference's
-        fault-tolerance test on the card: 12 steps of ``train_loop`` (batch
-        4, seq 32) straight against a run failing at step 9 and resumed
-        from its step-8 checkpoint, final losses within 1e-4, bit for bit
-        or not;
+        zamba2-1.2b, xlstm-125m and seamless-m4t-medium: the ``jaxrand``
+        parameter draw on the card bitwise the CPU's; one train step
+        (``make_train_step``, and ``loss_and_grads``' gradients) on the
+        card against the CPU from the same float32 parameters and batch,
+        within the tolerances the tests hold the CPU step to the JAX
+        package with (``launch.crosscheck``, the recurrent families'
+        own); and the reference's fault-tolerance test on the card for
+        qwen2.5-14b and seamless-m4t-medium: 12 steps of ``train_loop``
+        (batch 4, seq 32) straight against a run failing at step 9 and
+        resumed from its step-8 checkpoint, final losses within 1e-4, bit
+        for bit or not;
     (b) ``train_loop("internvl2-2b", TRAIN_STEPS, reduced=False, batch=8,
         seq=64)``: 24 layers at d 2048, 1.89 B float32 parameters with
         their gradients and Adam's moments on one card, the VLM's 256
@@ -5061,7 +5329,12 @@ def phase_train(torch, dev):
         routing-fork rule), and ``examples/train_lm.py`` (40 steps at
         batch 8, seq 64, a checkpoint every 10) straight against a run
         failing at step 25 and resumed from step 20, final losses within
-        1e-4, bit for bit or not."""
+        1e-4, bit for bit or not;
+    (d) ``train_loop("seamless-m4t-medium", ENCDEC_TRAIN_STEPS,
+        reduced=False, batch=8, seq=64)``: 12 + 12 layers at d 1024, 0.877
+        B float32 parameters with Adam, 1024 ones frames into the encoder,
+        as (b) reports it; (a) holds its reduced config (seeded frames in
+        the card / CPU step) and its resume."""
     t0 = time.perf_counter()
     out = {"reduced": _train_reduced(torch, dev)}
     out["a_s"] = time.perf_counter() - t0
@@ -5071,10 +5344,14 @@ def phase_train(torch, dev):
     t1 = time.perf_counter()
     out["moe"] = _train_moe(torch, dev)
     out["c_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["encdec_full"] = _train_full(torch, dev, ENCDEC, ENCDEC_TRAIN_STEPS,
+                                     "(d)")
+    out["d_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] phase 17 took {out['seconds']:.1f} s: (a) "
         f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
-        f"{out['c_s']:.1f} s")
+        f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s")
     return out
 
 
@@ -5291,6 +5568,28 @@ def main() -> int:
             f"({rf['bound_by']}); {rf['tokens_per_s']:.2f} tokens/s; step 0 "
             f"against the 1-token prefill {rf['one_token_ulps']:.2f} ulps, "
             f"forward against decode {rf['forward_ulps']:.2f} ulps")
+    ef, et = examples["encdec_full"], trained["encdec_full"]
+    er = examples["reduced"][ENCDEC]
+    log(f"[summary] {smi}: encoder-decoder {ENCDEC} full width: "
+        f"{ef['params']} parameters, {ef['param_bytes']} bytes, draw "
+        f"{ef['init_s']:.2f} s, peak {ef['peak_bytes']} bytes; encode plus "
+        f"prefill {ef['prefill_busy_ms']} ms device, "
+        f"{ef['prefill_launches']} launches; "
+        f"{ef['ms_per_step_wall']:.3f} ms per decode step (greedy step "
+        f"median {ef['ms_per_greedy_step']:.3f} ms, device busy "
+        f"{ef['busy_ms_per_step']} ms, {ef['launches_per_step']} launches) "
+        f"beside the bound {ef['bound_ms']:.4f} ms ({ef['bound_by']}); "
+        f"{ef['tokens_per_s']:.2f} tokens/s; gates: prefill against the "
+        f"step {ef['prefill_vs_step_ulps']:.2f}, K/V against the cache "
+        f"{ef['prefill_kv_vs_cache_ulps']:.2f}, forward against decode "
+        f"{ef['forward_vs_decode_ulps']:.2f} ulps; reduced card against CPU "
+        f"prefill {er['prefill_ulps']:.2f} decode {er['decode_ulps']:.2f} "
+        f"memory {er['memory_ulps']:.2f} ulps; training "
+        f"{et['ms_per_step']:.2f} ms per step (bound {et['bound_ms']:.3f} "
+        f"ms, {et['bound_by']}), {et['tokens_per_s']:.0f} tokens/s, device "
+        f"busy {et['busy_ms']} ms and {et['launches_per_step']} launches a "
+        f"step, peak {et['peak_bytes']} bytes; reduced resume bit for bit: "
+        f"{trained['reduced']['resume_encdec']['bitwise']}")
     mf, tm = examples["moe_full"], trained["moe"]
     log(f"[summary] {smi}: MoE server {LM_MOE_FULL} full width: "
         f"{mf['params']} parameters, {mf['param_bytes']} bytes, draw "

@@ -17,6 +17,11 @@ largest logit) of the next rank's: a near-tie that an ulp of the card's
 logits can turn (``route_forks``).  Each fork is reported with its gap;
 the outputs after it are held to the same tolerances as everywhere.
 
+The encoder-decoder family (``encdec_card_against_cpu``), which the
+``Server`` does not serve (nor does the reference's), runs the reference's
+prefill and decode cells (``encdec_generate``) and is held as the dense
+family is, its encoder's memory too.
+
 The parameter draw (``jaxrand``, correctly rounded operations only) is
 bitwise the CPU's.  Training (``train_step_card_against_cpu``): the same
 flips travel back through the backward's bfloat16 cotangents, so the
@@ -52,6 +57,7 @@ import torch
 from repro_torch.core import jaxrand
 from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
 from repro_torch.launch import serve, steps, train
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models import moe as MOE
 from repro_torch.optim.optimizers import tree_leaves
@@ -228,6 +234,128 @@ def card_against_cpu(arch: str, device, steps: int = 8, requests: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+
+def encdec_frames(cfg, n: int, seed: int) -> torch.Tensor:
+    """``n`` requests' stub frame embeddings (n, frontend_len, d_model),
+    float32 standard normals from ``default_rng(seed)``, on the CPU."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal(
+        (n, cfg.frontend_len, cfg.d_model)), dtype=torch.float32)
+
+
+def encdec_generate(params, cfg, prompts, frames, max_new: int,
+                    max_len: int = 128, prefill=None, decode=None):
+    """Greedy decoding of the encdec family through the reference's
+    prefill and decode cells (its ``Server`` serves decoder LMs only).
+    Per request: ``make_prefill_step`` on its frames (S_enc, D) and its
+    prompt (encode and prefill), then a fresh ``init_dec_cache(max_len)``
+    fed the prompt teacher-forced through ``make_decode_step`` against the
+    prefill's memory, then ``max_new`` greedy tokens over the real
+    vocabulary, as ``serve.Server`` serves (the first greedy step takes
+    the prompt's last token).  ``prefill`` / ``decode`` replace the built
+    steps (a caller's timing wrappers).  Returns (tokens per request,
+    records per request: the prefill's logits, K/V and memory, every
+    step's (Vpad,) logits, and the decode cache's first S positions after
+    the prompt's last token)."""
+    dev = params["embed"].device
+    prefill = prefill or steps.make_prefill_step(cfg)
+    decode = decode or steps.make_decode_step(cfg)
+    outs, records = [], []
+    for prompt, fr in zip(prompts, frames):
+        ids = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
+                              device=dev)[None, :]
+        s = ids.shape[1]
+        last, kv, memory = prefill(params, {
+            "frames": torch.as_tensor(fr, device=dev)[None],
+            "tokens": ids})
+        cache = ED.init_dec_cache(cfg, 1, max_len, device=dev)
+        rec = {"prefill": last, "kv": kv, "memory": memory, "steps": []}
+        tok, generated = ids[:, :1], []
+        for pos in range(s - 1 + max_new):
+            logits, cache = decode(params, cache, {
+                "tokens": tok, "memory": memory, "index": pos})
+            rec["steps"].append(logits[0, -1])
+            if pos < s - 1:                       # teacher-forced prompt
+                tok = ids[:, pos + 1:pos + 2]
+                continue
+            if pos == s - 1:
+                rec["cache"] = {k: v[:, :, :s] for k, v in cache.items()}
+            tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1,
+                               keepdim=True)
+            generated.append(int(tok))
+        outs.append(generated)
+        records.append(rec)
+    return outs, records
+
+
+def encdec_card_against_cpu(arch: str, device, steps_n: int = 8,
+                            requests: int = 4, max_new: int = 8) -> Dict:
+    """The encdec ``arch``'s reduced config on ``device`` against the CPU,
+    each with its own bfloat16 draw from ``PRNGKey(0)`` (bitwise equal):
+    ``make_prefill_step`` on frames from a numpy seed and ``steps_n``
+    tokens (last logits, every K/V leaf, the memory), ``steps_n``
+    teacher-forced ``make_decode_step`` steps against each side's memory
+    (logits and cache), and ``encdec_generate``'s greedy tokens on
+    ``main()``'s prompts, each request with its own seeded frames (forks
+    only within the top-2 margin).  Returns the gaps in ulps and the
+    forks; raises ``AssertionError`` past ``lm_ulps(cfg)``."""
+    cfg = serve.get_config(arch).reduced()
+    key = jaxrand.PRNGKey(0, device="cpu")
+    cpu = steps.init_params_for(cfg, key, device="cpu")
+    card = steps.init_params_for(cfg, key, device=device)
+    for a, b in zip(LM.leaves(card), LM.leaves(cpu)):
+        if a.device.type != torch.device(device).type or \
+                not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{arch}: the draw on {device} is not "
+                                 f"the CPU's")
+    rng = np.random.default_rng(1)
+    tokens = torch.tensor(rng.integers(2, cfg.vocab_size, (2, steps_n)))
+    frames = encdec_frames(cfg, 2, 1)
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    pc = prefill(cpu, {"frames": frames, "tokens": tokens})
+    pg = prefill(card, {"frames": frames.to(device),
+                        "tokens": tokens.to(device)})
+    if pg[0].device.type != torch.device(device).type:
+        raise AssertionError(f"{arch}: prefill ran on {pg[0].device}")
+
+    def apart(g, c):
+        return max(0.0 if torch.equal(a.cpu(), b) else ulps_apart(a, b)
+                   for a, b in zip(LM.leaves(g), LM.leaves(c)))
+    out = {"prefill_ulps": ulps_apart(pg[0], pc[0]),
+           "prefill_cache_ulps": apart(pg[1], pc[1]),
+           "memory_ulps": apart(pg[2], pc[2]),
+           "decode_ulps": 0.0, "decode_cache_ulps": 0.0}
+    cc = ED.init_dec_cache(cfg, 2, steps_n, device="cpu")
+    cg = ED.init_dec_cache(cfg, 2, steps_n, device=device)
+    for t in range(steps_n):
+        lc, cc = decode(cpu, cc, {"tokens": tokens[:, t:t + 1],
+                                  "memory": pc[2], "index": t})
+        lg, cg = decode(card, cg, {"tokens": tokens[:, t:t + 1].to(device),
+                                   "memory": pg[2], "index": t})
+        out["decode_ulps"] = max(out["decode_ulps"], ulps_apart(lg, lc))
+        out["decode_cache_ulps"] = max(out["decode_cache_ulps"],
+                                       apart(cg, cc))
+    limit = lm_ulps(cfg)
+    for key_, v in out.items():
+        if not v <= limit:
+            raise AssertionError(f"{arch}: {key_} {v:.2f} > {limit}")
+    prompts = serve.prompts_for(cfg, requests)
+    req_frames = encdec_frames(cfg, requests, 2)
+    want, rec_c = encdec_generate(cpu, cfg, prompts, req_frames, max_new)
+    got, _ = encdec_generate(card, cfg, prompts, req_frames.to(device),
+                             max_new)
+    out["forks"] = greedy_forks(got, want, [x for r in rec_c
+                                            for x in r["steps"]],
+                                prompts, cfg.vocab_size, limit)
+    out["tokens_equal"] = got == want
+    return out
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -265,9 +393,9 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
     """One ``make_train_step`` step of ``arch``'s reduced config on
     ``device`` against the CPU, from the same float32 ``PRNGKey(0)``
     parameters and the token pipeline's step-0 batch (the VLM's prefix
-    frames ones), and ``loss_and_grads``' gradients on both; for the
-    ``moe`` family the routing forks of each of the two runs
-    (``route_forks``).  Returns the gaps; raises ``AssertionError`` past
+    frames ones, the encdec family's frames seeded normals), and
+    ``loss_and_grads``' gradients on both; for the ``moe`` family the
+    routing forks of each of the two runs (``route_forks``).  Returns the gaps; raises ``AssertionError`` past
     the training tolerances."""
     cfg = serve.get_config(arch).reduced()
     params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
@@ -281,6 +409,11 @@ def train_step_card_against_cpu(arch: str, device, batch: int = 2,
     for d in ("cpu", device):
         p = LM.tree_map(lambda a: a.to(d), params)
         b = train.model_batch(cfg, tokens, labels, d)
+        if cfg.family == "encdec":
+            # ones frames make the encoder's attention uniform, its wq and
+            # wk gradients rounding noise on both sides: seeded frames
+            b["frames"] = encdec_frames(cfg, batch, 0).to(
+                d, torch.bfloat16)
         (_, grads), r_grads = routed(lambda: steps.loss_and_grads(cfg, p, b))
         res, r_step = routed(lambda: step(p, opt.init(p), b))
         runs[str(d)] = dict(grads=grads, out=res, routes=(r_grads, r_step))

@@ -1,11 +1,13 @@
 """Train / prefill / decode step builders of the LM stack and the shape
 specs of every (architecture x shape) cell: the JAX package's
 ``launch/steps.py``.  Used by the trainer (``launch/train.py``) and the
-server (``launch/serve.py``).
+server (``launch/serve.py``).  The ``encdec`` family (seamless-m4t-medium)
+takes its own branch of each builder: ``models/encdec.py``'s forward,
+prefill (which also returns the encoder's memory) and decode step (which
+takes the memory in its batch).
 
 The reference's ``ShapeDtypeStruct`` stand-ins are tensors on the meta
-device here: shapes and dtypes, nothing allocated.  The encoder-decoder
-steps come with ``ROADMAP.md`` queue 1, item 7f.
+device here: shapes and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
@@ -17,19 +19,13 @@ import torch
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.core import jaxrand
 from repro_torch.kernels import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.optim import adam, cosine_schedule
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
 COMPUTE = torch.bfloat16
-
-
-def _no_encdec(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            f"(ROADMAP.md queue 1, item 7f)")
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +39,21 @@ def _spec(shape, dtype) -> torch.Tensor:
 
 def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, Any]:
     """Model inputs for one shape cell, as meta tensors."""
-    _no_encdec(cfg)
     sh = SHAPES[shape_name]
     b, s, kind = sh["global_batch"], sh["seq_len"], sh["kind"]
     frames = (b, cfg.frontend_len, cfg.d_model)
+    if cfg.family == "encdec":
+        if kind == "train":
+            return {"frames": _spec(frames, COMPUTE),
+                    "tokens": _spec((b, s), torch.int32),
+                    "labels": _spec((b, s), torch.int32)}
+        if kind == "prefill":
+            return {"frames": _spec(frames, COMPUTE),
+                    "tokens": _spec((b, s), torch.int32)}
+        # decode: one token against a full self-attn cache + encoder memory
+        return {"tokens": _spec((b, 1), torch.int32),
+                "memory": _spec(frames, COMPUTE),
+                "index": _spec((), torch.int32)}
     if kind == "train":
         spec = {"tokens": _spec((b, s), torch.int32),
                 "labels": _spec((b, s), torch.int32)}
@@ -65,8 +72,10 @@ def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, Any]:
 
 def cache_specs(cfg: ArchConfig, shape_name: str):
     """Meta tensors of the decode cache for this cell."""
-    _no_encdec(cfg)
     sh = SHAPES[shape_name]
+    if cfg.family == "encdec":
+        return ED.init_dec_cache(cfg, sh["global_batch"], sh["seq_len"],
+                                 device="meta")
     return LM.init_cache(cfg, sh["global_batch"], sh["seq_len"],
                          device="meta")
 
@@ -84,20 +93,29 @@ def loss_and_grads(cfg: ArchConfig, params, batch):
     """``jax.value_and_grad(loss_fn, has_aux=True)(params)`` of the
     reference's train step: ((total, loss), grads), ``total`` the loss plus
     the aux loss, the loss skipping the VLM family's prefix positions.
-    ``batch`` holds "tokens" and "labels" (B, S) and, for the VLM family,
-    "frames" (B, P, D).  The parameters are float32 leaves, cast to
-    bfloat16 at each use, so autograd's gradients are float32, as the
-    reference's are; the forward and the backward both run inside
+    ``batch`` holds "tokens" and "labels" (B, S) and, for the VLM and
+    encdec families, "frames" (B, P, D): the VLM's prefix, the encoder's
+    input (``encdec.forward_encdec``; no aux loss, so the total is the
+    loss).  The parameters are float32 leaves, cast to bfloat16 at each
+    use, so autograd's gradients are float32, as the reference's are; the
+    forward and the backward both run inside
     ``layers.float32_accumulation``."""
-    prefix = batch.get("frames") if cfg.family == "vlm" else None
-    offset = prefix.shape[1] if prefix is not None else 0
     flat = [a.detach().requires_grad_() for a in tree_leaves(params)]
     with L.float32_accumulation(), torch.enable_grad():
-        logits, aux = LM.forward_lm(tree_unflatten(params, flat), cfg,
-                                    batch["tokens"], prefix_embeds=prefix)
-        loss = LM.lm_loss(logits, batch["labels"], cfg.vocab_size,
-                          label_offset=offset)
-        total = loss + aux
+        p = tree_unflatten(params, flat)
+        if cfg.family == "encdec":
+            logits = ED.forward_encdec(p, cfg, batch["frames"],
+                                       batch["tokens"])
+            loss = LM.lm_loss(logits, batch["labels"], cfg.vocab_size)
+            total = loss
+        else:
+            prefix = batch.get("frames") if cfg.family == "vlm" else None
+            logits, aux = LM.forward_lm(p, cfg, batch["tokens"],
+                                        prefix_embeds=prefix)
+            loss = LM.lm_loss(logits, batch["labels"], cfg.vocab_size,
+                              label_offset=0 if prefix is None
+                              else prefix.shape[1])
+            total = loss + aux
         del logits
         grads = torch.autograd.grad(total, flat)
     return ((total.detach(), loss.detach()),
@@ -108,7 +126,6 @@ def make_train_step(cfg: ArchConfig, optimizer=None):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     {"loss", "total"}): ``loss_and_grads``, then the optimizer's update
     (``make_optimizer``'s Adam by default)."""
-    _no_encdec(cfg)
     optimizer = optimizer or make_optimizer(cfg)
 
     def train_step(params, opt_state, batch):
@@ -120,8 +137,15 @@ def make_train_step(cfg: ArchConfig, optimizer=None):
 
 def make_prefill_step(cfg: ArchConfig):
     """``prefill_step(params, batch)`` -> (last logits, caches); ``batch``
-    holds "tokens" (B, S) and, for the VLM family, "frames" (B, P, D)."""
-    _no_encdec(cfg)
+    holds "tokens" (B, S) and, for the VLM family, "frames" (B, P, D).
+    For the encdec family ``batch`` holds "frames" (B, S_enc, D) and
+    "tokens", and the step returns (last logits, the decoder's K/V of the
+    prompt's S positions, the encoder's memory)."""
+    if cfg.family == "encdec":
+        def prefill_step(params, batch):
+            return ED.prefill_encdec(params, cfg, batch["frames"],
+                                     batch["tokens"])
+        return prefill_step
 
     def prefill_step(params, batch):
         prefix = batch.get("frames") if cfg.family == "vlm" else None
@@ -132,8 +156,14 @@ def make_prefill_step(cfg: ArchConfig):
 
 def make_decode_step(cfg: ArchConfig):
     """``decode_fn(params, caches, batch)`` -> (logits (B, 1, Vpad),
-    new caches); ``batch`` holds "tokens" (B, 1) and "index"."""
-    _no_encdec(cfg)
+    new caches); ``batch`` holds "tokens" (B, 1) and "index", and for the
+    encdec family the encoder's "memory" (B, S_enc, D)."""
+    if cfg.family == "encdec":
+        def decode_fn(params, caches, batch):
+            return ED.decode_step_encdec(params, cfg, batch["tokens"],
+                                         batch["memory"], caches,
+                                         batch["index"])
+        return decode_fn
 
     def decode_fn(params, caches, batch):
         return LM.decode_step(params, cfg, batch["tokens"], caches,
@@ -146,10 +176,12 @@ def init_params_for(cfg: ArchConfig, key=None, device=None,
     """``cfg``'s parameters drawn from the ``jaxrand`` key ``key``
     (``PRNGKey(0)`` on the CPU when none is given, as the reference's
     default) on ``device`` (``None`` means CUDA), stored as ``dtype``:
-    bfloat16 to serve, float32 to train (``lm.init_lm``)."""
-    _no_encdec(cfg)
+    bfloat16 to serve, float32 to train (``lm.init_lm``,
+    ``encdec.init_encdec``)."""
     dev = resolve_device(device)
     key = key if key is not None else jaxrand.PRNGKey(0, device="cpu")
+    if cfg.family == "encdec":
+        return ED.init_encdec(key, cfg, device=dev, dtype=dtype)
     return LM.init_lm(key, cfg, device=dev, dtype=dtype)
 
 

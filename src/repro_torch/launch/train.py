@@ -30,13 +30,14 @@ from repro_torch.launch.steps import (init_params_for, make_optimizer,
 
 def model_batch(cfg, tokens, labels, device) -> dict:
     """``batch_at_step``'s (tokens, labels) as a step's batch on
-    ``device``; the VLM family's prefix frames are ones in bfloat16, as the
-    reference feeds them."""
+    ``device``; the frames of the VLM family's prefix and of the encdec
+    family's encoder input are ones in bfloat16, as the reference feeds
+    them."""
     batch = {"tokens": torch.as_tensor(tokens.astype(np.int64),
                                        device=device),
              "labels": torch.as_tensor(labels.astype(np.int64),
                                        device=device)}
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "encdec"):
         batch["frames"] = torch.ones(
             (tokens.shape[0], cfg.frontend_len, cfg.d_model),
             dtype=torch.bfloat16, device=device)
@@ -59,7 +60,7 @@ def train_loop(arch: str, steps: int, *, reduced: bool = True,
     pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch, seed=seed)
     optimizer = make_optimizer(cfg, lr=lr, steps=steps)
-    step_fn = make_train_step(cfg, optimizer)   # raises for families to port
+    step_fn = make_train_step(cfg, optimizer)
 
     params = init_params_for(cfg, jaxrand.PRNGKey(seed, device="cpu"),
                              device=dev, dtype=torch.float32)

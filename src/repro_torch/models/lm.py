@@ -170,21 +170,26 @@ def _one_init(key: torch.Tensor, cfg: ArchConfig, kind: str, device,
     raise ValueError(kind)
 
 
-def _stacked_init(key: torch.Tensor, cfg: ArchConfig, kind: str,
-                  count: int, device, dtype) -> Dict:
-    """``count`` layers of ``kind`` stacked on a leading axis: layer ``i``
-    drawn from ``split(key, count)[i]`` (the reference's ``vmap`` over
-    split keys) and written into its slice of the stack."""
+def stacked_init(key: torch.Tensor, count: int, one) -> Dict:
+    """``count`` layers stacked on a leading axis: layer ``i`` drawn by
+    ``one(split(key, count)[i])`` (the reference's ``vmap`` over split
+    keys) and written into its slice of the stack."""
     keys = jaxrand.split(key, count)
-    first = _one_init(keys[0], cfg, kind, device, dtype)
+    first = one(keys[0])
     stacked = tree_map(lambda a: torch.empty(
         (count, *a.shape), dtype=a.dtype, device=a.device), first)
     for i in range(count):
-        one = first if i == 0 else _one_init(keys[i], cfg, kind, device,
-                                             dtype)
-        for dst, src in zip(leaves(layer(stacked, i)), leaves(one)):
+        drawn = first if i == 0 else one(keys[i])
+        for dst, src in zip(leaves(layer(stacked, i)), leaves(drawn)):
             dst.copy_(src)
     return stacked
+
+
+def _stacked_init(key: torch.Tensor, cfg: ArchConfig, kind: str,
+                  count: int, device, dtype) -> Dict:
+    """``count`` layers of ``kind`` stacked (``stacked_init``)."""
+    return stacked_init(key, count, lambda k: _one_init(k, cfg, kind,
+                                                        device, dtype))
 
 
 def _seg_init(key: torch.Tensor, cfg: ArchConfig, kind: str, count: int,
@@ -256,8 +261,15 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None,
     numpy arrays) as the port's, on ``device`` (``None`` means CUDA):
     ``dtype`` where the reference casts at use, float32 where it uses a
     leaf so (``FLOAT32_LEAVES``)."""
-    dev = resolve_device(device)
     seg_plan(cfg)
+    return carry_tree(tree, device, dtype)
+
+
+def carry_tree(tree, device=None, dtype=COMPUTE) -> Dict:
+    """A pytree of numpy leaves (dicts and lists) as tensors on
+    ``device`` (``None`` means CUDA): ``dtype``, but float32 for the
+    leaves named in ``FLOAT32_LEAVES``."""
+    dev = resolve_device(device)
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -319,6 +331,15 @@ def _mamba_layer(lp, cfg: ArchConfig, h):
                                L.rmsnorm(lp["ln"], h))
 
 
+def remat_runner(cfg: ArchConfig, train: bool):
+    """``run(fn, *args)``: ``fn(*args)`` under ``torch.utils.checkpoint``
+    where the reference would remat the layer (``cfg.remat`` and
+    ``train``, autograd recording), else ``fn(*args)``."""
+    if cfg.remat and train and torch.is_grad_enabled():
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda fn, *args: fn(*args)
+
+
 def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
                  train: bool = False, rope=None):
     """Full-seq forward of one segment. Returns (h, aux).  With
@@ -328,12 +349,7 @@ def _seg_forward(seg_params, cfg: ArchConfig, kind: str, count: int, h,
     backward, the numbers are the same.  In a ``zamba_group`` segment
     those are the inner Mamba2 layers, not the shared attention block; the
     ``slstm`` segment runs without."""
-    remat = cfg.remat and train and torch.is_grad_enabled()
-
-    def run(fn, *args):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+    run = remat_runner(cfg, train)
     # the layers' aux losses summed in layer order from 0, the reference's
     # scan carry (only the attn_moe block adds one)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

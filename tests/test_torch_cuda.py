@@ -1909,7 +1909,7 @@ def test_reduced_lm_on_the_card_equals_the_cpu(dev, arch):
         assert out[key] <= limit, (key, out[key])
 
 
-@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS + ["seamless-m4t-medium"])
 def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
     """``init_params_for`` from ``PRNGKey(0)`` on the card: the CPU's
     float32 and bfloat16 leaves bit for bit (``jaxrand``)."""
@@ -1917,7 +1917,7 @@ def test_lm_draw_on_the_card_equals_the_cpu(dev, arch):
     assert crosscheck.init_card_against_cpu(arch, dev)["leaves"] > 0
 
 
-@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS + ["seamless-m4t-medium"])
 def test_reduced_train_step_on_the_card_against_the_cpu(dev, arch):
     """One ``make_train_step`` step on the card against the CPU from the
     same float32 parameters and batch: ``launch.crosscheck``'s training
@@ -1965,6 +1965,31 @@ def test_forced_tie_routes_to_the_lower_index_on_the_card(dev, arch):
     assert both and all(r.index(1) < r.index(3) for r in both)
     router[:] = router[:, :1]
     assert (both_devices() == torch.arange(mcfg.top_k)).all()
+
+
+def test_reduced_encdec_on_the_card_equals_the_cpu(dev):
+    """The reduced seamless-m4t-medium on the card against the CPU
+    (``crosscheck.encdec_card_against_cpu``, which ``chip_smoke.py``
+    phase 16 (b) runs too): ``make_prefill_step``'s last logits, K/V and
+    memory, 8 teacher-forced ``make_decode_step`` steps and the greedy
+    tokens of ``encdec_generate``, within ``crosscheck.lm_ulps``."""
+    from repro_torch.launch import crosscheck
+    out = crosscheck.encdec_card_against_cpu("seamless-m4t-medium", dev)
+    limit = crosscheck.lm_ulps(
+        crosscheck.serve.get_config("seamless-m4t-medium"))
+    for key in ("prefill_ulps", "prefill_cache_ulps", "memory_ulps",
+                "decode_ulps", "decode_cache_ulps"):
+        assert out[key] <= limit, (key, out[key])
+
+
+def test_reduced_encdec_training_resumes_on_the_card(dev, tmp_path):
+    """The reference's fault-tolerance test on the card for the reduced
+    seamless-m4t-medium: 12 steps straight against a failure at step 9
+    resumed from step 8, final losses within 1e-4."""
+    from repro_torch.launch import crosscheck
+    out = crosscheck.resume_against_straight("seamless-m4t-medium", dev,
+                                             str(tmp_path))
+    assert out["gap"] < crosscheck.RESUME_ATOL
 
 
 def test_reduced_training_resumes_on_the_card(dev, tmp_path):

@@ -172,10 +172,34 @@ def test_moe_families_now_build(arch):
 
 
 def test_encdec_steps_raise_until_ported():
+    """The encoder-decoder family, ported: ``make_prefill_step`` and
+    ``make_decode_step`` of the reduced seamless-m4t-medium build and take
+    their steps (``tests/test_torch_encdec.py`` holds them to the
+    reference): the prefill's last logits, its prompt-long K/V and the
+    encoder's memory, then a decode step against that memory writing its
+    cache at the index."""
     cfg = base.get_config("seamless-m4t-medium").reduced()
-    for build in (steps.make_decode_step, steps.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="item 7f"):
-            build(cfg)
+    params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
+                                   device="cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (1, 3)))
+    frames = torch.ones((1, cfg.frontend_len, cfg.d_model))
+    last, kv, memory = steps.make_prefill_step(cfg)(
+        params, {"frames": frames, "tokens": tokens})
+    assert last.shape == (1, 1, cfg.vocab_padded)
+    assert kv["k"].shape == (cfg.n_layers, 1, 3, cfg.n_kv_heads,
+                             cfg.head_dim)
+    assert memory.shape == (1, cfg.frontend_len, cfg.d_model)
+    cache = {k: torch.zeros((cfg.n_layers, 1, 8, cfg.n_kv_heads,
+                             cfg.head_dim), dtype=torch.bfloat16)
+             for k in ("k", "v")}
+    logits, new = steps.make_decode_step(cfg)(
+        params, cache, {"tokens": tokens[:, :1], "memory": memory,
+                        "index": 2})
+    assert logits.shape == (1, 1, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert new["k"][:, :, 2].any() and not new["k"][:, :, 3:].any()
+    assert not cache["k"].any()
 
 
 def test_init_lm_draws_at_the_reference_scales():

@@ -215,17 +215,15 @@ def test_remat_changes_memory_not_numbers(arch, monkeypatch):
 
 
 def test_train_step_raises_for_the_families_still_to_port():
-    """The encoder-decoder (``ROADMAP.md`` queue 1, item 7f) raises; the
-    zamba2 and xLSTM families (7d, 7e) now take a step, its loss finite
-    and every gradient leaf finite (``tests/test_torch_mamba2.py`` and
-    ``test_torch_xlstm.py`` hold the step to the reference's)."""
-    cfg = get_config("seamless-m4t-medium").reduced()
-    with pytest.raises(NotImplementedError, match="item 7f"):
-        steps.make_train_step(cfg)
-    for arch in ("zamba2-1.2b", "xlstm-125m"):
+    """No family is left to port: the zamba2 and xLSTM families (items 7d,
+    7e) and the encoder-decoder (7f) take a step, its loss finite and
+    every new parameter finite and some moved
+    (``tests/test_torch_mamba2.py``, ``test_torch_xlstm.py`` and
+    ``test_torch_encdec.py`` hold the step to the reference's)."""
+    for arch in ("zamba2-1.2b", "xlstm-125m", "seamless-m4t-medium"):
         cfg = get_config(arch).reduced()
-        params = LM.init_lm(_cpu_key(), cfg, device="cpu",
-                            dtype=torch.float32)
+        params = steps.init_params_for(cfg, _cpu_key(), device="cpu",
+                                       dtype=torch.float32)
         opt = steps.make_optimizer(cfg)
         new, _, metrics = steps.make_train_step(cfg, opt)(
             params, opt.init(params), cases.batch(cfg))
