@@ -261,7 +261,18 @@ result line):
    checkpoint against the straight run (within 1e-4; bit for bit or not);
    (d) ``train_loop("seamless-m4t-medium", 4, reduced=False, batch=8,
    seq=64)`` with 1024 ones frames, as (b) reports it, its bound counting
-   the encoder's parameters over the frames (``train_bound``).
+   the encoder's parameters over the frames (``train_bound``);
+18. the LM launch code (``phase_launch``) on a world-1 NCCL process group:
+   (a) internvl2-2b's full-width train step on a 1 x 1 (data, model) mesh
+   through ``make_train_step(policy=MeshPolicy(mesh))``, parameters and
+   Adam's moments as ``DTensor``s, bit for bit the plain step on the same
+   parameters and batch, with ms per step, peak memory, launches and the
+   collective bytes of each; (b) ``compressed_allreduce_mean`` on NCCL
+   over the full-width gradient tree (ms, wire bytes) and on a seeded
+   slice bit for bit the same function on gloo on the CPU; (c) the dry run
+   over every arch x shape on the 16 x 16 and 2 x 16 x 16 meshes, no
+   ``error`` record, each cell's dominant roofline term and the cells
+   whose sharded step needs more than one card's memory.
 
 The lines before the last carry the card (``nvidia-smi``), the per-layer
 times, decisions/s, the launch counts and one JSON object ``{"kernels":
@@ -320,6 +331,11 @@ server), and prints no result line.
 
 builds the kernels and runs phase 17 alone (LM training), and prints no
 result line.
+
+    python3 chip_smoke.py --launch
+
+builds the kernels and runs phase 18 alone (the launch code), and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -5355,6 +5371,268 @@ def phase_train(torch, dev):
     return out
 
 
+LAUNCH_ARCH = "internvl2-2b"                               # (a), (b)
+COMPRESS_SLICE = 1 << 20          # (b): elements held card against CPU
+LAUNCH_REPS = 3                   # (b): passes over the gradient tree
+LAUNCH_ORDER = ("plain", "sharded", "sharded", "plain")
+
+
+def _to_host(torch, tree):
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _same_trees(torch, got, want):
+    """Leaves of ``got`` (``DTensor``s whole) bit for bit ``want``'s,
+    compared on ``got``'s device, one leaf at a time."""
+    from repro_torch.optim.optimizers import tree_leaves
+    g, w = tree_leaves(got), tree_leaves(want)
+    whole = lambda a: a.full_tensor() if hasattr(a, "full_tensor") else a
+    return len(g) == len(w) and all(
+        torch.equal(whole(a), b.to(a.device)) for a, b in zip(g, w))
+
+
+def _launch_step(torch, dev, cfg):
+    """(a): the world-1 sharded train step against the plain step."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import jaxrand
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+    from repro_torch.launch import analysis, elastic, sharded, steps, train
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh_policy import MeshPolicy
+    from repro_torch.optim.optimizers import OptState, tree_leaves
+    mesh = M.make_debug_mesh(1, 1, device=dev)
+    policy = MeshPolicy(mesh)
+    t0 = time.perf_counter()
+    params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
+                                   device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    opt = steps.make_optimizer(cfg)
+    state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    batch = train.model_batch(cfg, *batch_at_step(pipe, 0), dev)
+    specs = policy.param_specs(params)
+    # the sharded step's state wraps the plain step's tensors (a 1 x 1
+    # mesh's shard is the whole leaf): no second copy on the card
+    dparams = elastic.reshard_to(mesh, params, specs)
+    dstate = OptState(state.step, elastic.reshard_to(mesh, state.mu, specs),
+                      elastic.reshard_to(mesh, state.nu, specs))
+    runs = {"plain": (steps.make_train_step(cfg, opt), params, state),
+            "sharded": (steps.make_train_step(cfg, opt, policy=policy),
+                        dparams, dstate)}
+    ms = {k: [] for k in runs}
+    peak = {k: [] for k in runs}
+    first, same, kept = {}, None, None
+    out = runs["plain"][0](params, state, batch)         # warm-up, untimed
+    del out
+    for k in LAUNCH_ORDER:
+        step, p, o = runs[k]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with analysis.count_collectives() as coll:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(p, o, batch)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t1) * 1e3)
+        peak[k].append(torch.cuda.max_memory_allocated(dev))
+        if k not in first:
+            first[k] = coll
+            # the plain step's parameters and metrics stay on the card, its
+            # moments go to the host: the sharded step's peak has room for
+            # 7.6 GB more, not 22.7
+            if k == "plain":
+                kept = ([out[0], [out[2]["loss"], out[2]["total"]]],
+                        _to_host(torch, [out[1].mu, out[1].nu]))
+            else:
+                same = (out[1].step == 1 and _same_trees(
+                    torch, [out[0], [out[2]["loss"], out[2]["total"]]],
+                    kept[0]) and _same_trees(torch, [out[1].mu, out[1].nu],
+                                             kept[1]))
+                kept = None
+        del out
+    if not same:
+        raise AssertionError("launch (a): the world-1 sharded step is not "
+                             "the plain step bit for bit")
+    launches = {}
+    for k, (step, p, o) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = step(p, o, batch)
+            torch.cuda.synchronize()
+        del out
+        us, rows = device_time(torch, prof)
+        launches[k] = (sum(n for _, n in rows.values()), us / 1e3)
+    res = dict(arch=cfg.name, params=sum(x.numel()
+                                         for x in tree_leaves(params)),
+               draw_s=draw_s, ms=ms, peak_bytes=peak, bitwise=same,
+               launches={k: v[0] for k, v in launches.items()},
+               busy_ms={k: v[1] for k, v in launches.items()},
+               collectives=first["sharded"],
+               collectives_plan=sharded.train_plan(policy, cfg, params,
+                                                   batch))
+    log(f"[launch] (a) {cfg.name} full width ({res['params']} parameters, "
+        f"drawn in {draw_s:.2f} s), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"on a 1 x 1 mesh of a world-1 NCCL group: the sharded train step "
+        f"equals the plain step bit for bit (parameters, mu, nu, loss, "
+        f"total); ms per step plain {[round(v, 2) for v in ms['plain']]}, "
+        f"sharded {[round(v, 2) for v in ms['sharded']]}; peak GB plain "
+        f"{[round(v / 1e9, 3) for v in peak['plain']]}, sharded "
+        f"{[round(v / 1e9, 3) for v in peak['sharded']]}; launches in a "
+        f"profiled step plain {res['launches']['plain']}, sharded "
+        f"{res['launches']['sharded']} (device busy "
+        f"{res['busy_ms']['plain']:.2f} / {res['busy_ms']['sharded']:.2f} "
+        f"ms); collective bytes {res['collectives']['total']:.0f} (plan "
+        f"{res['collectives_plan']['total']:.0f})")
+    del runs, dparams, dstate, state
+    return res, params, batch
+
+
+def _launch_compress(torch, dev, cfg, params, batch):
+    """(b): the int8 compressed mean over the full-width gradient tree on
+    NCCL, and on a seeded slice against gloo on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.core import grad_compress as gcmp
+    from repro_torch.launch import analysis, steps
+    from repro_torch.optim.optimizers import tree_leaves
+    _, grads = steps.loss_and_grads(cfg, params, batch)
+    leaves = tree_leaves(grads)
+    n = sum(x.numel() for x in leaves)
+    wall, coll = [], None
+    resid = [torch.zeros_like(g) for g in leaves]         # outside the time
+    for _ in range(LAUNCH_REPS + 1):                      # a warm-up first
+        with analysis.count_collectives() as c:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for g, r0 in zip(leaves, resid):
+                out = gcmp.compressed_allreduce_mean(g, r0)
+                del out
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        coll = c
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    big = max(leaves, key=lambda x: x.numel())
+    g = big.flatten()[:COMPRESS_SLICE].cpu()
+    r = torch.randn(g.shape, generator=gen) * float(g.abs().max()) * 1e-3
+    cpu_group = dist.new_group(ranks=[0], backend="gloo")
+    m_card, r_card = gcmp.compressed_allreduce_mean(g.to(dev), r.to(dev))
+    m_cpu, r_cpu = gcmp.compressed_allreduce_mean(g, r, group=cpu_group)
+    same = torch.equal(m_card.cpu(), m_cpu) and torch.equal(r_card.cpu(),
+                                                            r_cpu)
+    dist.destroy_process_group(cpu_group)
+    if not same:
+        raise AssertionError("launch (b): the compressed mean on the card "
+                             "is not the CPU's bit for bit")
+    wall = wall[1:]
+    res = dict(elements=n, leaves=len(leaves), ms=wall,
+               wire_bytes=dict(coll), float32_ring_bytes=8 * n,
+               slice=COMPRESS_SLICE, bitwise=same)
+    log(f"[launch] (b) compressed_allreduce_mean over the {cfg.name} "
+        f"gradient tree ({len(leaves)} leaves, {n} elements) on NCCL, "
+        f"world 1: ms per pass {[round(v, 2) for v in wall]}; wire bytes "
+        f"{coll['total']:.0f} (all-to-all {coll['all-to-all']:.0f}, "
+        f"all-gather {coll['all-gather']:.0f}, all-reduce "
+        f"{coll['all-reduce']:.0f}) against a float32 ring's {8 * n}; "
+        f"{COMPRESS_SLICE} seeded elements on the card equal gloo on the "
+        f"CPU bit for bit (mean and residual)")
+    del grads, leaves, resid
+    return res
+
+
+def _launch_dryrun(torch):
+    """(c): the dry run over every arch x shape on both production
+    meshes."""
+    import collections
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = dryrun.run_all(ARCH_IDS, list(SHAPES), [False, True], log=log)
+    status = collections.Counter(r["status"] for r in recs)
+    if status["error"]:
+        raise AssertionError(f"launch (c): dry-run errors: {status}")
+    dominant = collections.Counter(r["roofline"]["dominant"] for r in recs
+                                   if r["status"] == "ok")
+    over = [f"{r['arch']} x {r['shape']}"
+            + (" (2x16x16)" if r["multi_pod"] else "") for r in recs
+            if r["status"] == "ok" and not r["fits_card"]]
+    res = dict(counts=dict(status), dominant=dict(dominant), over_card=over,
+               seconds=time.perf_counter() - t0,
+               cells=[{k: r.get(k) for k in ("arch", "shape", "multi_pod",
+                                             "status")}
+                      | ({"dominant": r["roofline"]["dominant"],
+                          "bound_s": r["roofline"]["bound_s"],
+                          "argument_bytes":
+                              r["memory_analysis"]["argument_bytes"],
+                          "step_floor_bytes":
+                              r["memory_analysis"]["step_floor_bytes"]}
+                         if r["status"] == "ok" else {})
+                      for r in recs])
+    log(f"[launch] (c) dry run: {status['ok']} ok, {status['skip']} skip, "
+        f"{status['error']} error over {len(recs)} cells in "
+        f"{res['seconds']:.1f} s; dominant terms {dict(dominant)}; "
+        f"{len(over)} ok cells whose sharded step needs more than one "
+        f"card's memory (the whole parameters, and to train the whole "
+        f"gradients, on top of the shards): {over}")
+    return res
+
+
+def phase_launch(torch, dev):
+    """Phase 18: the LM launch code on the card.
+
+    (a) a world-1 NCCL process group (``launch.mesh.init_distributed``)
+        and a 1 x 1 (data, model) mesh: ``internvl2-2b``'s full-width
+        train step through ``make_train_step(policy=MeshPolicy(mesh))``,
+        its parameters and Adam's moments as ``DTensor``s wrapping the
+        plain step's tensors, against the plain step on the same
+        parameters and batch (``TRAIN_BATCH`` x ``TRAIN_SEQ``, 256 prefix
+        frames): parameters, moments, loss and total bit for bit; ms per
+        step of each (``LAUNCH_ORDER``, after an untimed step), peak memory,
+        launches and device time in a profiled step of each, and the
+        collective bytes (none on one rank) beside the step's plan;
+    (b) ``compressed_allreduce_mean`` on NCCL over the full-width gradient
+        tree, leaf by leaf (``LAUNCH_REPS`` passes after an untimed one):
+        ms per pass and wire
+        bytes by op; then ``COMPRESS_SLICE`` elements of the largest
+        gradient with a seeded residual on the card against the same
+        function on a gloo group on the CPU, bit for bit;
+    (c) the dry run (``launch.dryrun.run_all``) over every arch x shape on
+        the 16 x 16 and 2 x 16 x 16 meshes: ok / skip / error counts,
+        each cell's dominant roofline term, and the ok cells whose
+        ``step_floor_bytes`` exceed one card's memory (reported: the
+        layout is coherent, the gather-everything step falls short); an
+        error fails the phase.
+    The process group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    M.init_distributed(dev)
+    try:
+        cfg = get_config(LAUNCH_ARCH)
+        step, params, batch = _launch_step(torch, dev, cfg)
+        t1 = time.perf_counter()
+        compress = _launch_compress(torch, dev, cfg, params, batch)
+        del params, batch
+        t2 = time.perf_counter()
+        dry = _launch_dryrun(torch)
+    finally:
+        dist.destroy_process_group()
+    out = {"step": step, "compress": compress, "dryrun": dry,
+           "a_s": t1 - t0, "b_s": t2 - t1,
+           "c_s": time.perf_counter() - t2,
+           "seconds": time.perf_counter() - t0}
+    log(f"[launch] phase 18 took {out['seconds']:.1f} s: (a) "
+        f"{out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5371,11 +5649,13 @@ def main() -> int:
                     help="build the kernels and run phase 16 alone")
     ap.add_argument("--train", action="store_true",
                     help="build the kernels and run phase 17 alone")
+    ap.add_argument("--launch", action="store_true",
+                    help="build the kernels and run phase 18 alone")
     args = ap.parse_args()
     if sum((args.layers is not None, args.tiles is not None,
-            args.compiled, args.examples, args.train)) > 1:
-        ap.error("--layers, --tiles, --compiled, --examples and --train "
-                 "are separate runs")
+            args.compiled, args.examples, args.train, args.launch)) > 1:
+        ap.error("--layers, --tiles, --compiled, --examples, --train and "
+                 "--launch are separate runs")
     root = os.path.abspath(args.layers or args.tiles or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
@@ -5420,6 +5700,11 @@ def main() -> int:
         trained = phase_train(torch, dev)
         print(json.dumps({"card": smi, "train": trained}), flush=True)
         return 0
+    if args.launch:
+        smi = phase_build(torch)
+        launched = phase_launch(torch, dev)
+        print(json.dumps({"card": smi, "launch": launched}), flush=True)
+        return 0
     smi = phase_build(torch)
     rows, totals, max_err = phase_layers(torch, dev)
     widths = phase_widths(torch, dev)
@@ -5442,6 +5727,7 @@ def main() -> int:
     compiled = phase_compiled(torch, dev)
     examples = phase_examples(torch, dev)
     trained = phase_train(torch, dev)
+    launched = phase_launch(torch, dev)
 
     hop = totals["hop"]
     k_ms, p_ms, b_ms, b_by = (hop["ms"], hop["plain_ms"], hop["bound_ms"],
@@ -5456,7 +5742,7 @@ def main() -> int:
                       "pipeline": pipeline, "obs": obs,
                       "snapshot": snap, "sharded": sharded,
                       "compiled": compiled, "examples": examples,
-                      "train": trained}),
+                      "train": trained, "launch": launched}),
           flush=True)
     win = totals["window"]
     w_ms, wp_ms, wb_ms = win["ms"], win["plain_ms"], win["bound_ms"]
@@ -5607,6 +5893,20 @@ def main() -> int:
         f"training: routing forks "
         + ", ".join(f"{a} {tm[a]['step']['route_forks']}" for a in MOE_ARCHS)
         + f"; train_lm resumed bit for bit: {tm['example']['bitwise']}")
+    la, lb, lc = (launched["step"], launched["compress"],
+                  launched["dryrun"])
+    log(f"[summary] {smi}: launch (phase 18): {LAUNCH_ARCH} full-width "
+        f"sharded train step on a world-1 1 x 1 mesh bit for bit the plain "
+        f"step: {la['bitwise']}; ms per step plain "
+        f"{[round(v, 2) for v in la['ms']['plain']]}, sharded "
+        f"{[round(v, 2) for v in la['ms']['sharded']]}; peak GB plain "
+        f"{[round(v / 1e9, 3) for v in la['peak_bytes']['plain']]}, sharded "
+        f"{[round(v / 1e9, 3) for v in la['peak_bytes']['sharded']]}; "
+        f"compressed mean over the gradient tree "
+        f"{[round(v, 2) for v in lb['ms']]} ms, "
+        f"{lb['wire_bytes']['total']:.0f} wire bytes; dry run "
+        f"{lc['counts']}, dominant {lc['dominant']}, "
+        f"{len(lc['over_card'])} ok cells over one card's memory")
     r2 = sga["sga_update_rows"]
     log(f"[summary] {smi}: sga_update_rows B=2 x 5770: kernel "
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "

@@ -122,11 +122,16 @@ def loss_and_grads(cfg: ArchConfig, params, batch):
             tree_unflatten(params, list(grads)))
 
 
-def make_train_step(cfg: ArchConfig, optimizer=None):
+def make_train_step(cfg: ArchConfig, optimizer=None, *, policy=None):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     {"loss", "total"}): ``loss_and_grads``, then the optimizer's update
-    (``make_optimizer``'s Adam by default)."""
+    (``make_optimizer``'s Adam by default).  With ``policy`` (a
+    ``MeshPolicy`` over a live mesh) the step is ``sharded``'s: parameters
+    and moments as ``DTensor``s, the batch split over the batch axes."""
     optimizer = optimizer or make_optimizer(cfg)
+    if policy is not None:
+        from repro_torch.launch import sharded
+        return sharded.make_train_step(cfg, policy, optimizer)
 
     def train_step(params, opt_state, batch):
         (total, loss), grads = loss_and_grads(cfg, params, batch)
@@ -135,12 +140,17 @@ def make_train_step(cfg: ArchConfig, optimizer=None):
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, *, policy=None):
     """``prefill_step(params, batch)`` -> (last logits, caches); ``batch``
     holds "tokens" (B, S) and, for the VLM family, "frames" (B, P, D).
     For the encdec family ``batch`` holds "frames" (B, S_enc, D) and
     "tokens", and the step returns (last logits, the decoder's K/V of the
-    prompt's S positions, the encoder's memory)."""
+    prompt's S positions, the encoder's memory).  With ``policy`` (a
+    ``MeshPolicy`` over a live mesh) the step is ``sharded``'s: the caches
+    come back as ``DTensor``s at ``cache_specs``."""
+    if policy is not None:
+        from repro_torch.launch import sharded
+        return sharded.make_prefill_step(cfg, policy)
     if cfg.family == "encdec":
         def prefill_step(params, batch):
             return ED.prefill_encdec(params, cfg, batch["frames"],
@@ -154,10 +164,15 @@ def make_prefill_step(cfg: ArchConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, policy=None):
     """``decode_fn(params, caches, batch)`` -> (logits (B, 1, Vpad),
     new caches); ``batch`` holds "tokens" (B, 1) and "index", and for the
-    encdec family the encoder's "memory" (B, S_enc, D)."""
+    encdec family the encoder's "memory" (B, S_enc, D).  With ``policy``
+    (a ``MeshPolicy`` over a live mesh) the step is ``sharded``'s: caches
+    as ``DTensor``s."""
+    if policy is not None:
+        from repro_torch.launch import sharded
+        return sharded.make_decode_step(cfg, policy)
     if cfg.family == "encdec":
         def decode_fn(params, caches, batch):
             return ED.decode_step_encdec(params, cfg, batch["tokens"],

@@ -13,9 +13,19 @@ numbers bit for bit.  The reference keeps float32 leaves and casts them to
 bfloat16 at every use: the port stores its leaves as ``dtype``, float32
 for training (the reference's leaves, whose gradients are float32) or
 bfloat16 for serving (that cast stored once, the same numbers), and keeps
-the norm scales in float32, where the reference uses them.  The
-reference's ``ShardingPolicy`` is not carried over: on one card it is the
-identity.
+the norm scales in float32, where the reference uses them.
+
+``ShardingPolicy`` maps the activations' logical axes onto mesh axes, as
+the reference's does: its helpers (``btd``, ``btf``, ``bthd``, ``btv``,
+``bt_seq_sharded``) are the identity on a plain tensor and redistribute a
+``DTensor`` to the placement its ``Spec`` names.  The model functions do
+not take a policy: the sharded steps of ``launch/sharded.py`` run them on
+plain tensors, a rank's rows of the batch, and read the policy's
+``data_axes`` for the axes that split the batch (the loss, the gradients
+and the MoE router's statistics are summed over them).  The reference's
+``serve_mode`` knob is not carried over: it picks the lowering of the
+reference's cache write (masked or dynamic-update-slice, the same
+numbers), which the port does not have.
 
 Numerics against the reference on the CPU: ``rmsnorm`` and ``layernorm``
 take their means as ``core.means`` does (the sum times the float32
@@ -43,6 +53,118 @@ from repro_torch.core import jaxrand, means
 
 COMPUTE_DTYPE = torch.bfloat16
 MASK_VALUE = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Sharding policy
+# ---------------------------------------------------------------------------
+
+
+class Spec(tuple):
+    """A partition spec, JAX's ``PartitionSpec`` as a tuple: entry ``i``
+    names the mesh axes that split tensor dimension ``i`` (``None``, an
+    axis name, or a tuple of names, the first the outermost); dimensions
+    past the last entry are whole.  A one-name tuple is stored as the
+    name, as ``PartitionSpec`` stores it, so ``tuple(spec)`` equals
+    ``tuple(PartitionSpec(...))`` for the same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes that split dimension ``dim``, outermost first."""
+        e = self[dim] if dim < len(self) else None
+        return () if e is None else (e,) if isinstance(e, str) else e
+
+
+def placements(spec: Spec, mesh_dim_names) -> list:
+    """``spec`` as ``DTensor`` placements, one per mesh dimension:
+    ``Shard(d)`` where the mesh axis splits tensor dimension ``d``, else
+    ``Replicate()``.  A DTensor shards a dimension over its mesh dims in
+    mesh order, outermost first, so the axes of one entry must come in
+    mesh order."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d in range(len(spec)):
+        axes = spec.axes(d)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"{spec}: the axes {axes} of dimension {d} "
+                             f"are not in the mesh's order {names}")
+        for i in where:
+            out[i] = Shard(d)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """Maps logical activation axes onto mesh axes (the reference's
+    ``ShardingPolicy``, field for field).
+
+    data_axes: mesh axes carrying the batch (e.g. ("pod", "data")).
+    model_axis: mesh axis for tensor / expert parallelism.
+    fsdp_axis: mesh axis over which parameters and optimizer state are
+      sharded; None disables FSDP.
+    enabled=False turns every constraint into a no-op.
+    axis_sizes: the mesh's axis sizes, for the divisibility checks.
+    ep_axis: the MoE expert-parallel axis, "model" or "data".
+    """
+
+    data_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    fsdp_axis: Optional[str] = None
+    enabled: bool = False
+    axis_sizes: Optional[Dict[str, int]] = None
+    ep_axis: str = "model"
+
+    def size(self, axis) -> int:
+        if not self.axis_sizes:
+            return 1
+        if isinstance(axis, tuple):
+            n = 1
+            for a in axis:
+                n *= self.axis_sizes.get(a, 1)
+            return n
+        return self.axis_sizes.get(axis, 1)
+
+    def _maybe(self, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if not self.enabled or not isinstance(x, DTensor):
+            return x
+        mesh = x.device_mesh
+        return x.redistribute(mesh, placements(spec, mesh.mesh_dim_names))
+
+    # logical constraint helpers ------------------------------------------
+    def btd(self, x):            # (batch, seq, d_model)
+        return self._maybe(x, Spec(self.data_axes or None, None, None))
+
+    def btf(self, x):            # (batch, seq, ff/hidden): TP-sharded cols
+        return self._maybe(x, Spec(self.data_axes or None, None,
+                                   self.model_axis))
+
+    def bthd(self, x):           # (batch, seq, heads, head_dim)
+        h = x.shape[2]
+        tp = self.size(self.model_axis)
+        head_ax = self.model_axis if (tp > 1 and h % tp == 0) else None
+        return self._maybe(x, Spec(self.data_axes or None, None, head_ax,
+                                   None))
+
+    def btv(self, x):            # (batch, seq, vocab): logits
+        return self._maybe(x, Spec(self.data_axes or None, None,
+                                   self.model_axis))
+
+    def bt_seq_sharded(self, x):  # sequence parallelism for long KV caches
+        return self._maybe(x, Spec(None, self.data_axes or None, None,
+                                   None))
+
+
+NO_SHARDING = ShardingPolicy()
 
 
 @contextlib.contextmanager

@@ -6,7 +6,9 @@ GShard-style capacity-based top-k routing with a dense dispatch into a
 expert's products run over its C slots, and a combine back to the
 tokens.  qwen2-moe adds *shared* experts (an always-on SwiGLU branch)
 behind a sigmoid gate.  The reference's ``ShardingPolicy`` constraints
-are not carried over: on one card they are the identity.
+are not carried over: on one card they are the identity.  A sharded
+train step runs ``moe_apply`` on its rank's rows and takes the router's
+statistics to the global batch's through ``batch_statistics``.
 
 The numbers are the reference's as XLA's CPU code computes them (read
 from the compiled HLO of ``moe_apply``, alone and inside the LM's layer
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +119,27 @@ def record_routes():
         _ROUTES = outer
 
 
+# The load-balancing loss reads two means over the batch: the router's
+# probabilities and the share of first choices per expert.  The
+# reference's sharded step computes them over the global batch; a sharded
+# step of the port (``launch/sharded.py``) runs ``moe_apply`` on its
+# rank's rows and sets this to a function that takes the rows' means
+# (``me``, ``ce``) to the global batch's.
+_BATCH_STATS: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def batch_statistics(fn: Callable):
+    """Inside, ``moe_apply``'s aux loss reads ``fn(me, ce)`` -> (me, ce)
+    in place of its rows' own means."""
+    global _BATCH_STATS
+    outer, _BATCH_STATS = _BATCH_STATS, fn
+    try:
+        yield
+    finally:
+        _BATCH_STATS = outer
+
+
 _TINY = float(np.finfo(np.float32).tiny)
 
 
@@ -164,6 +187,8 @@ def moe_apply(p: Dict, cfg: MoEConfig, x: torch.Tensor, aux: bool = True
         me = means.mean(probs, (0, 1))
         first = torch.nn.functional.one_hot(expert_idx[..., 0], e).float()
         ce = means.mean(first, (0, 1))
+        if _BATCH_STATS is not None:
+            me, ce = _BATCH_STATS(me, ce)
         aux_loss = torch.sum(me * ce) * float(
             np.float32(e) * np.float32(cfg.router_aux_weight))
     else:

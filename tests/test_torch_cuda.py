@@ -37,7 +37,10 @@ CPU, and a fleet of two pools on the card equal to one server,
 sequential and ``parallel=True``; the LM stack: the reduced servers on the
 card against the CPU, the ``jaxrand`` parameter draw on the card bitwise
 the CPU's, one train step on the card against the CPU, and a training run
-resumed from its checkpoint against the straight run.
+resumed from its checkpoint against the straight run; and the launch code
+on a world-1 NCCL group: the sharded train, prefill and decode steps on a
+1 x 1 mesh bit for bit the plain ones, and the int8 compressed mean on
+NCCL bit for bit the same function on gloo on the CPU.
 
 Every test here needs a CUDA device and skips without one (the CUDA kernel
 has no CPU mode).  This file imports nothing of JAX, so it also runs on a
@@ -2017,3 +2020,116 @@ def test_stream_kws_example_on_the_card(dev, monkeypatch, capsys):
     got = keep(capsys.readouterr().out)
     assert ops.COUNTS.launches > 0 and ops.COUNTS.launches % 5 == 0
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The launch code on the card: a world-1 NCCL group, a 1 x 1 mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world(dev):
+    """A world-1 NCCL process group (``launch.mesh.init_distributed``),
+    destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    M.init_distributed(dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def test_world1_sharded_steps_are_the_plain_steps_on_the_card(dev,
+                                                             nccl_world):
+    """The reduced internvl2-2b on a 1 x 1 mesh: the sharded train step
+    (parameters and Adam's moments as ``DTensor``s) bit for bit the plain
+    step, and the sharded prefill and decode steps bit for bit the plain
+    ones; no collective moves a byte, as the plans say (``chip_smoke.py``
+    phase 18 (a) runs the full width)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+    from repro_torch.launch import analysis, elastic, sharded, steps, train
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh_policy import MeshPolicy
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.optimizers import OptState, tree_leaves
+    cfg = get_config("internvl2-2b").reduced()
+    params = steps.init_params_for(cfg, jaxrand.PRNGKey(0, device="cpu"),
+                                   device=dev, dtype=torch.float32)
+    opt = steps.make_optimizer(cfg)
+    state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                               global_batch=4)
+    batch = train.model_batch(cfg, *batch_at_step(pipe, 0), dev)
+    mesh = M.make_debug_mesh(1, 1, device=dev)
+    policy = MeshPolicy(mesh)
+    specs = policy.param_specs(params)
+    dparams = elastic.reshard_to(mesh, params, specs)
+    dstate = OptState(0, elastic.reshard_to(mesh, state.mu, specs),
+                      elastic.reshard_to(mesh, state.nu, specs))
+    want = steps.make_train_step(cfg, opt)(params, state, batch)
+    with analysis.count_collectives() as coll:
+        got = steps.make_train_step(cfg, opt, policy=policy)(
+            dparams, dstate, batch)
+    for a, b in zip(tree_leaves([got[0], got[1].mu, got[1].nu]),
+                    tree_leaves([want[0], want[1].mu, want[1].nu])):
+        assert torch.equal(_whole(a), b)
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+    assert coll["total"] == 0 == sharded.train_plan(policy, cfg, params,
+                                                    batch)["total"]
+
+    prompt = batch["tokens"][:, :8]
+    frames = batch["frames"]
+    lw, cw = steps.make_prefill_step(cfg)(params, {"tokens": prompt,
+                                                   "frames": frames})
+    lg, cg = steps.make_prefill_step(cfg, policy=policy)(
+        dparams, {"tokens": prompt, "frames": frames})
+    assert torch.equal(lg, lw)
+    assert all(torch.equal(_whole(a), b)
+               for a, b in zip(tree_leaves(cg), tree_leaves(cw)))
+    cache = LM.init_cache(cfg, 4, 16, device=dev)
+    dcache = elastic.reshard_to(mesh, cache, policy.cache_specs(cache))
+    decode = steps.make_decode_step(cfg)
+    sdecode = steps.make_decode_step(cfg, policy=policy)
+    for t in range(8):
+        b = {"tokens": prompt[:, t:t + 1], "index": torch.tensor(t)}
+        lw, cache = decode(params, cache, b)
+        lg, dcache = sdecode(dparams, dcache, b)
+        assert torch.equal(lg, lw)
+    assert all(torch.equal(_whole(a), b)
+               for a, b in zip(tree_leaves(dcache), tree_leaves(cache)))
+
+
+@pytest.mark.parametrize("scale", [1e-2, 1e-13, 127 / 64],
+                         ids=["seeded", "tiny", "pow2_edge"])
+def test_compressed_mean_on_nccl_equals_gloo_on_the_cpu(dev, nccl_world,
+                                                        scale):
+    """``compressed_allreduce_mean`` on the card (NCCL, world 1) against
+    the same function on a gloo group on the CPU, bit for bit: seeded
+    gradients and residuals, gradients near 1e-13 (XLA's scale is no power
+    of two there) and a largest magnitude of 127 / 64 (``127 / max_abs``
+    exactly 64); ``chip_smoke.py`` phase 18 (b) runs the full-width
+    gradient tree."""
+    import torch.distributed as dist
+    from repro_torch.core import grad_compress as gcmp
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn(8, 1000, generator=gen) * scale
+    r = torch.randn(8, 1000, generator=gen) * scale * 1e-2
+    if scale == 127 / 64:
+        g = g.clamp(-1.9, 1.9)
+        g[3, 5] = 127 / 64
+        r = torch.zeros_like(g)
+    cpu_group = dist.new_group(ranks=[0], backend="gloo")
+    try:
+        want = gcmp.compressed_allreduce_mean(g, r, group=cpu_group)
+    finally:
+        dist.destroy_process_group(cpu_group)
+    got = gcmp.compressed_allreduce_mean(g.to(dev), r.to(dev))
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
