@@ -59,6 +59,12 @@ result line):
    its head equal to the offline loop on the card and the CPU.  Then the
    SGA kernels against their plain version at B = 1, 2 and 8 rows of the
    head's 5770 elements, with tie cases, bitwise, with their times; the
+   flat entry (K3) on whole trees, one launch a tree: ragged leaves
+   (1 to 5770 elements, a view at a 4-byte offset) in nested dicts, lists
+   and a namedtuple, the paper net's float parameter tree (27 leaves),
+   a 70-leaf tree (two launches) and one leaf of 2**26 elements, bitwise,
+   a tree on two devices refused; its times at N = 5770, on the 27-leaf
+   tree and at 2**26 beside the plain version's and the bytes bound; the
    fused head training against its plain version at B = 1, 2, 3, 8 rows
    of 10 utterances and at (3, 64), (2, 1), with a softmax tie, bitwise,
    with its time at the path's shape; and the error-scaling exponent on
@@ -317,6 +323,14 @@ on this one in turns, in one chip call, to compare two versions of K1.
 runs phase 5 alone (K5 and K4: checks, planned tiles, times) against the
 port in DIR in the same way, to compare two versions of K5 and K4.
 
+    python3 chip_smoke.py --sga [DIR]
+
+builds the SGA kernels of the port in the checkout DIR (default: this
+one) and runs phase 4's K3 times alone (``k3_tree_times``: N = 5770, the
+paper net's float parameter tree, 2**26) against that port, and prints
+no result line: run it on an unpacked older commit and on this one in
+turns, in one chip call, to compare two versions of K3.
+
     python3 chip_smoke.py --compiled
 
 builds the kernels and runs phase 15 alone (compiled ticks), and prints
@@ -373,6 +387,8 @@ MAV_SOURCE = "src/repro_torch/kernels/imc_mav/csrc/imc_mav.cu"
 MAV_REPLACES = "src/repro/kernels/imc_mav/imc_mav.py:67"
 I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 I8_REPLACES = "src/repro/kernels/int8_matmul/int8_matmul.py:34"
+K3_BIG = 1 << 26                  # the large flat leaf of the K3 rows
+K3_TREE_LEAVES = 70               # a tree over one launch's 64 leaves
 # the third session takes the test mode's read noise (calib_sa_noise_std)
 N_UTTS, EPOCHS, PER_TICK = 10, 200, (10, 7, 10)
 CALIB_NOISE = (0.0, 0.0, 1.0)
@@ -502,8 +518,9 @@ def phase_build(torch):
             "int8_matmul": (i8_ops.SOURCE, i8_ops.library)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
-        for fut in [pool.submit(kernels.build_library, name, [src])
-                    for name, (src, _) in libs.items()]:
+        futs = [pool.submit(kernels.build_library, name, [src])
+                for name, (src, _) in libs.items()]
+        for fut in futs:
             fut.result()
     for _, load in libs.values():
         load()
@@ -997,9 +1014,210 @@ def exact_exponent(k, mode):
     return floor if (mode == "floor" or mant == 0.5) else ex
 
 
+def k3_leaves(torch, gen, dev, sizes, lr):
+    """Leaves of ``sizes`` elements cut from one ``sga_cases`` row (tie
+    cases included), each a fresh allocation: (ws, gs, accs), g_th."""
+    w, g, a, _, th = sga_cases(torch, gen, dev, [lr], sum(sizes))
+    leaves, off = ([], [], []), 0
+    for n in sizes:
+        for out, v in zip(leaves, (w, g, a)):
+            out.append(v[0, off:off + n].clone())
+        off += n
+    return leaves, float(th[0])
+
+
+def k3_check(torch, tree_w, tree_g, tree_a, lr, g_th, launches, what):
+    """The flat entry on one tree against the plain version leaf by leaf,
+    bitwise, in ``launches`` launches; returns the largest difference."""
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.kernels.sga_update.ref import sga_update_ref
+    sga_ops.COUNTS_FLAT.reset()
+    got_w, got_a = sga_ops.sga_update_tree(tree_w, tree_g, tree_a, lr, g_th)
+    n_launch = sga_ops.COUNTS_FLAT.launches
+    flat = [sga_ops._flatten(t)[0] for t in (tree_w, tree_g, tree_a,
+                                              got_w, got_a)]
+    err = 0.0
+    for w, g, a, nw, na in zip(*flat):
+        pw, pa = sga_update_ref(
+            w, g, a, torch.tensor(lr, dtype=torch.float32, device=w.device),
+            torch.tensor(g_th, dtype=torch.float32, device=w.device))
+        for x, y in ((nw, pw), (na, pa)):
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"sga_update {what}: a leaf of "
+                                     f"{w.numel()} differs from the plain "
+                                     f"version")
+            if x.numel():
+                err = max(err, float((x - y).abs().max()))
+    if n_launch != launches:
+        raise AssertionError(f"sga_update {what}: {n_launch} launches, "
+                             f"expected {launches}")
+    return err
+
+
+def k3_tree_checks(torch, gen, dev):
+    """The flat entry on whole trees, bitwise, one launch a tree (two for
+    ``K3_TREE_LEAVES``); a tree on two devices refused.  Returns the
+    largest difference and the paper net's float parameter tree's leaf
+    sizes."""
+    import collections
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    Pair = collections.namedtuple("Pair", "w b")
+    lr = 1 / 16
+    # ragged leaves in nested dicts, lists and a namedtuple; the last a
+    # view at a 4-byte offset
+    (ws, gs, accs), th = k3_leaves(torch, gen, dev, (1, 3, 1023, 1025, 5770,
+                                                     4096, 4097, 5771), lr)
+    for v in (ws, gs, accs):
+        v[-1] = v[-1][1:]
+
+    def ragged(v):
+        return {"fc": Pair(v[0], v[1]), "convs": [v[2], {"x": v[3]},
+                                                 (v[4], v[5])],
+                "z": v[6].reshape(17, 241), "view": v[7]}
+    err = k3_check(torch, ragged(ws), ragged(gs), ragged(accs), lr, th, 1,
+                   "ragged tree")
+    # the paper net's float parameter tree
+    params = kws.init_params(jaxrand.PRNGKey(0, device=dev), kws.PAPER_KWS,
+                             device=dev)
+    leaves, rebuild = sga_ops._flatten(params)
+    (ws, gs, accs), th = k3_leaves(torch, gen, dev,
+                                   [v.numel() for v in leaves], 0.05)
+    shaped = lambda vs: rebuild([v.reshape(p.shape)
+                                 for v, p in zip(vs, leaves)])
+    err = max(err, k3_check(torch, shaped(ws), shaped(gs), shaped(accs),
+                            0.05, th, 1, f"paper tree ({len(leaves)} "
+                            f"leaves)"))
+    # over one launch's leaves: two launches
+    (ws, gs, accs), th = k3_leaves(
+        torch, gen, dev, [37 * i + 1 for i in range(K3_TREE_LEAVES)], 1 / 128)
+    err = max(err, k3_check(torch, ws, gs, accs, 1 / 128, th, 2,
+                            f"{K3_TREE_LEAVES}-leaf tree"))
+    # one large leaf
+    w, g, a, lr_t, th_t = sga_cases(torch, gen, dev, [0.05], K3_BIG)
+    err = max(err, k3_check(torch, [w[0]], [g[0]], [a[0]], 0.05,
+                            float(th_t[0]), 1, f"leaf of {K3_BIG}"))
+    del w, g, a
+    try:
+        sga_ops.sga_update_tree({"a": ws[0], "b": ws[1].cpu()},
+                                {"a": gs[0], "b": gs[1].cpu()},
+                                {"a": accs[0], "b": accs[1].cpu()}, 1 / 128,
+                                th)
+    except ValueError as e:
+        if "more than one device" not in str(e):
+            raise
+    else:
+        raise AssertionError("sga_update_tree took a tree on two devices")
+    log(f"[sga] sga_update (K3) bitwise equal to the plain version on a "
+        f"ragged tree (1-5770 elements, a view at a 4-byte offset), the "
+        f"paper net's {len(leaves)}-leaf tree and a leaf of {K3_BIG}, one "
+        f"launch each, and on {K3_TREE_LEAVES} leaves in two; a tree on two "
+        f"devices refused")
+    return err, [v.numel() for v in leaves]
+
+
+def k3_device_ms(torch, kern, plain, iters=10):
+    """Device milliseconds per call of K3 (every activity named ``sga_``:
+    ``sga_tree_kernel``, or an older port's ``sga_update_kernel``) and of
+    the plain version (every other device activity), from one profiled run
+    of ``iters`` calls of each (a profiler session costs more host time
+    than these calls); Nones when the profiler did not record both."""
+    from torch.profiler import ProfilerActivity, profile
+    kern()
+    plain()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kern()
+            plain()
+        torch.cuda.synchronize()
+    total, rows = device_time(torch, prof)
+    k = sum(us for name, (us, _) in rows.items() if "sga_" in name)
+    if k <= 0 or total - k <= 0:
+        return None, None
+    return k / iters / 1e3, (total - k) / iters / 1e3
+
+
+def held_ms(prof_ms, call_ms, bound):
+    """A profiled device time where it is at least ``bound``, the least
+    time the card can take; else (no record, or a reading under the bound,
+    which no run can reach) the CUDA events' time per call."""
+    return prof_ms if prof_ms is not None and prof_ms >= bound else call_ms
+
+
+def paper_leaf_sizes(torch, dev):
+    """Element counts of the paper net's float parameter tree's leaves."""
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.models import kws
+    params = kws.init_params(jaxrand.PRNGKey(0, device=dev), kws.PAPER_KWS,
+                             device=dev)
+    return [v.numel() for v in sga_ops._flatten(params)[0]]
+
+
+def k3_tree_times(torch, gen, dev, paper, max_err):
+    """K3's times at N = 5770, on the paper net's float parameter tree
+    (leaf sizes ``paper``) and at ``K3_BIG``, through ``sga_update_tree``
+    of the port under test (one launch a tree; one a leaf in a port from
+    before the tree entry, ``--sga DIR``): the kernel's and the plain
+    version's device times from one profiled run of the two
+    (``k3_device_ms``) and their CUDA-event times per call, and the
+    launches a call.  The time reported is the profiled one held to the
+    bytes bound (``held_ms``: w, g, a in; w, a out: 20 bytes an element),
+    but at ``K3_BIG`` the events' time: there a call's launch gap is
+    microseconds against ~0.45 ms, and profiled sessions have read from
+    0.87 to 1.27 times the bound's rate.  Returns the K3 row, N = 5770's
+    figures at its top."""
+    from repro_torch.kernels.sga_update import ops as sga_ops
+    from repro_torch.kernels.sga_update.ref import sga_update_ref
+    out = {}
+    for label, sizes, lr in (("n5770", [576 * 10 + 10], 1 / 16),
+                             ("paper_tree", paper, 0.05),
+                             ("big", [K3_BIG], 0.05)):
+        (ws, gs, accs), th = k3_leaves(torch, gen, dev, sizes, lr)
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+        th_t = torch.tensor(th, dtype=torch.float32, device=dev)
+        kern = lambda: sga_ops.sga_update_tree(ws, gs, accs, lr, th)
+        plain = lambda: [sga_update_ref(w, g, a, lr_t, th_t)
+                         for w, g, a in zip(ws, gs, accs)]
+        sga_ops.COUNTS_FLAT.reset()
+        kern()
+        launches = sga_ops.COUNTS_FLAT.launches
+        k_call = cuda_ms(torch, kern, reps=5)
+        p_call = cuda_ms(torch, plain, reps=3, iters=3)
+        k_dev, p_dev = k3_device_ms(torch, kern, plain)
+        n = sum(sizes)
+        t_bytes, t_ops = 20 * n / H100_BYTES_PER_S * 1e3, \
+            12 * n / H100_FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        out[label] = dict(
+            leaves=len(sizes), N=n, launches=launches,
+            ms=k_call if label == "big" else held_ms(k_dev, k_call, bound),
+            plain_ms=p_call if label == "big"
+            else held_ms(p_dev, p_call, bound), device_ms=k_dev,
+            plain_device_ms=p_dev, call_ms=k_call, plain_call_ms=p_call,
+            bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r = out[label]
+        log(f"[sga] sga_update {label} ({len(sizes)} leaves, N={n}): "
+            f"device time kernel {k_dev} ms ({launches} launch(es)), plain "
+            f"{p_dev} ms; per call (CUDA events) kernel {k_call:.5f} ms, "
+            f"plain {p_call:.4f} ms; bound {bound:.6f} ms "
+            f"({r['bound_by']}); held {r['ms']:.5f} ms, at "
+            f"{bound / r['ms']:.3f} of the bound")
+        del ws, gs, accs
+    row = dict(out["n5770"])
+    row.update(max_abs_err=max_err, B=1,
+               trees={k: v for k, v in out.items() if k != "n5770"})
+    return row
+
+
 def phase_sga_kernels(torch, dev):
     """K2 / K3 against the plain version on the card, bitwise, at B = 1,
-    2, 8 rows of the head's width; times at B = 2.  The fused head
+    2, 8 rows of the head's width; K2's times at B = 2.  K3 on whole trees
+    (``k3_tree_checks``) and its times (``k3_tree_times``).  The fused head
     training against its plain version at B = 1, 2, 3, 8 rows of N = 10
     utterances, at (3, 64) and (2, 1), fixed and dynamic error scaling;
     times at the customization path's B = 3, N = 10, budgets 10, 7, 10.
@@ -1008,6 +1226,7 @@ def phase_sga_kernels(torch, dev):
     from repro_torch.kernels.sga_update import ops as sga_ops
     from repro_torch.kernels.sga_update.ref import sga_update_ref
 
+    t_phase = time.perf_counter()
     n = 576 * 10 + 10
     gen = torch.Generator(device=dev).manual_seed(4321)
     max_err = {"sga_update_rows": 0.0, "sga_update": 0.0}
@@ -1038,16 +1257,16 @@ def phase_sga_kernels(torch, dev):
                         f"the plain version")
     log(f"[sga] sga_update_rows and sga_update bitwise equal to the plain "
         f"version at B = 1, 2, 8 x {n} (tie cases included)")
+    t0 = time.perf_counter()
+    k3_err, paper = k3_tree_checks(torch, gen, dev)
+    max_err["sga_update"] = max(max_err["sga_update"], k3_err)
+    k3_s = time.perf_counter() - t0
 
     w, g, a, lr, g_th = sga_cases(torch, gen, dev, [1 / 16, 0.05], n)
     rows = {}
     kernel2 = lambda: sga_ops.sga_update_rows(w, g, a, lr, g_th)
     plain2 = lambda: sga_update_ref(w, g, a, lr[:, None], g_th[:, None])
-    lr0, th0 = float(lr[0]), float(g_th[0])
-    kernel3 = lambda: sga_ops.sga_update_flat(w[0], g[0], a[0], lr0, th0)
-    plain3 = lambda: sga_update_ref(w[0], g[0], a[0], lr[0], g_th[0])
-    for name, kern, plain, b in (("sga_update_rows", kernel2, plain2, 2),
-                                 ("sga_update", kernel3, plain3, 1)):
+    for name, kern, plain, b in (("sga_update_rows", kernel2, plain2, 2),):
         k_call, p_call = cuda_ms(torch, kern), cuda_ms(torch, plain)
         k_dev, p_dev = device_ms(torch, kern), device_ms(torch, plain)
         nbytes = 20 * b * n + (8 * b if b > 1 else 0)   # w,g,a in; w,a out
@@ -1065,6 +1284,11 @@ def phase_sga_kernels(torch, dev):
             f"plain {p_dev} ms; per call (CUDA events) kernel "
             f"{k_call:.4f} ms, plain {p_call:.4f} ms; bound "
             f"{rows[name]['bound_ms']:.6f} ms ({rows[name]['bound_by']})")
+    t0 = time.perf_counter()
+    rows["sga_update"] = k3_tree_times(torch, gen, dev, paper,
+                                       max_err["sga_update"])
+    k3_s += time.perf_counter() - t0
+    log(f"[sga] the K3 tree checks and times took {k3_s:.1f} s")
 
     # the fused head training against its plain version
     from repro_torch.core import onchip_training as ot
@@ -1155,6 +1379,8 @@ def phase_sga_kernels(torch, dev):
     log("[sga] error-scale exponent on the card equals the exact one on "
         "all 257 values k/256, ceil and floor, through torch and through "
         "head_train_rows' own arithmetic")
+    log(f"[sga] the SGA kernel checks and times took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -5643,6 +5869,10 @@ def main() -> int:
                     metavar="DIR", help="run phase 5 alone (K5, K4), "
                     "against the port in the checkout DIR (default: this "
                     "one)")
+    ap.add_argument("--sga", nargs="?", const=ROOT, default=None,
+                    metavar="DIR", help="build the SGA kernels and run "
+                    "phase 4's K3 times alone, against the port in the "
+                    "checkout DIR (default: this one)")
     ap.add_argument("--compiled", action="store_true",
                     help="build the kernels and run phase 15 alone")
     ap.add_argument("--examples", action="store_true",
@@ -5653,10 +5883,11 @@ def main() -> int:
                     help="build the kernels and run phase 18 alone")
     args = ap.parse_args()
     if sum((args.layers is not None, args.tiles is not None,
-            args.compiled, args.examples, args.train, args.launch)) > 1:
-        ap.error("--layers, --tiles, --compiled, --examples, --train and "
-                 "--launch are separate runs")
-    root = os.path.abspath(args.layers or args.tiles or ROOT)
+            args.sga is not None, args.compiled, args.examples, args.train,
+            args.launch)) > 1:
+        ap.error("--layers, --tiles, --sga, --compiled, --examples, --train "
+                 "and --launch are separate runs")
+    root = os.path.abspath(args.layers or args.tiles or args.sga or ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
@@ -5684,6 +5915,17 @@ def main() -> int:
         mav, i8 = phase_mav_kernels(torch, dev)
         print(json.dumps({"card": smi, "root": root, "imc_mav": mav,
                           "int8_matmul": i8}), flush=True)
+        return 0
+    if args.sga is not None:
+        from repro_torch.kernels.sga_update import ops as sga_ops
+        log(f"[sga] the port at {root}")
+        sga_ops.library()
+        smi = card()
+        gen = torch.Generator(device=dev).manual_seed(4321)
+        k3 = k3_tree_times(torch, gen, dev, paper_leaf_sizes(torch, dev),
+                           None)
+        print(json.dumps({"card": smi, "root": root, "sga_update": k3}),
+              flush=True)
         return 0
     if args.compiled:
         smi = phase_build(torch)
@@ -5912,6 +6154,14 @@ def main() -> int:
         f"{r2['ms']:.5f} ms, plain {r2['plain_ms']:.5f} ms, bound "
         f"{r2['bound_ms']:.6f} ms (device time); {rgp['launches_rows']} "
         f"launches in the RGP session ({rgp['epochs']} epochs)")
+    k3 = sga["sga_update"]
+    log(f"[summary] {smi}: sga_update (K3) " + "; ".join(
+        f"{label} ({t['leaves']} leaves, N={t['N']}): kernel {t['ms']:.5f} "
+        f"ms in {t['launches']} launch(es), plain {t['plain_ms']:.5f} ms, "
+        f"bound {t['bound_ms']:.6f} ms"
+        for label, t in [("n5770", k3), *k3["trees"].items()])
+        + " (device time; CUDA events at 2**26 and where the profile read "
+        "under the bound)")
     ht = sga["head_train_rows"]
     log(f"[summary] {smi}: head_train_rows B=3 x N=10, budgets "
         f"{list(PER_TICK)}: kernel {ht['ms']:.5f} ms, plain "

@@ -30,6 +30,10 @@ E_CTRL_CYCLE = 12.0e-12        # IMC controller + FSM, per cycle
 E_LUT_LOOKUP = 0.8e-12         # exp LUT access (training)
 E_DIV8 = 1.6e-12               # 8-bit divider op (training)
 
+AREA_MM2 = 1.0
+AREA_FRAC = {"imc_macros": 0.70, "digital": 0.19, "buffers": 0.11}
+TRAIN_AREA_FRAC = 0.05         # +9187 gates
+
 
 @dataclasses.dataclass
 class LayerEnergy:

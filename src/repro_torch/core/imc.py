@@ -106,6 +106,9 @@ def map_bias(bias: torch.Tensor, method: str = "best",
     return torch.clamp(q, -macro.bias_range, macro.bias_range)
 
 
+BIAS_MAPPING_METHODS = ("add", "sub", "abs_add", "abs_sub", "best")
+
+
 def mav_sa(counts: torch.Tensor, bias_int: torch.Tensor, flip: torch.Tensor,
            mav_offset: Optional[torch.Tensor] = None,
            sa_key: Optional[torch.Tensor] = None,

@@ -24,18 +24,33 @@
 //
 // What bounds it on an H100: it reads w, g and a and writes w and a, 20
 // bytes per element, and does a dozen operations on them: far below the
-// ridge, so the floor is the bytes at 3.35 TB/s.  One thread per element
-// with coalesced float loads reaches that floor at large N; at the
-// customization path's shape (B sessions x 5770 head elements, ~0.2 MB)
-// the launch latency sets its time, which no layout can change.  So the
-// customization path runs the whole epoch around it, and all of a tick's
-// epochs, in one launch of a third entry, `head_train_rows` (below); the
-// per-epoch row entry stays for sessions that draw RGP noise or lie
-// outside that entry's exactness bound.
+// ridge, so the floor is the bytes at 3.35 TB/s, and below a few hundred
+// thousand elements the launch latency (~1 us).  The row entry (K2) runs one
+// thread per element over a (ceil(n / 256), rows) grid with a plain tail
+// guard: at the customization path's shape (B sessions x 5770 head
+// elements, ~0.2 MB) the launch latency sets its time, which no layout can
+// change.  So the customization path runs the whole epoch around it, and
+// all of a tick's epochs, in one launch of a third entry,
+// `head_train_rows` (below); the per-epoch row entry stays for sessions
+// that draw RGP noise or lie outside that entry's exactness bound.
 //
-// Layouts (all fp32, contiguous): w, g, a, wo, ao (rows, n); the
-// row-batched entry takes lr and g_th as (rows,) device arrays, the flat
-// entry as scalars.  Grid: (ceil(n / 256), rows), a plain tail guard.
+// The flat entry (K3) updates a whole parameter tree in one launch, so the
+// launch floor is paid once a tree, not once a leaf.  Its parameter block
+// (`TreeParams`, passed by value as a __grid_constant__) holds up to
+// kTreeLeaves leaf descriptors (w, g, a, wo, ao and n) and the prefix of
+// their block counts; each block finds its leaf by a binary search of that
+// prefix, and each thread updates one element of it.  The leaves stay
+// where they are: a concatenated copy would triple the bytes.  A larger
+// tree takes ceil(leaves / kTreeLeaves) launches (the wrapper splits it).
+// One float a thread already streams a large leaf at 0.85-0.87 of the
+// bytes bound (2**26 elements on an H100); four float4s a thread, tried
+// on aligned leaves, measured no faster there and 1.4-3x slower on small
+// trees, where the time is one thread's chain of two dependent IEEE
+// divisions over a few blocks.  Both entries compute `sga_element`.
+//
+// Layouts (all fp32, contiguous): the row entry w, g, a, wo, ao (rows, n),
+// lr and g_th (rows,) device arrays; the flat entry one (n,) vector per
+// leaf, lr and g_th scalars.
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -64,31 +79,54 @@ __global__ void __launch_bounds__(kThreads)
 sga_update_kernel(const float* __restrict__ w, const float* __restrict__ g,
                   const float* __restrict__ a,
                   const float* __restrict__ lr_rows,
-                  const float* __restrict__ th_rows, float lr, float g_th,
-                  float w_scale, float lo, float hi, float a_scale,
-                  float* __restrict__ wo, float* __restrict__ ao, int n) {
+                  const float* __restrict__ th_rows, float w_scale,
+                  float lo, float hi, float a_scale, float* __restrict__ wo,
+                  float* __restrict__ ao, int n) {
   const int row = blockIdx.y;
   const int col = blockIdx.x * kThreads + threadIdx.x;
   if (col >= n) return;
-  if (lr_rows != nullptr) {
-    lr = lr_rows[row];
-    g_th = th_rows[row];
-  }
   const size_t i = (size_t)row * n + col;
-  sga_element(w[i], g[i], a[i], lr, g_th, w_scale, lo, hi, a_scale, wo + i,
-              ao + i);
+  sga_element(w[i], g[i], a[i], lr_rows[row], th_rows[row], w_scale, lo, hi,
+              a_scale, wo + i, ao + i);
 }
 
-int launch(const float* w, const float* g, const float* a,
-           const float* lr_rows, const float* th_rows, float lr, float g_th,
-           float* wo, float* ao, int rows, int n, float w_scale, float lo,
-           float hi, float a_scale, void* stream) {
-  if (rows <= 0 || n <= 0) return (int)cudaSuccess;
-  const dim3 grid((n + kThreads - 1) / kThreads, rows);
-  sga_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      w, g, a, lr_rows, th_rows, lr, g_th, w_scale, lo, hi, a_scale, wo, ao,
-      n);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// The flat entry: every leaf of a tree in one launch.
+
+constexpr int kTreeLeaves = 64;                 // leaves in one launch
+
+struct TreeLeaf {
+  const float* w;
+  const float* g;
+  const float* a;
+  float* wo;
+  float* ao;
+  long long n;
+};
+
+// 64 x 48 + 65 x 4 + 28 = 3360 bytes, inside the 4 KB of a kernel's
+// classic parameter space.
+struct TreeParams {
+  TreeLeaf leaf[kTreeLeaves];
+  int first_block[kTreeLeaves + 1];             // prefix of block counts
+  int n_leaves;
+  float lr, g_th, w_scale, lo, hi, a_scale;
+};
+
+__global__ void __launch_bounds__(kThreads)
+sga_tree_kernel(const __grid_constant__ TreeParams P) {
+  const int b = blockIdx.x;
+  int l = 0, r = P.n_leaves - 1;          // the last leaf that starts at or
+  while (l < r) {                         // before block b
+    const int mid = (l + r + 1) >> 1;
+    if (P.first_block[mid] <= b) l = mid; else r = mid - 1;
+  }
+  const TreeLeaf& L = P.leaf[l];
+  const long long i =
+      (long long)(b - P.first_block[l]) * kThreads + threadIdx.x;
+  if (i < L.n)
+    sga_element(L.w[i], L.g[i], L.a[i], P.lr, P.g_th, P.w_scale, P.lo, P.hi,
+                P.a_scale, L.wo + i, L.ao + i);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,18 +417,52 @@ int sga_update_rows_launch(const float* w, const float* g, const float* a,
                            const float* lr, const float* g_th, float* wo,
                            float* ao, int rows, int n, float w_scale,
                            float lo, float hi, float a_scale, void* stream) {
-  return launch(w, g, a, lr, g_th, 0.0f, 0.0f, wo, ao, rows, n, w_scale, lo,
-                hi, a_scale, stream);
+  if (rows <= 0 || n <= 0) return (int)cudaSuccess;
+  const dim3 grid((n + kThreads - 1) / kThreads, rows);
+  sga_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      w, g, a, lr, g_th, w_scale, lo, hi, a_scale, wo, ao, n);
+  return (int)cudaGetLastError();
 }
 
-// K3: one flat state of `n` elements with scalar learning rate and
-// threshold.  Returns cudaGetLastError().
-int sga_update_launch(const float* w, const float* g, const float* a,
-                      float lr, float g_th, float* wo, float* ao, int n,
-                      float w_scale, float lo, float hi, float a_scale,
-                      void* stream) {
-  return launch(w, g, a, nullptr, nullptr, lr, g_th, wo, ao, 1, n, w_scale,
-                lo, hi, a_scale, stream);
+// K3's leaf descriptor as the caller passes it (TreeLeaf).
+struct TreeLeafArg {
+  const float* w;
+  const float* g;
+  const float* a;
+  float* wo;
+  float* ao;
+  long long n;
+};
+
+// Leaves one launch of the flat entry takes.
+int sga_update_tree_max_leaves() { return kTreeLeaves; }
+
+// K3: `n_leaves` <= kTreeLeaves flat states, one scalar learning rate and
+// threshold, in one launch.  Returns cudaGetLastError() (nothing launched
+// when every leaf is empty), or cudaErrorInvalidValue for too many leaves
+// or blocks.
+int sga_update_tree_launch(const TreeLeafArg* leaves, int n_leaves, float lr,
+                           float g_th, float w_scale, float lo, float hi,
+                           float a_scale, void* stream) {
+  if (n_leaves <= 0) return (int)cudaSuccess;
+  if (n_leaves > kTreeLeaves) return (int)cudaErrorInvalidValue;
+  TreeParams P;
+  long long blocks = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    const TreeLeafArg& s = leaves[i];
+    if (s.n < 0) return (int)cudaErrorInvalidValue;
+    P.leaf[i] = TreeLeaf{s.w, s.g, s.a, s.wo, s.ao, s.n};
+    P.first_block[i] = (int)blocks;
+    blocks += (s.n + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  }
+  P.first_block[n_leaves] = (int)blocks;
+  if (blocks == 0) return (int)cudaSuccess;
+  P.n_leaves = n_leaves;
+  P.lr = lr, P.g_th = g_th, P.w_scale = w_scale, P.lo = lo, P.hi = hi;
+  P.a_scale = a_scale;
+  sga_tree_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
 }
 
 // error_exponent of n values m (>= 0) into s, on `stream`; mode 1 ceil,

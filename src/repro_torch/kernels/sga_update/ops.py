@@ -4,9 +4,11 @@ flat) and a training tick's whole head-training budget in one launch.
 Port of ``repro/kernels/sga_update/ops.py``: ``sga_update_batch`` stacks
 every enrollment session's flattened optimizer state into one row each and
 transitions them all in ONE launch, each row with its own learning rate
-and threshold; ``sga_update_tree`` applies the same update leaf by leaf
-with scalar operands.  Unlike the TPU kernels there is no padding of N to
-a block: the kernel guards its ragged tail.
+and threshold; ``sga_update_tree`` applies the same update to every leaf
+of a parameter tree with scalar operands, in one launch per tree (up to
+``TREE_MAX_LEAVES`` leaves a launch), the leaves read where they lie.
+Unlike the TPU kernels there is no padding of N to a block: the kernels
+guard their ragged tails.
 
 ``head_train_batch`` runs, for every session row, its own budget of
 epochs of the quantized head loop (forward, LUT softmax, error scaling,
@@ -43,8 +45,17 @@ COUNTS_HEAD = kernels.LaunchCount()      # head_train_rows
 # shared memory a block of an H100 may have
 HEAD_MAX_ROWS = 48
 HEAD_SMEM_BYTES = 232448
+# leaves one launch of the flat entry takes (kTreeLeaves in the source)
+TREE_MAX_LEAVES = 64
 
 W_SCALE, W_MAX, A_SCALE = 1.0 / 128, 127.0 / 128, 2.0 ** -15
+
+
+class _TreeLeaf(ctypes.Structure):
+    """``TreeLeafArg`` of the source: one leaf of a flat-entry launch."""
+    _fields_ = [("w", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("a", ctypes.c_void_p), ("wo", ctypes.c_void_p),
+                ("ao", ctypes.c_void_p), ("n", ctypes.c_longlong)]
 
 
 class _HeadRow(ctypes.Structure):
@@ -70,9 +81,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sga_update_rows_launch.argtypes = ([p] * 7 + [i, i] + [f] * 4
                                            + [p])
     lib.sga_update_rows_launch.restype = i
-    lib.sga_update_launch.argtypes = [p] * 3 + [f, f] + [p, p, i] \
-        + [f] * 4 + [p]
-    lib.sga_update_launch.restype = i
+    lib.sga_update_tree_launch.argtypes = [p, i] + [f] * 6 + [p]
+    lib.sga_update_tree_launch.restype = i
+    lib.sga_update_tree_max_leaves.argtypes = []
+    lib.sga_update_tree_max_leaves.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -132,24 +144,62 @@ def sga_update_flat(w: torch.Tensor, g: torch.Tensor, accum: torch.Tensor,
                     w_max: float = W_MAX, a_scale: float = A_SCALE
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 on flat CUDA tensors (N,) with scalar ``lr``/``g_th``
-    (rounded to float32, as the reference's static scalars are)."""
-    dev = w.device
-    (n,) = w.shape
-    w = _state("w", w, (n,), dev)
-    g = _state("g", g, (n,), dev)
-    accum = _state("accum", accum, (n,), dev)
-    new_w, new_a = torch.empty_like(w), torch.empty_like(accum)
+    (rounded to float32, as the reference's static scalars are): a tree of
+    one leaf."""
+    if w.dim() != 1:
+        raise ValueError(f"sga_update: w must be flat (N,), got shape "
+                         f"{tuple(w.shape)}")
+    (new_w,), (new_a,) = _tree_launch([w], [g], [accum], lr, g_th,
+                                      w_scale, w_max, a_scale)
+    return new_w, new_a
+
+
+def _tree_launch(ws, gs, accs, lr, g_th, w_scale, w_max, a_scale):
+    """K3 on the leaves of one CUDA device: one launch per
+    ``TREE_MAX_LEAVES`` non-empty leaves, each leaf read where it lies
+    (copied only if it is not contiguous).  The outputs of all leaves are
+    views of one allocation; returns the flat (new_w, new_accum) lists."""
+    dev = ws[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"sga_update: no kernel for {dev}")
+    ptrs, sizes, keep, total = [], [], [], 0
+    for w, g, a in zip(ws, gs, accs):
+        n = w.numel()
+        row = []
+        for name, v in (("w", w), ("g", g), ("accum", a)):
+            if v.device != dev:
+                raise ValueError(f"sga_update_tree: the tree's leaves lie "
+                                 f"on more than one device: {dev} and "
+                                 f"{v.device}")
+            if v.dtype != torch.float32 or v.numel() != n:
+                raise ValueError(f"sga_update: {name} must be float32 of "
+                                 f"{n} elements, got {v.dtype} of "
+                                 f"{v.numel()}")
+            if not v.is_contiguous():
+                v = v.contiguous()
+                keep.append(v)          # alive until it is launched on
+            row.append(v.data_ptr())
+        ptrs.append((row, total))
+        sizes.append(n)
+        total += n
+    out = torch.empty(2 * total, dtype=torch.float32, device=dev)
+    base_w, base_a = out.data_ptr(), out.data_ptr() + 4 * total
+    args = [(*row, base_w + 4 * off, base_a + 4 * off, n)
+            for (row, off), n in zip(ptrs, sizes) if n]
     lo, hi = _bounds(w_scale, w_max)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.sga_update_launch(
-            w.data_ptr(), g.data_ptr(), accum.data_ptr(), float(lr),
-            float(g_th), new_w.data_ptr(), new_a.data_ptr(), n, w_scale, lo,
-            hi, a_scale, stream)
-    kernels.check_launch(lib, "sga_update", status)
-    COUNTS_FLAT.add()
-    return new_w, new_a
+        for first in range(0, len(args), TREE_MAX_LEAVES):
+            chunk = args[first:first + TREE_MAX_LEAVES]
+            table = (_TreeLeaf * len(chunk))(*[_TreeLeaf(*a) for a in chunk])
+            status = lib.sga_update_tree_launch(
+                ctypes.addressof(table), len(chunk), float(lr), float(g_th),
+                w_scale, lo, hi, a_scale, stream)
+            kernels.check_launch(lib, "sga_update", status)
+            COUNTS_FLAT.add()
+    views = torch.split_with_sizes(out, sizes + sizes)     # one call
+    return list(views[:len(sizes)]), list(views[len(sizes):])
 
 
 def sga_update_batch(w: torch.Tensor, g: torch.Tensor, accum: torch.Tensor,
@@ -202,29 +252,41 @@ def _flatten(tree):
 
 
 def sga_update_tree(params, grads, accums, lr: float, g_th: float):
-    """Apply the fused update leaf by leaf (shapes preserved): one K3
-    launch per CUDA leaf, the plain version for CPU leaves.  Returns
-    (new_params, new_accums)."""
+    """Apply the fused update to every leaf (shapes preserved): one K3
+    launch for a tree of CUDA leaves (one per ``TREE_MAX_LEAVES`` leaves),
+    the plain version for a tree of CPU leaves; a tree on more than one
+    device raises.  Returns (new_params, new_accums)."""
     leaves_w, rebuild = _flatten(params)
     leaves_g, _ = _flatten(grads)
     leaves_a, _ = _flatten(accums)
     if not len(leaves_w) == len(leaves_g) == len(leaves_a):
         raise ValueError("sga_update_tree: params, grads and accums differ "
                          "in structure")
-    new_w, new_a = [], []
-    for w, g, a in zip(leaves_w, leaves_g, leaves_a):
-        shape = w.shape
-        if w.device.type == "cuda":
-            nw, na = sga_update_flat(w.reshape(-1), g.reshape(-1),
-                                     a.reshape(-1), lr, g_th)
-        elif w.device.type == "cpu":
-            nw, na = sga_update_ref(
-                w, g, a, torch.tensor(lr, dtype=torch.float32),
-                torch.tensor(g_th, dtype=torch.float32))
-        else:
-            raise ValueError(f"sga_update_tree: no kernel for {w.device}")
-        new_w.append(nw.reshape(shape))
-        new_a.append(na.reshape(shape))
+    if not leaves_w:
+        return rebuild([]), rebuild([])
+    dev = leaves_w[0].device
+    if dev.type == "cuda":
+        new_w, new_a = _tree_launch(leaves_w, leaves_g, leaves_a, lr, g_th,
+                                    W_SCALE, W_MAX, A_SCALE)
+        for i, w in enumerate(leaves_w):
+            if w.dim() != 1:
+                new_w[i], new_a[i] = new_w[i].view(w.shape), \
+                    new_a[i].view(w.shape)
+    elif dev.type == "cpu":
+        devices = {v.device for v in (*leaves_w, *leaves_g, *leaves_a)}
+        if len(devices) > 1:
+            raise ValueError(f"sga_update_tree: the tree's leaves lie on "
+                             f"more than one device: "
+                             f"{sorted(map(str, devices))}")
+        lr_t = torch.tensor(lr, dtype=torch.float32)
+        th_t = torch.tensor(g_th, dtype=torch.float32)
+        new_w, new_a = [], []
+        for w, g, a in zip(leaves_w, leaves_g, leaves_a):
+            nw, na = sga_update_ref(w, g, a, lr_t, th_t)
+            new_w.append(nw.reshape(w.shape))
+            new_a.append(na.reshape(w.shape))
+    else:
+        raise ValueError(f"sga_update_tree: no kernel for {dev}")
     return rebuild(new_w), rebuild(new_a)
 
 

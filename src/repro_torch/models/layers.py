@@ -246,30 +246,56 @@ def layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def rope_freqs(head_dim: int, theta: float = 1e4,
                device=None) -> torch.Tensor:
-    """``1 / theta ** (2i / head_dim)`` for i < head_dim / 2, float32."""
+    """``1 / theta ** (2i / head_dim)`` for i < head_dim / 2, float32, as
+    XLA computes the reference's: its simplifier rewrites ``1 / pow(theta,
+    x)`` into ``pow(theta, -x)``, one correctly rounded power (a quotient
+    of the rounded power parts from it in 4 of 16 frequencies at head_dim
+    32: ``tests/_encdec_sweep.py --rope``).  The power is taken in float64
+    and rounded once, the same bits on every host and on the card."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(float(theta), exps)
+    return torch.pow(float(theta), -exps.double()).float()
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) of (B, S, 1, hd/2) for positions (B, S) or (S,): what
-    a rotation multiplies by (``lm.decode_step`` makes them once for every
-    layer of a step)."""
+    """What ``_rotate`` multiplies by, for positions (B, S) or (S,)
+    (``lm.decode_step`` makes them once for every layer of a step): the
+    float64 (B, S, 1, 2, hd/2) table of [cos, sin] and the float32 one of
+    [-sin, cos].  The angles are the reference's float32 products; their
+    cosines and sines are taken in float64 and rounded once to float32, so
+    each is the correctly rounded float32 value on every host and on the
+    card.  XLA's CPU code calls the C library's ``cosf`` / ``sinf``
+    (glibc's: 1.5% of cosines and 1.3% of sines of random angles in [-100,
+    100] are not correctly rounded; ``tests/_encdec_sweep.py --rope``):
+    where it parts from the rounded value, so does the port, by one
+    float32 ulp of a table entry."""
     freqs = rope_freqs(head_dim, theta, device=positions.device)
     if positions.dim() == 1:
         positions = positions[None, :]
-    ang = positions[..., None].float() * freqs            # (B, S, hd/2)
-    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    ang = (positions[..., None].float() * freqs).double()   # (B, S, hd/2)
+    cos, sin = torch.cos(ang).float(), torch.sin(ang).float()
+    return (torch.stack([cos, sin], -2)[:, :, None].double(),
+            torch.stack([-sin, cos], -2)[:, :, None])
 
 
 def _rotate(x: torch.Tensor, tables) -> torch.Tensor:
-    """x: (B, S, H, hd) rotated by ``rope_tables``' (cos, sin)."""
-    cos, sin = tables
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    """x: (B, S, H, hd) rotated by ``rope_tables``, as XLA's CPU code
+    computes the reference's ``x1 * cos - x2 * sin`` and ``x1 * sin + x2 *
+    cos``: LLVM contracts each into one fused multiply-add of the first
+    product onto the rounded second, ``fma(x1, cos, -(x2 * sin))`` and
+    ``fma(x1, sin, x2 * cos)``.  Both halves at once: x1 times the float64
+    table is exact (24 by 24 bits at most), x2 times the float32 one is
+    rounded to float32, and their float64 sum is rounded once to float32,
+    the same bits on every host and on the card (2 of 4.2 M bfloat16
+    outputs at positions 0-255 part from XLA's, where a rotation of two
+    roundings with torch's float32 tables parted in 350:
+    ``tests/_encdec_sweep.py --rope``).  The mixed-type products promote
+    as they load, so a call is five elementwise launches."""
+    exact, rounded = tables
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = (x1[..., None, :] * exact + x2[..., None, :] * rounded).float()
+    return out.flatten(-2).to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

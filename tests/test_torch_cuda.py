@@ -1,7 +1,8 @@
 """The port's Hopper kernels on a card: ``imc_fused`` (on ±1 and on
 {-1, 0, +1} activations, at every kind of block tile its launch plans and
 at group widths off the paper's), the fused SGA update
-(``sga_update_rows``, ``sga_update``), the fused head training
+(``sga_update_rows``, ``sga_update`` on whole trees in one launch,
+ragged and misaligned leaves), the fused head training
 (``head_train_rows``), the per-group product tile ``imc_mav`` (on ±1 and
 {-1, 0, +1} operands, from unaligned bases, in K chunks) and
 ``int8_matmul`` (both of its plans, at the rails) against their plain
@@ -49,6 +50,8 @@ machine that has PyTorch and a card but no JAX:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +76,8 @@ from _mean_cases import (GAP_FEAT0, HEAD_GW10, gap_head, gap_tie_ring,
 from _sga_cases import head_rows, sga_rows
 
 pytestmark = pytest.mark.cuda
+
+SgaPair = collections.namedtuple("SgaPair", "w b")
 
 # (c_in, c_out, groups, stride, pool): conv1..conv5 of the paper net, and
 # a stride-2 layer whose conv length leaves a pool remainder
@@ -422,6 +427,8 @@ def test_sga_rows_kernel_matches_plain_version(dev, lrs):
 
 @pytest.mark.parametrize("lr", [1 / 16, 0.05, 1 / 128])
 def test_sga_flat_kernel_matches_plain_version(dev, lr):
+    """A two-leaf tree in one K3 launch (one launch a tree since the flat
+    entry takes every leaf of a tree at once)."""
     w, g, a, _, g_th = sga_rows(9, [lr], n=5003)
     tree = lambda v: {"w": torch.tensor(v[0, :4000], device=dev),
                       "b": torch.tensor(v[0, 4000:], device=dev)}
@@ -429,13 +436,89 @@ def test_sga_flat_kernel_matches_plain_version(dev, lr):
     got = sga_ops.sga_update_tree(tree(w), tree(g), tree(a), lr,
                                   float(g_th[0]))
     torch.cuda.synchronize()
-    assert sga_ops.COUNTS_FLAT.launches == 2
+    assert sga_ops.COUNTS_FLAT.launches == 1
     for k in ("w", "b"):
         want = sga_update_ref(tree(w)[k], tree(g)[k], tree(a)[k],
                               torch.tensor(lr, device=dev),
                               torch.tensor(float(g_th[0]), device=dev))
         assert torch.equal(got[0][k], want[0])
         assert torch.equal(got[1][k], want[1])
+
+
+RAGGED = (1, 3, 1023, 1025, 5770)
+
+
+def _ragged_tree(v, dev, offset=0):
+    """Leaves of ``RAGGED`` sizes cut from row 0 of ``v`` in nested dicts,
+    a list and a namedtuple; with ``offset`` 1 each leaf a view 4 bytes
+    into its own allocation."""
+    leaves, i = [], 0
+    for n in RAGGED:
+        buf = torch.tensor(v[0, i:i + n + offset], device=dev)
+        leaves.append(buf[offset:])
+        i += n + offset
+    return {"fc": SgaPair(leaves[0], leaves[1]),
+            "convs": [leaves[2], {"w": leaves[3].reshape(1, -1)}],
+            "head": leaves[4].reshape(577, 10)}
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "view-4B"])
+@pytest.mark.parametrize("lr", [1 / 16, 0.05])
+def test_sga_tree_kernel_one_launch_on_ragged_trees(dev, lr, offset):
+    """Ragged leaves (1 to 5770 elements) with the tie cases of
+    ``sga_rows`` in one launch, bitwise the plain version leaf by leaf, on
+    leaves of their own allocations and on views at a 4-byte offset into
+    them (read in place)."""
+    w, g, a, _, g_th = sga_rows(11, [lr], n=sum(RAGGED) + len(RAGGED))
+    trees = [_ragged_tree(v, dev, offset) for v in (w, g, a)]
+    leaves = [sga_ops._flatten(t)[0] for t in trees]
+    if offset:
+        assert all(v.data_ptr() % 16 == 4 for v in leaves[0])
+    sga_ops.COUNTS_FLAT.reset()
+    got_w, got_a = sga_ops.sga_update_tree(*trees, lr, float(g_th[0]))
+    torch.cuda.synchronize()
+    assert sga_ops.COUNTS_FLAT.launches == 1
+    assert isinstance(got_w["fc"], SgaPair)
+    lr_t = torch.tensor(lr, device=dev)
+    th_t = torch.tensor(float(g_th[0]), device=dev)
+    for lw, lg, la, nw, na in zip(*leaves, sga_ops._flatten(got_w)[0],
+                                  sga_ops._flatten(got_a)[0]):
+        pw, pa = sga_update_ref(lw, lg, la, lr_t, th_t)
+        assert nw.shape == lw.shape
+        assert torch.equal(nw, pw) and torch.equal(na, pa)
+
+
+def test_sga_tree_kernel_splits_only_past_its_leaf_table(dev):
+    """64 leaves in one launch, 65 in two; empty leaves launch nothing."""
+    assert sga_ops.library().sga_update_tree_max_leaves() == \
+        sga_ops.TREE_MAX_LEAVES
+    w, g, a, _, g_th = sga_rows(12, [1 / 32], n=65 * 40)
+    for n_leaves, launches in ((64, 1), (65, 2)):
+        tree = [[torch.tensor(v[0, 40 * i:40 * i + 13 + i % 27], device=dev)
+                 for i in range(n_leaves)] for v in (w, g, a)]
+        sga_ops.COUNTS_FLAT.reset()
+        got_w, got_a = sga_ops.sga_update_tree(*tree, 1 / 32,
+                                               float(g_th[0]))
+        torch.cuda.synchronize()
+        assert sga_ops.COUNTS_FLAT.launches == launches
+        for lw, lg, la, nw, na in zip(*tree, got_w, got_a):
+            pw, pa = sga_update_ref(lw, lg, la, torch.tensor(1 / 32,
+                                                             device=dev),
+                                    torch.tensor(float(g_th[0]),
+                                                 device=dev))
+            assert torch.equal(nw, pw) and torch.equal(na, pa)
+    empty = [torch.zeros(0, device=dev)]
+    sga_ops.COUNTS_FLAT.reset()
+    nw, na = sga_ops.sga_update_tree(empty, empty, empty, 1 / 32, 0.25)
+    assert sga_ops.COUNTS_FLAT.launches == 0 and nw[0].shape == (0,)
+
+
+def test_sga_tree_on_two_devices_raises(dev):
+    """A tree whose leaves lie on the card and on the CPU is refused: a
+    CUDA leaf never runs the plain version."""
+    w = {"a": torch.zeros(8, device=dev), "b": torch.zeros(8)}
+    with pytest.raises(ValueError, match="more than one device"):
+        sga_ops.sga_update_tree(w, w, w, 1 / 16, 0.0625)
 
 
 def test_sga_kernel_rejects_mismatched_operands(dev):

@@ -2,7 +2,8 @@
 package, on the CPU: ``evaluate_hw`` / ``hw_features`` over
 ``_hw_batched`` in every noise mode (a ragged last chunk included),
 ``calibrate_layerwise``, the chip report's power, operations, TOPS/W and
-breakdown, and the paper's pipeline as ``tests/test_system.py`` runs it
+breakdown, the area figures and bias-mapping methods, and the paper's
+pipeline as ``tests/test_system.py`` runs it
 (fold -> noisy evaluation -> compensation -> evaluation -> features ->
 quantized head fine-tune -> head accuracy), step by step.
 
@@ -233,6 +234,22 @@ def test_chip_report_matches_jax(sample_len):
     streamed = energy.kws_streaming_report(kws.layer_stats(CFG))
     assert streamed.power_w == jenergy.kws_streaming_report(
         jkws.layer_stats(JCFG)).power_w
+
+
+def test_area_figures_and_bias_methods_match_jax():
+    """The paper's area figures (``energy.AREA_MM2``, ``AREA_FRAC``,
+    ``TRAIN_AREA_FRAC``) and ``imc.BIAS_MAPPING_METHODS`` are the
+    reference's values, and ``map_bias`` takes every listed method as the
+    reference's does, bit for bit."""
+    assert energy.AREA_MM2 == jenergy.AREA_MM2
+    assert energy.AREA_FRAC == jenergy.AREA_FRAC
+    assert energy.TRAIN_AREA_FRAC == jenergy.TRAIN_AREA_FRAC
+    assert imc.BIAS_MAPPING_METHODS == jimc.BIAS_MAPPING_METHODS
+    bias = np.linspace(-70.0, 70.0, 57, dtype=np.float32)
+    for method in imc.BIAS_MAPPING_METHODS:
+        np.testing.assert_array_equal(
+            imc.map_bias(torch.tensor(bias), method).numpy(),
+            np.asarray(jimc.map_bias(jnp.asarray(bias), method)))
 
 
 def test_system_pipeline_matches_jax(nets):

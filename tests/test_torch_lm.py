@@ -19,10 +19,19 @@ Where the port cannot follow XLA, the comparison states a tolerance:
   refined by a Newton step, an ulp or two off the correctly rounded value
   in about one result in seven; torch's differs.  So 4 float32 ulps.
 * ``FREQ_RTOL``, ``ROPE_F32_ATOL``: RoPE on float32 inputs.  XLA's jitted
-  ``pow``, ``sin`` and ``cos`` are not torch's: ``rope_freqs`` differs in
+  ``pow``, ``sin`` and ``cos`` are not torch's: ``rope_freqs`` differed in
   5 of 16 values at head_dim 32, by an ulp (so 2 float32 ulps), and at
   position p an ulp of a frequency moves the angle by p ulps (measured
-  4e-5 at p = 800), so 1e-4 absolute at positions below 1000.
+  4e-5 at p = 800), so 1e-4 absolute at positions below 1000.  Since the
+  port takes XLA's forms (``layers.rope_freqs``, ``rope_tables``,
+  ``_rotate``), the frequencies are bit for bit.
+* ``ROPE_BITS_OFF``: RoPE's bfloat16 outputs at positions 0-255 whose bits
+  part from the reference's, of 4 194 304.  XLA's ``cos`` / ``sin`` are
+  the C library's ``cosf`` / ``sinf``, not correctly rounded on about 1.4%
+  of angles; the port's are.  Measured 3 (theta 1e4) and 6 (1e6); the
+  port's former forms (the quotient of the rounded power, torch's float32
+  ``cos`` / ``sin``, a rotation of two roundings) parted on 363 and 511.
+  So at most 32.
 * ``LAYER_ULPS``, ``LAYER_SHARE``: the norms, RoPE and attention on
   bfloat16.  The float32 ulps above flip a bfloat16 rounding in a few
   elements of a thousand (measured: 1 to 4 of 2048); a flip is one ulp of
@@ -58,6 +67,7 @@ from repro_torch.models import lm as LM
 NORM_F32_RTOL = 4 * 2.0 ** -23
 FREQ_RTOL = 2.0 ** -22
 ROPE_F32_ATOL = 1e-4
+ROPE_BITS_OFF = 32
 LAYER_ULPS, LAYER_SHARE = 1, 0.01
 LOGIT_ULPS = 2
 ARCHS = ("qwen2.5-14b", "starcoder2-15b", "internvl2-2b")
@@ -278,6 +288,26 @@ def test_rope_against_the_reference(theta):
         L.rope_freqs(32, theta).numpy(),
         np.asarray(jax.jit(JL.rope_freqs, static_argnums=(0, 1))(32, theta)),
         rtol=FREQ_RTOL)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_bits_against_the_reference(theta):
+    """The frequencies bit for bit at head_dim 32, 64 and 128, and the
+    rotation of 4.2 M bfloat16 inputs at positions 0-255 with at most
+    ``ROPE_BITS_OFF`` outputs off the reference's bits."""
+    freqs = jax.jit(JL.rope_freqs, static_argnums=(0, 1))
+    for hd in (32, 64, 128):
+        np.testing.assert_array_equal(L.rope_freqs(hd, theta).numpy(),
+                                      np.asarray(freqs(hd, theta)))
+    x = np.random.default_rng(3).standard_normal(
+        (128, 256, 4, 32)).astype(np.float32)
+    xb, xt = _bf16(x)
+    want = jax.jit(lambda x: JL.apply_rope(x, jnp.arange(256)[None, :],
+                                           theta))(xb)
+    got = L.apply_rope(xt, torch.arange(256), theta)
+    off = int((got.float().numpy()
+               != np.asarray(want.astype(jnp.float32))).sum())
+    assert off <= ROPE_BITS_OFF, f"{off} of {x.size} outputs off"
 
 
 def _attn_params(cfg: JL.AttnConfig, seed: int):

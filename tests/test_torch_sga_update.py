@@ -5,7 +5,8 @@ On the CPU the port's ``sga_update_batch`` (K2, a learning rate and
 threshold per row) and ``sga_update_tree`` (K3, scalar operands) run the
 plain version; the JAX package's run its Pallas kernels in interpret mode.
 The inputs are those of ``tests/test_kernels.py``'s kernel test and, at
-the customization path's width (N = 576 * 10 + 10), Q1.7 weights and
+the customization path's width (N = 576 * 10 + 10) and on trees of
+ragged leaves (1 to 5770 elements), Q1.7 weights and
 gradients and Q1.15 banks with tie cases placed on purpose: gradients at
 exactly the threshold, banks that round to exactly the threshold, sums
 half an LSB from both grids (round half to even), and weights pushed past
@@ -15,6 +16,9 @@ kernel against the same plain version (``tests/test_torch_cuda.py``,
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+import collections
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +84,64 @@ def test_sga_update_tree_matches_reference(n, lr, g_th):
     for x, y in zip(got, want):
         for k in ("w", "b"):
             _eq(x["fc"][k], y["fc"][k])
+
+
+Pair = collections.namedtuple("Pair", "w b")
+RAGGED = (1, 3, 1023, 1025, 5770)
+
+
+def _ragged(v, lib):
+    """Leaves of ``RAGGED`` sizes cut from ``v`` in nested dicts, a list
+    and a namedtuple, 1-D, 2-D and (577, 10)."""
+    ends = np.cumsum(RAGGED)
+    l0, l1, l2, l3, l4 = (lib(v[e - n:e]) for e, n in zip(ends, RAGGED))
+    return {"fc": Pair(l0, l1), "convs": [l2, {"x": l3.reshape(1, -1)}],
+            "head": l4.reshape(577, 10)}
+
+
+@pytest.mark.parametrize("lr,g_th", [(1 / 16, 0.078125), (0.05, 0.078125),
+                                     (1 / 128, 0.5)])
+def test_sga_update_tree_on_ragged_trees_matches_reference(lr, g_th):
+    """The tree entry on a tree of ragged leaves (1 to 5770 elements in
+    nested dicts, a list and a namedtuple) against the reference's
+    ``sga_update_tree``, leaf for leaf, with the tie cases of
+    ``test_sga_update_tree_matches_reference`` (gradients at exactly the
+    threshold, w - lr g half a weight LSB off the grid) spread over every
+    leaf."""
+    n = sum(RAGGED)
+    rng = np.random.default_rng(31)
+    w = np.asarray(J_WEIGHT_Q.quantize(jnp.asarray(
+        rng.uniform(-1, 1, n).astype(np.float32))))
+    g = (rng.normal(size=n) * 0.05).astype(np.float32)
+    a = rng.uniform(-0.05, 0.05, n).astype(np.float32)
+    idx = rng.permutation(n)
+    g[idx[:300]] = np.float32(g_th)
+    g[idx[300:600]] = -np.float32(g_th)
+    g[idx[600:900]] = np.float32(-LSB_W / 2) / np.float32(lr)
+    g[[0, 1, 3]] = [np.float32(g_th), np.float32(-LSB_W / 2) /
+                    np.float32(lr), -np.float32(g_th)]
+    got = ops.sga_update_tree(*(_ragged(v, torch.tensor) for v in (w, g, a)),
+                              lr, g_th)
+    want = jops.sga_update_tree(*(_ragged(v, jnp.asarray)
+                                  for v in (w, g, a)), lr, g_th,
+                                interpret=True)
+    for x, y in zip(got, want):
+        assert isinstance(x["fc"], Pair)
+        got_leaves = jax.tree_util.tree_leaves(x)   # the same key order
+        want_leaves = jax.tree_util.tree_leaves(y)
+        assert len(got_leaves) == len(want_leaves) == len(RAGGED)
+        for p, r in zip(got_leaves, want_leaves):
+            assert tuple(p.shape) == r.shape
+            _eq(p, r)
+
+
+def test_sga_update_tree_refuses_a_tree_on_two_devices():
+    """A tree must lie on one device: the wrapper never splits one between
+    the kernel and the plain version (a leaf on the meta device stands in
+    for a second device here)."""
+    tree = {"a": torch.zeros(8), "b": torch.zeros(8, device="meta")}
+    with pytest.raises(ValueError, match="more than one device"):
+        ops.sga_update_tree(tree, tree, tree, 1 / 16, 0.0625)
 
 
 def test_batch_rows_equal_flat_updates():
